@@ -1,0 +1,27 @@
+"""DFOGraph core on PyTorch: two-level column-oriented partitioning,
+adaptive CSR/DCSR, filtered push message passing, signal/slot engine.
+
+Layering mirrors ``repro.core``: ``phases`` holds the four ProcessEdges
+phases; ``chunkstore`` the ChunkSource contract; ``exchange`` the wire byte
+model; ``executor`` composes them into the LOCAL executor; ``engine`` is the
+public signal/slot API on top.
+"""
+from repro_torch.core.partition import (  # noqa: F401
+    TwoLevelSpec, DistGraph, make_spec, build_dist_graph,
+    scatter_vertex_values, gather_vertex_values, choose_batch_size,
+    row_block_batch_map,
+)
+from repro_torch.core.formats import (  # noqa: F401
+    BlockTiles, BlockTilesHost, ChunkFormats, build_block_tiles,
+    build_formats,
+)
+from repro_torch.core import codec  # noqa: F401
+from repro_torch.core.chunkstore import HBMChunkSource  # noqa: F401
+from repro_torch.core.exchange import (  # noqa: F401
+    FMT_PAIRS, FMT_SLAB, FMT_UVAL, FMT_VPAIRS, batch_wire_bytes,
+    choose_wire_format,
+)
+from repro_torch.core.engine import (  # noqa: F401
+    ADD, MIN, MAX, Engine, EngineConfig, Monoid, accumulate_counters,
+    zero_counters,
+)

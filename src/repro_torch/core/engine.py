@@ -1,0 +1,355 @@
+"""DFOGraph engine: vertex-centric push with signal/slot (paper §3) — the
+LOCAL subset of ``repro.core.engine``.
+
+ProcessEdges runs the paper's four phases:
+  1. generating          — active vertices produce messages (``signal``),
+  2. inter-node pass     — messages are *filtered* (paper §4.3) and exchanged
+                           between partitions,
+  3. intra-node dispatch — messages are routed to destination batches using
+                           the dispatching graph (= the DCSR arrays, §4.2),
+  4. processing          — ``slot`` contributions along edges are combined per
+                           destination vertex and ``apply`` updates vertex state.
+
+The phase implementations live in :mod:`repro_torch.core.phases`; this slice
+runs the ``LOCAL`` executor of :mod:`repro_torch.core.executor` — one device,
+the partition axis a leading tensor axis, "network" traffic accounted by
+counters.  ``slot`` contributions are reduced with an associative +
+commutative **monoid** (add/min/max — all four paper algorithms fit), the
+data-race-free equivalent of the C++ system's serialized slot calls
+(DESIGN.md §2).
+
+Phase 4 runs on a configurable compute backend
+(``EngineConfig.compute_backend``): the flat ``"segment"`` reference, or
+``"block_csr"`` — the hand-written CUDA block-CSR kernel over per-(source
+partition, destination batch) tiles that zero-skips chunks which received
+no messages (selective computation, §4.1/§4.4, on the compute path).
+
+Counters use float32 0-d tensors, as in the reference, so they are the
+same function; algorithm loops accumulate them across iterations in
+Python floats.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core import executor as _executor
+from repro_torch.core.formats import ChunkFormats, build_block_tiles
+from repro_torch.core.partition import DistGraph
+from repro_torch.core.phases import batch_touched, bitmap_model_bytes
+from repro_torch.utils import resolve_device
+
+State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
+
+# The slices of the port that bring what this one does not run.
+SLICE_OOC = "slice 2 (fully out of core)"
+SLICE_DIST_OOC = "slice 3 (distributed out of core)"
+SLICE_MULTIQUERY = "slice 4 (multi-query serving)"
+SLICE_MESH = "slice 5 (the mesh executor)"
+SLICE_PROCESS = "slice 6 (process mode)"
+
+
+# ---------------------------------------------------------------------------
+# Monoids
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Monoid:
+    name: str
+    identity: float
+
+    def segment(self, data, segment_ids, num_segments):
+        """Reduce ``data`` [..., E] into ``num_segments`` segments along
+        the last axis (``segment_ids`` [..., E] int64); empty segments
+        hold the identity."""
+        if self.name not in ("add", "min", "max"):
+            raise ValueError(self.name)
+        out = torch.full(data.shape[:-1] + (num_segments,), self.identity,
+                         dtype=data.dtype, device=data.device)
+        if self.name == "add":
+            return out.scatter_add_(-1, segment_ids, data)
+        return out.scatter_reduce_(-1, segment_ids, data,
+                                   reduce="a" + self.name)
+
+
+ADD = Monoid("add", 0.0)
+MIN = Monoid("min", float(np.finfo(np.float32).max))
+MAX = Monoid("max", float(np.finfo(np.float32).min))
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Tunables mirroring the paper's knobs, with the reference's field
+    names and defaults.  Fields this slice does not run (the out-of-core,
+    distributed and multi-query ones) keep their defaults; anything else
+    raises ``NotImplementedError`` naming the slice that brings it."""
+
+    enable_filtering: bool = True
+    """Apply the paper's §4.3 need-list message filter in phase 2."""
+
+    filter_skip_threshold: float = 2.0
+    """Skip the filter toward a destination once ``|L_pq| >= threshold *
+    |M_p|`` (the paper's 2x heuristic)."""
+
+    msg_bytes: int = 4
+    """Payload bytes per message value in the I/O and network byte models."""
+
+    enable_adaptive_formats: bool = True
+    """Per-chunk runtime CSR/DCSR selection (paper §4.1)."""
+
+    account_io: bool = True
+    """Maintain the modeled I/O counters (vertex/edge/bitmap bytes)."""
+
+    compression: bool = True
+    """The §4.1 compression tier (DESIGN.md §9) in the byte models: the
+    three-way {CSR-pruned, DCSR-raw, DCSR-delta} read choice and the
+    delta-varint wire encodings.  Results are bit-identical either way."""
+
+    compute_backend: str = "segment"
+    """Phase-4 combine: ``"segment"`` (flat per-edge gather + scatter
+    reduction; the reference) or ``"block_csr"`` (the CUDA block-CSR
+    kernel with zero-skipping — DESIGN.md §4).  Non-affine slot functions
+    fall back to segment with a warning."""
+
+    block_tile: int = 8
+    """Tile edge length T for the block_csr backend (tiles are [T, T]);
+    the CUDA kernel is built for T = 8."""
+
+    executor: str = "auto"
+    """``"auto"`` is LOCAL here; ``"ooc"`` / ``"dist_ooc"`` come with
+    later slices."""
+
+    verify_io: bool = True
+    """ooc / dist_ooc measured-vs-model audit (later slices)."""
+
+    ooc_prefetch_depth: int = 2
+    """ooc chunk prefetch depth (later slices)."""
+
+    num_workers: int = 1
+    """W for ``executor="dist_ooc"`` (later slices)."""
+
+    parallel_workers: bool = False
+    """dist_ooc only (later slices)."""
+
+    device_decode: bool | None = None
+    """ooc / dist_ooc on-device chunk decode (later slices)."""
+
+    physical_sparse_exchange: bool | None = None
+    """SHARD_MAP only (later slices)."""
+
+    num_queries: int = 1
+    """Q for the multi-query serving surface (later slices)."""
+
+
+COUNTER_KEYS = (
+    "msgs_generated", "msgs_sent", "msgs_sent_nofilter",
+    "net_bytes", "net_bytes_raw", "net_bytes_nofilter",
+    "msgs_dispatched", "edges_touched", "chunks_read",
+    "chunks_read_csr", "chunks_read_dcsr", "chunks_read_dcsr_delta",
+    "edge_read_bytes", "edge_read_bytes_raw",
+    "vertex_read_bytes", "vertex_write_bytes",
+    "msg_disk_bytes", "seek_cost",
+    # SHARD_MAP physical wire (zero on the LOCAL executor).
+    "net_payload_elems", "net_payload_elems_dense",
+    "measured_net_payload_elems",
+    "exchange_compacted_iters", "exchange_dense_iters",
+)
+
+
+def zero_counters(device=None) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in COUNTER_KEYS}
+
+
+def accumulate_counters(acc: dict, new: dict) -> dict:
+    """Host-side accumulation across iterations (python floats); one
+    device-to-host copy for all the tensor counters of a call."""
+    keys = list(new)
+    vals = [new[k] for k in keys]
+    if vals and all(isinstance(v, torch.Tensor) for v in vals):
+        vals = torch.stack([v.reshape(()) for v in vals]).tolist()
+    return {k: acc.get(k, 0.0) + float(v) for k, v in zip(keys, vals)}
+
+
+# ---------------------------------------------------------------------------
+# Engine
+# ---------------------------------------------------------------------------
+
+class Engine:
+    """Executes signal/slot programs over a two-level-partitioned graph on
+    one device (``"cuda"`` unless the caller passes ``device``)."""
+
+    counter_keys = COUNTER_KEYS
+
+    def __init__(self, graph: DistGraph, fmts: ChunkFormats,
+                 config: EngineConfig = EngineConfig(),
+                 mesh=None, axis: str = "part", store=None, proc_ctx=None,
+                 *, device=None):
+        if config.executor not in ("auto", "ooc", "dist_ooc"):
+            raise ValueError(f"unknown executor: {config.executor!r}")
+        if config.executor == "ooc" or store is not None:
+            raise NotImplementedError(
+                f"executor='ooc' and chunk stores come with {SLICE_OOC}")
+        if config.executor == "dist_ooc":
+            raise NotImplementedError(
+                f"executor='dist_ooc' comes with {SLICE_DIST_OOC}")
+        if mesh is not None or config.physical_sparse_exchange:
+            raise NotImplementedError(
+                f"the SHARD_MAP executor comes with {SLICE_MESH}")
+        if proc_ctx is not None:
+            raise NotImplementedError(
+                f"process-mode dist_ooc comes with {SLICE_PROCESS}")
+        if config.num_queries < 1:
+            raise ValueError(
+                f"num_queries must be >= 1, got {config.num_queries}")
+        if config.num_queries > 1:
+            raise NotImplementedError(
+                f"num_queries > 1 comes with {SLICE_MULTIQUERY}")
+        if config.parallel_workers:
+            raise ValueError(
+                "parallel_workers applies only to executor='dist_ooc' (the "
+                "other executors have no per-worker loops to overlap)")
+        if config.device_decode and not config.compression:
+            raise ValueError(
+                "device_decode=True requires compression=True: uncompressed "
+                "chunk payloads are plain column memcpys with nothing to "
+                "decode on device")
+        self.device = resolve_device(device)
+        self.config = config
+        self._host_graph = graph
+        self.graph = graph.to(self.device)
+        self.fmts = fmts.to(self.device)
+        spec = graph.spec
+        gid = (np.asarray(spec.boundaries[:-1], np.int32)[:, None]
+               + np.arange(spec.v_max, dtype=np.int32)[None, :])
+        self.global_id = torch.from_numpy(gid).to(self.device)   # [P, V]
+        # block_csr backend state (built lazily on first use)
+        self._block = None
+        self._block_host = None
+        self._block_vals_cache: dict = {}
+        self._probe_cache: dict = {}
+        self._pe_cache: dict = {}
+        self._warned_slot_fallback = False
+
+    def init_state(self, **arrays) -> State:
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in arrays.items()}
+
+    # -- block_csr backend plumbing ----------------------------------------
+    def _ensure_block(self):
+        if self._block is None:
+            bt, self._block_host = build_block_tiles(
+                self._host_graph, tile=self.config.block_tile)
+            self._block = bt.to(self.device)
+
+    def _probe_slot(self, slot_fn, monoid):
+        """Cached affine-slot probe; warns once and returns None when the
+        slot cannot be lowered to tiles (segment fallback)."""
+        pkey = _executor.slot_probe_key(slot_fn, monoid)
+        if pkey is not None and pkey in self._probe_cache:
+            probe = self._probe_cache[pkey]
+        else:
+            probe = _executor.probe_slot_affine(
+                slot_fn, monoid, self.graph.edge_data, self.graph.edge_valid)
+            if pkey is not None:
+                self._probe_cache[pkey] = probe
+        if probe is None and not self._warned_slot_fallback:
+            warnings.warn(
+                "compute_backend='block_csr' requires slot(m, d) affine "
+                "in m (constant slope for min/max); falling back to the "
+                "segment backend for this slot function.")
+            self._warned_slot_fallback = True
+        return probe
+
+    def _block_slot_values(self, slot_fn, monoid):
+        """Probe + lower (slot_fn, monoid) to value tiles; returns
+        (mode, a_const, device tensors) or None for segment fallback."""
+        probe = self._probe_slot(slot_fn, monoid)
+        if probe is None:
+            return None
+        self._ensure_block()
+        key, mode, a_const, a, b = probe
+        if key not in self._block_vals_cache:
+            arrays_np = _executor.build_value_tiles(
+                self._block_host, monoid, mode, a, b)
+            self._block_vals_cache[key] = {
+                k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays_np.items()}
+        return mode, a_const, self._block_vals_cache[key]
+
+    # -- ProcessVertices ----------------------------------------------------
+    def process_vertices(self, state: State,
+                         work_fn: Callable[[State, torch.Tensor], tuple],
+                         active: torch.Tensor | None = None):
+        """work_fn(state, global_id) -> (updates: State, ret per-vertex).
+
+        Updates vertices in ``active`` (all valid, if None); returns
+        (new_state, sum of ret over active vertices, counters).  Batches with
+        no active vertex are skipped in the I/O model (paper §4.4)."""
+        g, cfg = self.graph, self.config
+        vertex_valid = g.vertex_valid
+        amask = vertex_valid if active is None else (active & vertex_valid)
+        updates, ret = work_fn(state, self.global_id)
+        new_state = dict(state)
+        for k, v in updates.items():
+            new_state[k] = torch.where(amask, v, state[k])
+        total = torch.sum(torch.where(amask, ret, 0).to(torch.float32))
+        counters = zero_counters(self.device)
+        if cfg.account_io:
+            arrays_bytes = sum(v.element_size() for v in state.values())
+            touched = batch_touched(amask, g.spec.batch_size)
+            counters["vertex_read_bytes"] = (
+                touched * arrays_bytes + bitmap_model_bytes(amask))
+            counters["vertex_write_bytes"] = touched * arrays_bytes
+        return new_state, total, counters
+
+    # -- ProcessEdges ---------------------------------------------------------
+    def process_edges(self, state: State,
+                      signal_fn: Callable[[State, torch.Tensor], torch.Tensor],
+                      slot_fn: Callable[[torch.Tensor, torch.Tensor],
+                                        torch.Tensor],
+                      monoid: Monoid,
+                      apply_fn: Callable,
+                      active: torch.Tensor | None = None):
+        """One ProcessEdges call.
+
+        signal_fn(state, global_id) -> per-vertex message value
+        slot_fn(msg, edge_data)     -> per-edge contribution
+        apply_fn(state, agg, has_msg, global_id)
+            -> (updates: State, new_active bool, ret per-vertex)
+        ``updates``/``ret`` take effect only where a message arrived
+        (has_msg); combine with ProcessVertices for unconditional updates.
+        Returns (new_state, new_active, total_ret, counters)."""
+        backend = self.config.compute_backend
+        if backend not in ("segment", "block_csr"):
+            raise ValueError(f"unknown compute_backend: {backend!r}")
+        mode_meta, vals = None, None
+        if backend == "block_csr":
+            lowered = self._block_slot_values(slot_fn, monoid)
+            if lowered is None:
+                backend = "segment"
+            else:
+                mode, a_const, vals = lowered
+                mode_meta = (mode, a_const)
+        # Cache the built step per algorithm: fresh lambdas each iteration
+        # share code identity, so the step is built once per algorithm.
+        keys = tuple(_executor.fn_code_key(f)
+                     for f in (signal_fn, slot_fn, apply_fn))
+        cache_key = None
+        if all(k is not None for k in keys):
+            cache_key = keys + (monoid.name, backend, mode_meta,
+                                active is not None)
+        fn = self._pe_cache.get(cache_key) if cache_key is not None else None
+        if fn is None:
+            fn = _executor.make_local_pe(
+                self, signal_fn, slot_fn, monoid, apply_fn, backend,
+                mode_meta)
+            if cache_key is not None:
+                self._pe_cache[cache_key] = fn
+        bt = self._block if backend == "block_csr" else None
+        return fn(state, active, self.graph, self.fmts, self.global_id,
+                  bt, vals)

@@ -1,0 +1,288 @@
+"""Block-CSR selective combine — the ProcessEdges phase-4 hot loop.
+
+The (dst batch x src partition) adjacency of each destination partition is
+tiled into dense T x T blocks, only nonempty tiles are stored, and phase 4
+folds each row block's *live* tiles (those whose chunk received messages)
+against the message vector.  :func:`block_csr_combine` does that for every
+destination partition in one launch of the hand-written CUDA kernel in
+``csrc/block_csr_combine.cu``.  On CPU tensors it runs
+:func:`block_csr_combine_ref`, the plain PyTorch version of the same
+function, which the tests hold against the JAX kernel.
+
+Source note.  The kernel replaces the Pallas TPU kernel
+``block_csr_combine`` of ``src/repro/kernels/csr_spmv.py`` (body
+``_make_combine_kernel``).  On an H100 it is bound by bytes: per live
+tile 2–3 tiles of 256 B (C, and V and/or B) plus 8 B of slot index and
+64 B of gathered vector, and 64 B out per row — under 0.5 flop per byte.
+The design moves exactly those bytes, in wide loads: one warp per
+(destination partition, row block) loops over the row's live tiles only
+(the TPU grid's dead steps are gone, and one launch covers all
+destinations), each lane loads two neighbouring cells of a tile as one
+float2 (a coalesced 256 B per warp), partial results stay in registers
+and rows are reduced with warp shuffles.  Add modes accumulate in double,
+so the float32 result does not depend on the summation order; min/max are
+exact.  A warp's time grows with its row, and R-MAT hub rows hold tens of
+thousands of live tiles: balancing them is a later version's work.
+
+The host-side structure builders (:func:`build_tile_struct`,
+:func:`compact_live_tiles`, :func:`build_block_csr`) are numpy copied from
+the reference, so the tile structures are bit-equal to JAX's.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+MODES = ("add", "add_b", "min", "max")
+KERNEL_TILES = (8,)              # tile sizes the CUDA kernel is built for
+_SOURCE = "block_csr_combine.cu"
+_REF_CHUNK = 1 << 22             # live tiles per step of the plain version
+
+
+# ---------------------------------------------------------------------------
+# The combine: wrapper, CUDA launch, plain version
+# ---------------------------------------------------------------------------
+
+def block_csr_combine(row_ptr, tile_idx, tile_col, row_cnt,
+                      tiles_v, tiles_b, tiles_cnt, xv, xc, *,
+                      mode: str, tile: int, identity: float = 0.0):
+    """Selective monoid combine over runtime-compacted block-CSR tiles.
+
+    Every argument carries a leading destination axis Q: one launch
+    serves all Q destination partitions.
+
+    row_ptr [Q, R+1] i32: static slot offsets per destination row block.
+    tile_idx [Q, S] i32: storage tile per compacted slot (live-first per row).
+    tile_col [Q, S] i32: source block id per compacted slot.
+    row_cnt [Q, R] i32: live tiles per row; slots past it are never read.
+    tiles_v / tiles_b [Q, S, T, T] f32 or None depending on ``mode``
+      (add: tiles_v; add_b: tiles_v + tiles_b; min/max: tiles_b).
+    tiles_cnt [Q, S, T, T] f32: per-cell valid-edge multiplicities.
+    xv [Q, C*T] f32: slot-transformed masked messages (identity where absent).
+    xc [Q, C*T] f32: 0/1 message-presence mask.
+
+    Returns (val [Q, R*T] f32 — the monoid aggregate, identity where
+    nothing arrived; hascnt [Q, R*T] f32 — live edges that delivered).
+    CPU tensors run :func:`block_csr_combine_ref`; CUDA tensors launch the
+    kernel (and count the launch in ``block_csr_combine.launches``) or
+    raise."""
+    if mode not in MODES:
+        raise ValueError(f"unknown combine mode {mode!r}")
+    kind = row_cnt.device.type
+    if kind == "cpu":
+        return block_csr_combine_ref(
+            row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
+            tiles_cnt, xv, xc, mode=mode, tile=tile, identity=identity)
+    if kind != "cuda":
+        raise ValueError(f"block_csr_combine runs on cpu or cuda, not {kind}")
+    return _launch(row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
+                   tiles_cnt, xv, xc, mode=mode, tile=tile,
+                   identity=identity)
+
+
+block_csr_combine.launches = 0
+
+
+def _library():
+    from repro_torch.kernels.build import load_library
+    lib = load_library(_SOURCE)
+    fn = lib.block_csr_combine_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ci, ci, ci, ci, ci, ci, ctypes.c_float] + [vp] * 12
+        fn.restype = ci
+        lib.block_csr_combine_error_string.argtypes = [ci]
+        lib.block_csr_combine_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
+            tiles_cnt, xv, xc, *, mode, tile, identity):
+    if tile not in KERNEL_TILES:
+        raise ValueError(f"the CUDA combine kernel is built for tile sizes "
+                         f"{KERNEL_TILES}, not {tile}")
+    need_v, need_b = mode in ("add", "add_b"), mode != "add"
+    if (need_v and tiles_v is None) or (need_b and tiles_b is None):
+        raise ValueError(f"mode {mode!r} needs "
+                         f"{'tiles_v' if need_v else ''} "
+                         f"{'tiles_b' if need_b else ''}".strip())
+    tiles_v = tiles_v if need_v else None
+    tiles_b = tiles_b if need_b else None
+    q_cnt, n_rows = row_cnt.shape
+    n_slots = tile_idx.shape[1]
+    n_src = xv.shape[1]
+    dev = row_cnt.device
+    shapes = {"row_ptr": (row_ptr, torch.int32, (q_cnt, n_rows + 1)),
+              "tile_idx": (tile_idx, torch.int32, (q_cnt, n_slots)),
+              "tile_col": (tile_col, torch.int32, (q_cnt, n_slots)),
+              "row_cnt": (row_cnt, torch.int32, (q_cnt, n_rows)),
+              "tiles_cnt": (tiles_cnt, torch.float32,
+                            (q_cnt, n_slots, tile, tile)),
+              "xv": (xv, torch.float32, (q_cnt, n_src)),
+              "xc": (xc, torch.float32, (q_cnt, n_src))}
+    for name, tv in (("tiles_v", tiles_v), ("tiles_b", tiles_b)):
+        if tv is not None:
+            shapes[name] = (tv, torch.float32, (q_cnt, n_slots, tile, tile))
+    for name, (x, dtype, shape) in shapes.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % 8:
+            raise ValueError(f"{name} must be contiguous and 8-byte aligned")
+    if n_src % tile:
+        raise ValueError(f"source vector length {n_src} is not a multiple "
+                         f"of the tile {tile}")
+    val = torch.empty((q_cnt, n_rows * tile), dtype=torch.float32,
+                      device=dev)
+    hascnt = torch.empty_like(val)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.block_csr_combine_launch(
+            MODES.index(mode), tile, q_cnt, n_rows, n_slots, n_src,
+            float(identity), ptr(row_ptr), ptr(tile_idx), ptr(tile_col),
+            ptr(row_cnt), ptr(tiles_v), ptr(tiles_b), ptr(tiles_cnt),
+            ptr(xv), ptr(xc), val.data_ptr(), hascnt.data_ptr(), stream)
+    if code != 0:
+        msg = lib.block_csr_combine_error_string(code).decode()
+        raise RuntimeError(f"block_csr_combine launch failed: {msg} "
+                           f"(cudaError {code})")
+    block_csr_combine.launches += 1
+    return val, hascnt
+
+
+def block_csr_combine_ref(row_ptr, tile_idx, tile_col, row_cnt,
+                          tiles_v, tiles_b, tiles_cnt, xv, xc, *,
+                          mode: str, tile: int, identity: float = 0.0):
+    """Plain PyTorch version of :func:`block_csr_combine` (same arguments,
+    same result, any tile size, any device).
+
+    Expands the live slots of every (q, row) into a flat list, gathers
+    their tiles and vector blocks, and folds them into the rows:
+    ``index_add_`` of the tile-vector products (accumulated in float64, as
+    the kernel does, so the float32 result does not depend on the order)
+    for add/add_b, ``scatter_reduce_`` of the float32 row extrema of
+    ``B + xv`` for min/max.  Works through the live slots in steps of
+    ``_REF_CHUNK`` tiles to bound its scratch memory."""
+    if mode not in MODES:
+        raise ValueError(f"unknown combine mode {mode!r}")
+    t = tile
+    q_cnt, n_rows = row_cnt.shape
+    n_slots = tile_idx.shape[1]
+    dev = row_cnt.device
+    extremum = mode in ("min", "max")
+    acc = torch.float32 if extremum else torch.float64
+    val = torch.full((q_cnt * n_rows, t), float(identity), dtype=acc,
+                     device=dev)
+    hascnt = torch.zeros((q_cnt * n_rows, t), dtype=torch.float64,
+                         device=dev)
+
+    # one entry per live slot: its flat (q, row) and compacted position
+    counts = row_cnt.reshape(-1).to(torch.int64)
+    owner = torch.repeat_interleave(
+        torch.arange(q_cnt * n_rows, device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    j = torch.arange(owner.numel(), device=dev) - first[owner]
+    q = owner // n_rows
+    pos = row_ptr[:, :-1].reshape(-1).to(torch.int64)[owner] + j
+    flat = lambda x, i: x.reshape(-1)[q * n_slots + i]
+    slot = flat(tile_idx, pos).to(torch.int64)
+    col = flat(tile_col, pos).to(torch.int64)
+
+    n_src = xv.shape[1]
+    lanes = torch.arange(t, device=dev)
+    for lo in range(0, owner.numel(), _REF_CHUNK):
+        sl = slice(lo, lo + _REF_CHUNK)
+        tid = q[sl] * n_slots + slot[sl]
+        xi = (q[sl] * n_src + col[sl] * t)[:, None] + lanes     # [L, T]
+        xvb, xcb = xv.reshape(-1)[xi], xc.reshape(-1)[xi]
+        tile_of = lambda x: x.reshape(-1, t, t)[tid]             # [L, T, T]
+        hascnt.index_add_(0, owner[sl], torch.bmm(
+            tile_of(tiles_cnt).double(), xcb.double()[:, :, None])[..., 0])
+        if extremum:
+            red = torch.amin if mode == "min" else torch.amax
+            rows = red(tile_of(tiles_b) + xvb[:, None, :], dim=2)
+            val.scatter_reduce_(0, owner[sl, None].expand(-1, t), rows,
+                                reduce="amin" if mode == "min" else "amax")
+        else:
+            contrib = torch.bmm(tile_of(tiles_v).double(),
+                                xvb.double()[:, :, None])[..., 0]
+            if mode == "add_b":
+                contrib += torch.bmm(tile_of(tiles_b).double(),
+                                     xcb.double()[:, :, None])[..., 0]
+            val.index_add_(0, owner[sl], contrib)
+    val = val.to(torch.float32).reshape(q_cnt, n_rows * t)
+    hascnt = hascnt.to(torch.float32).reshape(q_cnt, n_rows * t)
+    return val, hascnt
+
+
+# ---------------------------------------------------------------------------
+# Host-side structure builders
+# ---------------------------------------------------------------------------
+
+def build_tile_struct(row_blk: np.ndarray, col_blk: np.ndarray,
+                      n_row_blocks: int, n_col_blocks: int):
+    """Edge block coordinates -> ragged tile structure sorted by (row, col).
+
+    Returns (slot_row [S] i32, slot_col [S] i32, row_ptr [R+1] i32,
+    edge_slot [E] i32 — which slot each edge's cell belongs to)."""
+    key = row_blk.astype(np.int64) * n_col_blocks + col_blk.astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    slot_row = (uniq // n_col_blocks).astype(np.int32)
+    slot_col = (uniq % n_col_blocks).astype(np.int32)
+    counts = np.bincount(slot_row, minlength=n_row_blocks)
+    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return slot_row, slot_col, row_ptr, inv.astype(np.int32)
+
+
+def compact_live_tiles(slot_row: np.ndarray, slot_col: np.ndarray,
+                       row_ptr: np.ndarray, live: np.ndarray,
+                       n_rows: int):
+    """Host-side mirror of the engine's runtime live-tile compaction.
+
+    Packs live slots to the front of their row's slot range (the layout
+    ``block_csr_combine`` expects): returns (tile_idx [S], tile_col [S],
+    row_cnt [R]) with dead positions zeroed."""
+    s = slot_row.shape[0]
+    row_cnt = np.bincount(slot_row[live], minlength=n_rows).astype(np.int32)
+    cnt_cum = np.concatenate([[0], np.cumsum(row_cnt)]).astype(np.int64)
+    rank = np.cumsum(live) - live            # exclusive rank among live
+    dest = np.where(live, row_ptr[slot_row] + (rank - cnt_cum[slot_row]), s)
+    tile_idx = np.zeros((s,), np.int32)
+    tile_col = np.zeros((s,), np.int32)
+    keep = dest < s
+    tile_idx[dest[keep]] = np.arange(s, dtype=np.int32)[keep]
+    tile_col[dest[keep]] = slot_col[keep]
+    return tile_idx, tile_col, row_cnt
+
+
+def build_block_csr(src, dst, data, num_vertices: int, tile: int):
+    """Host-side: edge list -> padded block-CSR (numpy).
+
+    Returns dict(tiles [n, T, T] f32, tile_col [n] i32,
+    row_ptr [n_rows+1] i32, n_rows, n_cols, max_tiles_per_row)."""
+    t = tile
+    n_blocks = -(-num_vertices // t)
+    slot_row, slot_col, rp, edge_slot = build_tile_struct(
+        np.asarray(dst) // t, np.asarray(src) // t, n_blocks, n_blocks)
+    max_tiles = max(1, int((rp[1:] - rp[:-1]).max()) if n_blocks else 1)
+
+    tiles = np.zeros((n_blocks * max_tiles, t, t), np.float32)
+    tile_col = np.zeros((n_blocks * max_tiles,), np.int32)
+    row_ptr = np.arange(0, n_blocks * max_tiles + 1, max_tiles,
+                        dtype=np.int32)
+    # rectangular re-layout: slot i of row r -> padded slot r*max_tiles + i
+    padded_slot = (slot_row.astype(np.int64) * max_tiles
+                   + (np.arange(slot_row.shape[0]) - rp[slot_row]))
+    tile_col[padded_slot] = slot_col
+    np.add.at(tiles,
+              (padded_slot[edge_slot],
+               np.asarray(dst) % t, np.asarray(src) % t),
+              np.asarray(data, np.float32))
+    return dict(tiles=tiles, tile_col=tile_col, row_ptr=row_ptr,
+                n_rows=n_blocks, n_cols=n_blocks,
+                max_tiles_per_row=max_tiles)

@@ -1,0 +1,149 @@
+"""The port's LOCAL engine against JAX LOCAL on identical structures
+(carried across through repro_torch.interop), both compute backends, all
+four algorithms: values, iteration counts and every counter.
+
+Tolerances: BFS/SSSP/WCC are MIN-monoid folds, exact in any order, so
+their values are bit-equal; PageRank sums in another order (rtol/atol
+1e-5, the repo's cross-backend tolerance).  Every counter is an integer
+count or byte total and must be equal, except ``seek_cost``, a float32
+sum whose order differs (rtol 1e-5)."""
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Engine as JEngine
+from repro.core import EngineConfig as JConfig
+from repro.core import algorithms as jalg
+from repro.core import build_dist_graph as j_build_dist_graph
+from repro.core import build_formats as j_build_formats
+from repro.core import make_spec as j_make_spec
+from repro.data.graphs import rmat_graph
+
+from repro_torch import interop
+from repro_torch.core import ADD, Engine, EngineConfig
+from repro_torch.core import algorithms as alg
+
+from torchhelp import GRAPH, SPEC, jax_fields
+
+BACKENDS = ["segment", "block_csr"]
+
+
+@pytest.fixture(scope="module")
+def problem():
+    g = rmat_graph(GRAPH["scale"], GRAPH["edge_factor"], seed=GRAPH["seed"],
+                   weighted=True)
+    spec = j_make_spec(g, **SPEC)
+    out = {"g": g, "src": int(np.argmax(g.out_degrees()))}
+    for name, graph in (("fwd", g), ("rev", g.reversed())):
+        jdg = j_build_dist_graph(graph, spec)
+        jfm = j_build_formats(jdg)
+        out[name] = (jdg, jfm,
+                     interop.dist_graph_from_arrays(jax_fields(jdg),
+                                                    device="cpu"),
+                     interop.formats_from_arrays(jax_fields(jfm),
+                                                 device="cpu"))
+    return out
+
+
+def engines(problem, name, backend):
+    jdg, jfm, dg, fm = problem[name]
+    return (JEngine(jdg, jfm, JConfig(compute_backend=backend)),
+            Engine(dg, fm, EngineConfig(compute_backend=backend),
+                   device="cpu"))
+
+
+def run(problem, algo, backend):
+    jeng, eng = engines(problem, "fwd", backend)
+    src = problem["src"]
+    if algo == "pagerank":
+        return jalg.pagerank(jeng, 5), alg.pagerank(eng, 5)
+    if algo == "bfs":
+        return jalg.bfs(jeng, src), alg.bfs(eng, src)
+    if algo == "sssp":
+        return jalg.sssp(jeng, src), alg.sssp(eng, src)
+    jrev, rev = engines(problem, "rev", backend)
+    return jalg.wcc(jeng, jrev), alg.wcc(eng, rev)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("algo", ["pagerank", "bfs", "sssp", "wcc"])
+def test_matches_jax_local(problem, algo, backend):
+    (jv, js), (v, s) = run(problem, algo, backend)
+    if algo == "pagerank":
+        np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
+    else:
+        assert v.dtype == jv.dtype
+        np.testing.assert_array_equal(v.view(np.int32), jv.view(np.int32))
+    assert s.iterations == js.iterations
+    assert s.counters.keys() == js.counters.keys()
+    for k, ref in js.counters.items():
+        if k == "seek_cost":
+            assert s.counters[k] == pytest.approx(ref, rel=1e-5), k
+        else:
+            assert s.counters[k] == ref, (k, s.counters[k], ref)
+    np.testing.assert_allclose(s.per_iter_return, js.per_iter_return,
+                               rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_matches_oracles(problem, backend):
+    g, src = problem["g"], problem["src"]
+    _, eng = engines(problem, "fwd", backend)
+    _, rev = engines(problem, "rev", backend)
+    n = g.num_vertices
+    pr, _ = alg.pagerank(eng, 5)
+    np.testing.assert_allclose(pr, alg.ref_pagerank(n, g.src, g.dst, 5),
+                               rtol=1e-4, atol=1e-7)
+    lv, stats = alg.bfs(eng, src)
+    np.testing.assert_array_equal(lv, alg.ref_bfs(n, g.src, g.dst, src))
+    assert stats.iterations >= 2
+    ds, _ = alg.sssp(eng, src)
+    np.testing.assert_allclose(ds, alg.ref_sssp(n, g.src, g.dst, g.data,
+                                                src), rtol=1e-5, atol=1e-5)
+    lb, _ = alg.wcc(eng, rev)
+    np.testing.assert_array_equal(lb, alg.ref_wcc(n, g.src, g.dst))
+
+
+def test_nonaffine_slot_falls_back(problem):
+    """A slot quadratic in the message cannot be tiled; the block engine
+    warns once and gives the segment backend's results."""
+    _, seg = engines(problem, "fwd", "segment")
+    _, blk = engines(problem, "fwd", "block_csr")
+
+    def go(eng):
+        state = eng.init_state(x=torch.ones_like(eng.global_id,
+                                                 dtype=torch.float32))
+        return eng.process_edges(
+            state,
+            signal_fn=lambda s, gid: s["x"],
+            slot_fn=lambda m, d: m * m * d,          # non-affine
+            monoid=ADD,
+            apply_fn=lambda s, agg, has, gid: ({"x": agg}, has & False, agg))
+
+    s1, _, t1, c1 = go(seg)
+    with pytest.warns(UserWarning, match="affine"):
+        s2, _, t2, c2 = go(blk)
+    np.testing.assert_array_equal(s1["x"].numpy(), s2["x"].numpy())
+    assert float(t1) == float(t2)
+    assert blk._block is None       # no tiles were built for it
+
+
+def test_default_device_is_the_gpu(problem, monkeypatch):
+    """No device argument means CUDA; without one the engine raises
+    instead of drifting to the CPU."""
+    _, _, dg, fm = problem["fwd"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(dg, fm)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(executor="ooc"), "slice 2"),
+    (dict(executor="dist_ooc"), "slice 3"),
+    (dict(num_queries=2), "slice 4"),
+    (dict(physical_sparse_exchange=True), "slice 5"),
+])
+def test_later_slices_raise(problem, kw, match):
+    _, _, dg, fm = problem["fwd"]
+    with pytest.raises(NotImplementedError, match=match):
+        Engine(dg, fm, EngineConfig(**kw), device="cpu")
