@@ -3,15 +3,15 @@
 
     python3 chip_smoke.py [--scale 21]
 
-Builds the hand-written CUDA kernel from ``src/repro_torch/kernels/csrc``,
-then drives the port's main path — the LOCAL signal/slot engine with the
-``block_csr`` backend — through PageRank (5 iterations), BFS, SSSP and WCC
-on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted, seed 0:
-2,097,152 vertices, 33,554,432 edges; P = 8 partitions, 8 x 8 tiles).
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+(one ``nvcc`` per source, all started together), then drives the port's two
+main paths on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted,
+seed 0: 2,097,152 vertices, 33,554,432 edges; P = 8 partitions, 8 x 8
+tiles), through PageRank (5 iterations), BFS, SSSP and WCC.
 
-For each algorithm it
-  * resets the kernel's launch count, runs the algorithm through the
-    public entry points, and reads the count (it must have grown);
+LOCAL (the in-memory engine, ``block_csr`` backend).  For each algorithm it
+  * resets the combine kernel's launch count, runs the algorithm through
+    the public entry points, and reads the count (it must have grown);
   * holds the values against the numpy oracles (BFS and WCC exactly,
     PageRank within rtol 1e-4 / atol 1e-7, SSSP against the float64
     Bellman-Ford oracle within rtol 1e-5 / atol 1e-5 — the tolerances of
@@ -25,8 +25,33 @@ For each algorithm it
     the plain version and one PyTorch library call computing the same
     function, beside the least time the card could take.
 
+OOC (fully out of core: ``executor="ooc"``, ``block_csr``, chunks decoded
+on the card).  It
+  * builds the forward and reversed chunk stores of the same graph in a
+    temporary directory under ``.smoke_tmp/`` (removed at exit);
+  * decodes every chunk of the forward store in every representation it
+    stores on the card and with the host codec, and requires bit-equality;
+  * holds the varint stencil and both scan modes against their plain
+    versions (bit-equal) on the largest chunk's streams and on one long
+    stream (partition 1's whole dst-residue section), and times them
+    beside the library calls and the byte bound;
+  * runs the four algorithms with the launch counts of all three kernels
+    set to 0 just before each and read just after (each must have run),
+    and requires every chunk read to have been decoded on the card, the
+    measured I/O to equal the model, the values to equal LOCAL's (BFS,
+    SSSP, WCC bit for bit, PageRank within 1e-5) and the oracles', every
+    modeled counter to equal LOCAL's (rtol 1e-5: LOCAL sums its counters
+    in float32) and the iteration counts to match;
+  * (PageRank: add, WCC: min) replays the combine kernel's largest call
+    of the run — one streamed batch of the all-active first iteration,
+    its ragged rows and value tiles built on the card — against its plain
+    version with LOCAL's tolerances, and times it as on LOCAL;
+  * runs BFS once more with the host decode: values and counters
+    bit-identical except the device-decoded chunk count, which is 0.
+
 Every phase prints one JSON line; the line before the last holds the
-kernel table, the last line is ``{"ok": true, "device": {...}}``.  Any
+kernel table (the combine once per mode and path, each row measured on
+that path's inputs beside that path's launches), the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check raises and the script exits non-zero.  Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
 result.
@@ -38,13 +63,26 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_csr_combine.cu"
 TPU_KERNEL = "src/repro/kernels/csr_spmv.py:203"
+VARINT_SOURCE = "src/repro_torch/kernels/csrc/varint.cu"
+TPU_SCAN = "src/repro/kernels/varint.py:88"
+TPU_STENCIL = "src/repro/kernels/varint.py:159"
+SOURCES = ("block_csr_combine.cu", "varint.cu")
+DEVICE = "cuda"
+LIBRARY_CALLS = {
+    "add": "torch.cumsum(x, 0, dtype=torch.int32)",
+    "max": "torch.cummax(x, 0) (values and indices, no 0 seed)",
+    "stencil": None,    # no single PyTorch call decodes LEB128
+}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 PR_ITERS = 5
@@ -70,23 +108,25 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 @contextlib.contextmanager
-def first_combine_call(phases):
-    """Record the arguments of the first block_csr_combine call the engine
-    makes inside the block (the kernel's inputs at the main path's
-    shapes)."""
-    real = phases.block_csr_combine
+def recorded_combine(module, largest=False):
+    """Record the arguments of one block_csr_combine call the engine makes
+    through ``module`` (``phases`` on LOCAL, ``executor`` on OOC) inside
+    the block: the first call, or with ``largest`` the call with the most
+    tile slots — the kernel's inputs at the main path's shapes."""
+    real = module.block_csr_combine
     seen = {}
 
     def recording(*args, **kw):
-        if not seen:
+        if not seen or (largest and
+                        args[1].shape[1] > seen["args"][1].shape[1]):
             seen.update(args=args, kw=kw)
         return real(*args, **kw)
 
-    phases.block_csr_combine = recording
+    module.block_csr_combine = recording
     try:
         yield seen
     finally:
-        phases.block_csr_combine = real
+        module.block_csr_combine = real
 
 
 def live_slots(row_cnt):
@@ -183,9 +223,9 @@ def library_call(args, kw):
     return lambda: torch.sparse.mm(a, x)
 
 
-def check_kernel(csr, args, kw, reps=10):
-    """Kernel vs plain version on the same inputs; returns the table row
-    fields (times in ms)."""
+def check_kernel(csr, args, kw, path, reps=10):
+    """Kernel vs plain version on the same inputs (one call of ``path``,
+    LOCAL or OOC); returns the table row fields (times in ms)."""
     import torch
     mode = kw["mode"]
     val, hc = csr.block_csr_combine(*args, **kw)
@@ -209,7 +249,7 @@ def check_kernel(csr, args, kw, reps=10):
     library_ms = cuda_ms(lib, 5)
     del lib
     bound, bound_by, bytes_ = combine_bound_ms(args, mode)
-    emit(phase="kernel_vs_plain", mode=mode, max_abs_err=err,
+    emit(phase="kernel_vs_plain", mode=mode, path=path, max_abs_err=err,
          kernel_ms=ms, ref_ms=plain_ms, library_ms=library_ms,
          bound_ms=bound, bound_by=bound_by, bytes=bytes_,
          live_tiles=live_slots(args[3]),
@@ -218,6 +258,143 @@ def check_kernel(csr, args, kw, reps=10):
          row_blocks=int(args[3].shape[1]))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# OOC: the stores, the decode on the card, the varint kernels
+# ---------------------------------------------------------------------------
+
+def store_stats(store):
+    """Bytes on disk, chunks, the largest chunk, and how many chunks'
+    dst residues sum to 2**31 or more (the reference's int32 device
+    restore wraps there; the port's must not)."""
+    from repro_torch.core import REP_DCSR, codec
+    nbytes = sum(os.path.getsize(os.path.join(store.root, f))
+                 for f in os.listdir(store.root)
+                 if os.path.isfile(os.path.join(store.root, f)))
+    chunks = list(store.nonempty_chunks())
+    largest, wraps, best = None, [], -1
+    for q, p, k in chunks:
+        lay = store._layout_of(q)
+        n_e = int(lay.edges[p, k])
+        _, payload, _ = store.read_chunk_bytes(q, p, k, REP_DCSR)
+        res = codec.varint_decode(payload[:int(lay.dstv_nb[p, k])], n_e)
+        total = int(res.astype("int64").sum())
+        if total >= 2**31:
+            wraps.append(dict(q=q, p=p, k=k, edges=n_e, residue_sum=total))
+        if n_e > best:
+            best, largest = n_e, (q, p, k)
+    store.reset_io_counters()
+    return dict(bytes=nbytes, chunks=len(chunks), largest_chunk=largest,
+                largest_chunk_edges=best, residue_sum_wraps=len(wraps),
+                wrapping_chunks=wraps)
+
+
+def decode_check(store, device):
+    """Every chunk, every representation it stores: the decode on the card
+    bit-equal to the host codec.  Returns the number of decodes checked."""
+    import torch
+    from repro_torch.core import REP_CSR, REP_DCSR, REP_DCSR_DELTA
+    checked = 0
+    for q, p, k in store.nonempty_chunks():
+        lay = store._layout_of(q)
+        reps = (REP_DCSR, REP_DCSR_DELTA) + (
+            (REP_CSR,) if lay.has_csr[p, k] else ())
+        for rep in reps:
+            index, payload, _ = store.read_chunk_bytes(q, p, k, rep)
+            host = store.decode_chunk(q, p, k, rep, index, payload)
+            dev = store.decode_chunk_device(q, p, k, rep, index, payload,
+                                            device=device)
+            for name, h, d in zip(("src", "dst", "data"), host, dev):
+                ht = torch.from_numpy(h).to(device)
+                if ht.dtype != d.dtype or not torch.equal(ht, d):
+                    raise AssertionError(
+                        f"chunk (q={q}, p={p}, k={k}) rep {rep}: device "
+                        f"decode of {name} differs from the host codec")
+            checked += 1
+    torch.cuda.synchronize()
+    store.reset_io_counters()
+    return checked
+
+
+def varint_inputs(store, largest, device):
+    """The stencil and scan inputs of two streams: the largest chunk's and
+    partition 1's whole dst-residue section.  For each: the residue bytes
+    (stencil), their decoded values (scan add, wrapping where the sums
+    pass 2**31) and a forward-fill stream of positions (scan max: the
+    chunk's run heads; the long stream's varint terminators)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import REP_DCSR, codec
+    q, p, k = largest
+    lay = store._layout_of(q)
+    index, payload, _ = store.read_chunk_bytes(q, p, k, REP_DCSR)
+    vnb, n_e = int(lay.dstv_nb[p, k]), int(lay.edges[p, k])
+    heads = np.zeros(n_e, np.int32)
+    heads[np.frombuffer(index, "<i4")[1::2]] = 1
+    chunk_bytes = np.frombuffer(payload[:vnb], np.uint8)
+    chunk_res = codec.varint_decode(chunk_bytes, n_e).astype(np.int32)
+    pos = np.arange(n_e, dtype=np.int32)
+    parts = []
+    for qq, pp, kk in store.nonempty_chunks():
+        if qq != 1:
+            continue
+        lay1 = store._layout_of(1)
+        _, pay, _ = store.read_chunk_bytes(1, pp, kk, REP_DCSR)
+        parts.append(np.frombuffer(pay[:int(lay1.dstv_nb[pp, kk])],
+                                   np.uint8))
+    long_bytes = np.concatenate(parts)
+    long_res = codec.varint_decode(
+        long_bytes, int(((long_bytes & 0x80) == 0).sum())).astype(np.int32)
+    lpos = np.arange(long_bytes.size, dtype=np.int32)
+    long_heads = np.where((long_bytes & 0x80) == 0, lpos, 0).astype(np.int32)
+    store.reset_io_counters()
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)
+    return {
+        "largest_chunk": dict(stencil=t(chunk_bytes), add=t(chunk_res),
+                              max=t(np.where(heads > 0, pos, 0).astype(np.int32))),
+        "partition_1": dict(stencil=t(long_bytes), add=t(long_res),
+                            max=t(long_heads)),
+    }
+
+
+def check_varint_kernel(vk, name, x):
+    """Kernel vs plain version (bit-equal) on ``x``; times the kernel, the
+    plain version and the library call, beside the byte bound (scan: 8 B
+    per element, stencil: 9 B per byte, at the card's memory rate)."""
+    import torch
+    if name == "stencil":
+        kern = lambda: vk.byte_stencil(x)
+        plain = lambda: vk.byte_stencil_ref(x)
+        library = None
+        per_elem = 9
+    else:
+        kern = lambda: vk.blocked_scan(x, mode=name)
+        plain = lambda: vk.blocked_scan_ref(x, mode=name)
+        library = ((lambda: torch.cumsum(x, 0, dtype=torch.int32))
+                   if name == "add" else (lambda: torch.cummax(x, 0)))
+        per_elem = 8
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    for o, r in zip(outs, refs):
+        if o.dtype != r.dtype or not torch.equal(o, r):
+            raise AssertionError(f"varint {name}: the kernel is not "
+                                 "bit-equal to its plain version")
+    if library is not None and name == "add":
+        if not torch.equal(library(), out):
+            raise AssertionError("scan add differs from torch.cumsum")
+    ms = cuda_ms(kern, 20)
+    plain_ms = cuda_ms(plain, 5)
+    library_ms = None if library is None else cuda_ms(library, 20)
+    bytes_ = x.numel() * per_elem
+    return dict(elements=x.numel(), max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                library=LIBRARY_CALLS[name] or "none: no single PyTorch "
+                "call decodes LEB128",
+                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=bytes_, gb_per_s=bytes_ / ms / 1e6)
 
 
 def main(argv=None) -> int:
@@ -243,7 +420,7 @@ def main(argv=None) -> int:
     )
     from repro_torch.core import algorithms as alg
     from repro_torch.data.graphs import rmat_graph
-    from repro_torch.kernels import build, csr_spmv
+    from repro_torch.kernels import build, csr_spmv, varint
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -260,13 +437,19 @@ def main(argv=None) -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
 
-    # -- 2. kernel build ---------------------------------------------------
+    # -- 2. kernel build: one nvcc per source, all started together -------
     t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.load_library, SOURCES))
     csr_spmv._library()
-    log = build.library_path("block_csr_combine.cu").with_suffix(".log")
+    varint._library()
+    ptxas = {}
+    for src_name in SOURCES:
+        log = build.library_path(src_name).with_suffix(".log")
+        ptxas[src_name] = [ln.strip() for ln in log.read_text().splitlines()
+                           if "registers" in ln or "spill" in ln]
     emit(phase="kernel_build", seconds=time.perf_counter() - t0,
-         ptxas=[ln.strip() for ln in log.read_text().splitlines()
-                if "registers" in ln or "spill" in ln])
+         sources=list(SOURCES), ptxas=ptxas)
 
     # -- 3. the graph ------------------------------------------------------
     t0 = time.perf_counter()
@@ -285,6 +468,7 @@ def main(argv=None) -> int:
     blk_cfg = EngineConfig(compute_backend="block_csr", block_tile=8)
     seg_cfg = EngineConfig(compute_backend="segment")
     kernel_rows = {}
+    local_results = {}
 
     def run_algorithm(name, make_engines, drive, check_values, path_mode,
                       check_modes=()):
@@ -294,7 +478,7 @@ def main(argv=None) -> int:
         setup_s = time.perf_counter() - t0
         csr_spmv.block_csr_combine.launches = 0
         t0 = time.perf_counter()
-        with first_combine_call(phases) as first:
+        with recorded_combine(phases) as first:
             vals, stats = drive(blk)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
@@ -342,11 +526,13 @@ def main(argv=None) -> int:
                 args[5], args[7] = -args[5], -args[7]
                 kw["identity"] = -kw["identity"]
             kw["mode"] = mode
-            kernel_rows[mode] = check_kernel(csr_spmv, tuple(args), kw)
+            kernel_rows[mode] = check_kernel(csr_spmv, tuple(args), kw,
+                                             "local")
             del args
         del blk, seg, first
         gc.collect()
         torch.cuda.empty_cache()
+        local_results[name] = (vals, stats)
         return launches
 
     def fwd_engines(cfg):
@@ -362,19 +548,29 @@ def main(argv=None) -> int:
             np.testing.assert_array_equal(v, ref)
         return check
 
-    # -- 4. the main path, one algorithm at a time ---------------------------
+    # -- 4. LOCAL, one algorithm at a time ----------------------------------
+    checks = {
+        "pagerank": close(alg.ref_pagerank(n, g.src, g.dst, PR_ITERS),
+                          1e-4, 1e-7),
+        "bfs": exact(alg.ref_bfs(n, g.src, g.dst, source)),
+        "sssp": close(alg.ref_sssp(n, g.src, g.dst, g.data, source), 1e-5,
+                      1e-5),
+        "wcc": exact(alg.ref_wcc(n, g.src, g.dst).astype(np.float32)),
+    }
+    drives = {
+        "pagerank": lambda e: alg.pagerank(e, PR_ITERS),
+        "bfs": lambda e: alg.bfs(e, source),
+        "sssp": lambda e: alg.sssp(e, source),
+        "wcc": lambda pair: alg.wcc(*pair),
+    }
     launches = {}
     launches["pagerank"] = run_algorithm(
-        "pagerank", fwd_engines, lambda e: alg.pagerank(e, PR_ITERS),
-        close(alg.ref_pagerank(n, g.src, g.dst, PR_ITERS), 1e-4, 1e-7),
+        "pagerank", fwd_engines, drives["pagerank"], checks["pagerank"],
         "add", ("add", "add_b"))
     launches["bfs"] = run_algorithm(
-        "bfs", fwd_engines, lambda e: alg.bfs(e, source),
-        exact(alg.ref_bfs(n, g.src, g.dst, source)), "min")
+        "bfs", fwd_engines, drives["bfs"], checks["bfs"], "min")
     launches["sssp"] = run_algorithm(
-        "sssp", fwd_engines, lambda e: alg.sssp(e, source),
-        close(alg.ref_sssp(n, g.src, g.dst, g.data, source), 1e-5, 1e-5),
-        "min")
+        "sssp", fwd_engines, drives["sssp"], checks["sssp"], "min")
     dg_rev = build_dist_graph(g.reversed(), spec)
     fm_rev = build_formats(dg_rev)
 
@@ -382,28 +578,210 @@ def main(argv=None) -> int:
         return Engine(dg, fm, cfg), Engine(dg_rev, fm_rev, cfg)
 
     launches["wcc"] = run_algorithm(
-        "wcc", wcc_engines, lambda pair: alg.wcc(*pair),
-        exact(alg.ref_wcc(n, g.src, g.dst).astype(np.float32)),
-        "min", ("min", "max"))
+        "wcc", wcc_engines, drives["wcc"], checks["wcc"], "min",
+        ("min", "max"))
 
-    # -- 5. the kernel table: one row per mode the main path runs -----------
+    tmp_root = os.path.join(REPO, ".smoke_tmp")
+    os.makedirs(tmp_root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="stores-", dir=tmp_root)
+    try:
+        ooc = run_ooc(tmp, dg=dg, fm=fm, dg_rev=dg_rev, fm_rev=fm_rev,
+                      checks=checks, drives=drives,
+                      local_results=local_results)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 9. the kernel table: combine rows per mode and path, each measured
+    # on one call of that path and beside that path's launches only ------
     table = []
-    for mode, algos in (("add", ("pagerank",)),
-                        ("min", ("bfs", "sssp", "wcc"))):
-        row = kernel_rows[mode]
+    for path, rows, counts in (
+            ("LOCAL", kernel_rows, launches),
+            ("OOC", ooc["combine_rows"],
+             {a: v["combine"] for a, v in ooc["launches"].items()})):
+        for mode, algos in (("add", ("pagerank",)),
+                            ("min", ("bfs", "sssp", "wcc"))):
+            row = rows[mode]
+            table.append(dict(
+                name=f"block_csr_combine[{mode}] {path}", route="cuda",
+                source=KERNEL_SOURCE, replaces=TPU_KERNEL,
+                launches=sum(counts[a] for a in algos),
+                max_abs_err=row["max_abs_err"], ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    for name, key, source_line in (
+            ("blocked_scan[add]", "add", TPU_SCAN),
+            ("blocked_scan[max]", "max", TPU_SCAN),
+            ("varint_stencil", "stencil", TPU_STENCIL)):
+        row = ooc["kernel_rows"][key]
+        n_launch = sum(v[key] for v in ooc["launches"].values())
         table.append(dict(
-            name=f"block_csr_combine[{mode}]", route="cuda",
-            source=KERNEL_SOURCE, replaces=TPU_KERNEL,
-            launches=sum(launches[a] for a in algos),
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            name=name, route="cuda", source=VARINT_SOURCE,
+            replaces=source_line, launches=n_launch,
+            max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def run_ooc(tmp, *, dg, fm, dg_rev, fm_rev, checks, drives,
+            local_results):
+    """The OOC phases (5–8) of :func:`main` on its graphs (forward and
+    reversed), held against its oracle ``checks`` and LOCAL results; the
+    stores live under ``tmp``.  Returns the per-algorithm launch counts
+    and the varint kernel rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ChunkStore, Engine, EngineConfig, executor
+    from repro_torch.core.engine import COUNTER_KEYS, MEASURED_PAIRS
+    from repro_torch.kernels import csr_spmv, varint
+    dev = torch.device(DEVICE)
+
+    # -- 5. the stores -------------------------------------------------------
+    stores = {}
+    for name, (gg, ff) in (("fwd", (dg, fm)), ("rev", (dg_rev, fm_rev))):
+        t0 = time.perf_counter()
+        stores[name] = ChunkStore.build(gg, ff, os.path.join(tmp, name))
+        build_s = time.perf_counter() - t0
+        st = store_stats(stores[name])
+        emit(phase="ooc_store", store=name, build_s=build_s, **st)
+        if name == "fwd":
+            largest = st["largest_chunk"]
+
+    # -- 6. every chunk decoded on the card == the host codec ---------------
+    t0 = time.perf_counter()
+    checked = decode_check(stores["fwd"], dev)
+    emit(phase="decode_check", store="fwd", decodes_checked=checked,
+         seconds=time.perf_counter() - t0)
+
+    # -- 7. the varint kernels against their plain versions ------------------
+    kernel_rows = {}
+    inputs = varint_inputs(stores["fwd"], largest, dev)
+    for stream, xs in inputs.items():
+        for key in ("add", "max", "stencil"):
+            row = check_varint_kernel(varint, key, xs[key])
+            emit(phase="kernel_vs_plain", kernel=key, input=stream, **row)
+            if stream == "largest_chunk":
+                kernel_rows[key] = row
+    del inputs
+    varint.reset_launches()
+
+    # -- 8. the OOC path, one algorithm at a time ----------------------------
+    cfg = EngineConfig(executor="ooc", compute_backend="block_csr")
+    results, launches, combine_rows = {}, {}, {}
+    for name in ("pagerank", "bfs", "sssp", "wcc"):
+        engines = [Engine(dg, fm, cfg, store=stores["fwd"])]
+        if name == "wcc":
+            engines.append(Engine(dg_rev, fm_rev, cfg,
+                                  store=stores["rev"]))
+        if not all(e.device_decode for e in engines):
+            raise AssertionError("device_decode is not on by default on "
+                                 "the card")
+        arg = tuple(engines) if name == "wcc" else engines[0]
+        torch.cuda.reset_peak_memory_stats()
+        varint.reset_launches()
+        csr_spmv.block_csr_combine.launches = 0
+        t0 = time.perf_counter()
+        with recorded_combine(executor, largest=True) as largest_call:
+            vals, stats = drives[name](arg)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts = dict(combine=csr_spmv.block_csr_combine.launches,
+                      stencil=varint.byte_stencil.launches,
+                      add=varint.blocked_scan.launches_by_mode["add"],
+                      max=varint.blocked_scan.launches_by_mode["max"])
+        launches[name] = counts
+        for kname, cnt in counts.items():
+            if cnt < 1:
+                raise AssertionError(f"ooc {name}: kernel {kname} was "
+                                     "never launched")
+        peak = torch.cuda.max_memory_allocated()
+        c = stats.counters
+        if c["measured_chunks_device_decoded"] != c["measured_chunks_read"]:
+            raise AssertionError(f"ooc {name}: not every chunk read was "
+                                 "decoded on the card")
+        for mk, ak in MEASURED_PAIRS:
+            if abs(c[mk] - c[ak]) > 0.5:
+                raise AssertionError(f"ooc {name}: {mk} {c[mk]} != {ak} "
+                                     f"{c[ak]}")
+        checks[name](vals)
+        lvals, lstats = local_results[name]
+        if name == "pagerank":
+            np.testing.assert_allclose(vals, lvals, rtol=1e-5, atol=1e-5)
+        elif not np.array_equal(vals.view(np.int32), lvals.view(np.int32)):
+            raise AssertionError(f"ooc {name}: values differ from LOCAL's")
+        if stats.iterations != lstats.iterations:
+            raise AssertionError(f"ooc {name}: {stats.iterations} "
+                                 f"iterations, LOCAL {lstats.iterations}")
+        for k in COUNTER_KEYS:
+            a, b = c[k], lstats.counters[k]
+            if abs(a - b) > 1e-3 + 1e-5 * abs(b):
+                raise AssertionError(f"ooc {name}: counter {k} = {a}, "
+                                     f"LOCAL {b}")
+        # the kernel against its plain version on OOC's own inputs: the
+        # streamed batch with the most tiles (all-active first iteration)
+        mode = largest_call["kw"]["mode"]
+        if mode != ("add" if name == "pagerank" else "min"):
+            raise AssertionError(f"ooc {name}: ran combine mode {mode}")
+        if name in ("pagerank", "wcc"):
+            combine_rows[mode] = check_kernel(
+                csr_spmv, largest_call["args"], largest_call["kw"], "ooc")
+        del largest_call
+        # warm: the same run again; its host wall split per iteration
+        for e in engines:
+            e.ooc_wall = dict.fromkeys(e.ooc_wall, 0.0)
+        t0 = time.perf_counter()
+        drives[name](arg)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        split = {k: sum(e.ooc_wall[k] for e in engines) / stats.iterations
+                 for k in engines[0].ooc_wall}
+        edges = c["edges_touched"]
+        disk = (c["measured_edge_read_bytes"]
+                + c["measured_vertex_read_bytes"]
+                + c["measured_vertex_write_bytes"])
+        emit(phase="ooc_path", algorithm=name, iterations=stats.iterations,
+             launches=counts, cold_s=cold_s, warm_s=warm_s,
+             edges_touched=edges,
+             edges_per_s=edges / warm_s,
+             chunks_read=c["measured_chunks_read"],
+             chunks_device_decoded=c["measured_chunks_device_decoded"],
+             measured_edge_read_bytes=c["measured_edge_read_bytes"],
+             measured_disk_bytes=disk, max_memory_allocated=peak,
+             split_per_iteration_s=split)
+        results[name] = (vals, stats)
+        del engines, arg
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 8b. BFS with the host decode: bit-identical but the decoded count ---
+    eng = Engine(dg, fm, EngineConfig(executor="ooc",
+                                      compute_backend="block_csr",
+                                      device_decode=False),
+                 store=stores["fwd"])
+    varint.reset_launches()
+    t0 = time.perf_counter()
+    hv, hs = drives["bfs"](eng)
+    host_s = time.perf_counter() - t0
+    dv, ds = results["bfs"]
+    if not np.array_equal(hv.view(np.int32), dv.view(np.int32)):
+        raise AssertionError("ooc bfs: host decode values differ")
+    for k, v in ds.counters.items():
+        want = 0.0 if k == "measured_chunks_device_decoded" else v
+        if hs.counters[k] != want:
+            raise AssertionError(f"ooc bfs host decode: counter {k} = "
+                                 f"{hs.counters[k]}, expected {want}")
+    if varint.byte_stencil.launches or varint.blocked_scan.launches:
+        raise AssertionError("the host decode launched decode kernels")
+    emit(phase="ooc_host_decode", algorithm="bfs", seconds=host_s,
+         iterations=hs.iterations, bit_identical=True)
+    return dict(launches=launches, kernel_rows=kernel_rows,
+                combine_rows=combine_rows)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 adaptive CSR/DCSR, filtered push message passing, signal/slot engine.
 
 Layering mirrors ``repro.core``: ``phases`` holds the four ProcessEdges
-phases; ``chunkstore`` the ChunkSource contract; ``exchange`` the wire byte
-model; ``executor`` composes them into the LOCAL executor; ``engine`` is the
-public signal/slot API on top.
+phases; ``chunkstore`` the storage tier (on-disk chunk store, vertex spill,
+prefetcher and the ChunkSource contract); ``exchange`` the wire byte model;
+``executor`` composes them into the LOCAL and OOC executors; ``engine`` is
+the public signal/slot API on top.
 """
 from repro_torch.core.partition import (  # noqa: F401
     TwoLevelSpec, DistGraph, make_spec, build_dist_graph,
@@ -16,7 +17,11 @@ from repro_torch.core.formats import (  # noqa: F401
     build_formats,
 )
 from repro_torch.core import codec  # noqa: F401
-from repro_torch.core.chunkstore import HBMChunkSource  # noqa: F401
+from repro_torch.core.chunkstore import (  # noqa: F401
+    REP_CSR, REP_DCSR, REP_DCSR_DELTA, ChunkPrefetcher, ChunkStore,
+    ChunkStoreError, DeviceChunkDecoder, DiskChunkSource, HBMChunkSource,
+    VertexSpill,
+)
 from repro_torch.core.exchange import (  # noqa: F401
     FMT_PAIRS, FMT_SLAB, FMT_UVAL, FMT_VPAIRS, batch_wire_bytes,
     choose_wire_format,

@@ -1,11 +1,912 @@
-"""Storage tier — the ChunkSource contract executors see (DESIGN.md §6).
+"""Storage tier for fully-out-of-core execution (paper §4.1–§4.4) — the port
+of ``repro.core.chunkstore`` for one host.
 
-This slice holds the everything-resident realization, :class:`HBMChunkSource`,
-copied from ``repro.core.chunkstore``; the on-disk chunk store, vertex
-spill and prefetcher join it with the out-of-core executor.
+Edge chunks and vertex arrays live on disk, the executor issues only the
+reads the selective schedule marks necessary, and every request is counted
+in **measured** bytes that the engine cross-checks against the analytic
+counters (DESIGN.md §6).  The on-disk formats are the reference's, byte for
+byte: a store or spill written by either package is read by the other.
+
+* :class:`ChunkStore` — every (src partition ``p``, dst batch ``k``) edge
+  chunk of destination partition ``q`` serialized into ``edges_q{q}.bin``
+  as ``[DCSR pairs | delta-varint pairs | CSR idx (when accepted) | dst
+  residues | data]`` (compressed layout, DESIGN.md §9; or the legacy
+  ``[pairs | idx | (dst, data) payload]`` with ``compression=False``), with
+  the format decision baked into an atomically written JSON manifest
+  (version 4: per-section CRC32s and a manifest self-checksum).
+* :class:`DeviceChunkDecoder` — the decode of a compressed chunk on the
+  engine's device through :mod:`repro_torch.kernels.varint`; the decoded
+  triple stays there for the combine.
+* :class:`VertexSpill` — per-batch disk residence for the vertex state
+  arrays plus the active bitmap, with per-batch CRC32 sidecars.
+* :class:`ChunkPrefetcher` — a thread that reads (and decodes) the chunks
+  of dst-batch *i+1* while the executor combines dst-batch *i*.
+
+The ChunkSource contract (DESIGN.md §6): :class:`HBMChunkSource` serves the
+LOCAL executor from device tensors, :class:`DiskChunkSource` the OOC
+executor from a store.  Dispatch metadata and per-chunk format stats stay
+memory-resident (host numpy) in both — control state, not bulk data.
+
+Worker shards (``build_sharded``) and the spill's recovery hooks come with
+the later slices that use them.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import mmap
+import os
+import queue
+import threading
+import time
+from typing import Iterator, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import codec
+from repro_torch.core.formats import _np
+from repro_torch.utils import (IntegrityError, atomic_write_json, ceil_div,
+                               crc32, json_crc, resolve_device, token_ctx)
+
+EDGE_DT = np.dtype([("dst", "<i4"), ("data", "<f4")])   # 8 B per edge
+PAIR_DT = np.dtype([("src", "<i4"), ("idx", "<i4")])    # 8 B per DCSR entry
+MANIFEST_NAME = "manifest.json"
+# v4: per-chunk section CRC32s (``chunk_crcs``, aligned row-for-row with
+# ``chunks``) and a manifest self-checksum (``manifest_crc``).  Older
+# versions are rejected with an error naming both versions.
+MANIFEST_VERSION = 4
+
+# Section slots of a chunk's CRC row, in chunk_crcs order.
+CRC_PAIRS, CRC_DELTA, CRC_IDX, CRC_PAYLOAD = range(4)
+_CRC_SECTION_NAMES = ("dcsr-pairs", "pair-delta", "csr-idx", "payload")
+
+# Per-chunk representation codes, as they appear in read schedules.
+REP_DCSR = 0        # raw (src, idx) pair section
+REP_CSR = 1         # CSR idx section (pruned-dst payload when compressed)
+REP_DCSR_DELTA = 2  # delta-varint pair section (compressed stores only)
+
+
+def manifest_self_crc(manifest: dict) -> int:
+    """CRC32 of a manifest dict, excluding its own ``manifest_crc`` field."""
+    return json_crc({k: v for k, v in manifest.items()
+                     if k != "manifest_crc"})
+
+
+class ChunkStoreError(RuntimeError):
+    """A chunk store on disk is unreadable or structurally broken (missing /
+    truncated manifest, missing edge files).  Always names the path."""
+
+
+def bitmap_nbytes(num_rows: int, num_cols: int) -> int:
+    """Exact on-disk size of a [rows, cols] bitmap packed per row."""
+    return num_rows * ceil_div(num_cols, 8)
+
+
+# ---------------------------------------------------------------------------
+# ChunkStore: edge chunks on disk
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _ChunkLayout:
+    """Per-destination chunk directory decoded from the manifest."""
+    offset: np.ndarray     # int64 [P, B], -1 for empty chunks
+    nnz: np.ndarray        # int64 [P, B] DCSR pair count
+    edges: np.ndarray      # int64 [P, B] payload entries
+    has_csr: np.ndarray    # bool  [P, B]
+    pair_nb: np.ndarray    # int64 [P, B] delta-varint pair section bytes
+    dstv_nb: np.ndarray    # int64 [P, B] dst residue section bytes
+    crc: np.ndarray        # uint32 [P, B, 4] per-section CRC32s
+
+
+class ChunkStore:
+    """Disk-resident (src partition, dst batch) edge chunks + manifest.
+
+    File layout per destination partition q (``edges_q{q}.bin``): chunks in
+    (p, k) order, each nonempty chunk one contiguous region.
+    **Compressed** stores (the default)::
+
+        [DCSR pairs: nnz * 8 B] [delta-varint pairs: pair_nb B]
+        [CSR idx: (|V_p| + 1) * 4 B, if has_csr]
+        [dst residues: dstv_nb B] [data: E * 4 B  (f32, CSR-by-source order)]
+
+    so a read picks ONE index section plus the shared columnar payload:
+    raw-pair DCSR = ``dcsr_bytes``, delta-varint DCSR = ``dcsr_delta_bytes``,
+    pruned-dst CSR = ``csr_bytes`` of the analytic model, byte for byte.
+    **Uncompressed** stores keep the legacy layout::
+
+        [DCSR pairs: nnz * 8 B] [CSR idx, if has_csr]
+        [payload: E * 8 B  ((dst, data) per edge)]
+
+    whose reads equal the ``*_raw`` model twins.  Reads are mmap slices;
+    the measured counters (``chunks_read`` / ``bytes_read``) are kept under
+    a lock so the prefetch thread can read concurrently.
+    """
+
+    def __init__(self, root: str, manifest: dict):
+        self.root = root
+        self.manifest = manifest
+        p_cnt = manifest["num_partitions"]
+        b_cnt = manifest["num_batches"]
+        self.num_partitions = p_cnt
+        self.num_batches = b_cnt
+        self.part_sizes = np.asarray(manifest["partition_sizes"], np.int64)
+        self.compression = bool(manifest.get("compression", False))
+        self.values_elided = bool(manifest.get("values_elided", False))
+        self.batch_size = int(manifest["batch_size"])
+        self.partitions = tuple(manifest.get("partitions", range(p_cnt)))
+        owned = set(self.partitions)
+        self._layout: list[_ChunkLayout | None] = []
+        for q in range(p_cnt):
+            if q not in owned:
+                self._layout.append(None)
+                continue
+            offset = np.full((p_cnt, b_cnt), -1, np.int64)
+            nnz = np.zeros((p_cnt, b_cnt), np.int64)
+            edges = np.zeros((p_cnt, b_cnt), np.int64)
+            has_csr = np.zeros((p_cnt, b_cnt), bool)
+            pair_nb = np.zeros((p_cnt, b_cnt), np.int64)
+            dstv_nb = np.zeros((p_cnt, b_cnt), np.int64)
+            crc = np.zeros((p_cnt, b_cnt, 4), np.uint32)
+            for row, crow in zip(manifest["chunks"][q],
+                                 manifest["chunk_crcs"][q]):
+                p, k, off, nz, ne, hc, pnb, vnb = row
+                offset[p, k] = off
+                nnz[p, k] = nz
+                edges[p, k] = ne
+                has_csr[p, k] = bool(hc)
+                pair_nb[p, k] = pnb
+                dstv_nb[p, k] = vnb
+                crc[p, k] = crow
+            self._layout.append(_ChunkLayout(offset, nnz, edges, has_csr,
+                                             pair_nb, dstv_nb, crc))
+        self._mm: dict[int, mmap.mmap] = {}
+        self._device_decoders: dict = {}
+        self._lock = threading.Lock()
+        self.chunks_read = 0
+        self.bytes_read = 0
+
+    def _layout_of(self, q: int) -> _ChunkLayout:
+        lay = self._layout[q]
+        if lay is None:
+            raise ChunkStoreError(
+                f"destination partition {q} is not owned by the chunk store "
+                f"at {self.root} (owns {list(self.partitions)})")
+        return lay
+
+    def nonempty_chunks(self):
+        """Every stored chunk as (q, p, k), in file order."""
+        for q in self.partitions:
+            lay = self._layout_of(q)
+            for p, k in zip(*np.nonzero(lay.offset >= 0)):
+                yield q, int(p), int(k)
+
+    # -- construction --------------------------------------------------------
+    @classmethod
+    def build(cls, g, fmts, root: str,
+              partitions: Sequence[int] | None = None,
+              compression: bool = True) -> "ChunkStore":
+        """Preprocessing: serialize every nonempty chunk; commit manifest.
+
+        ``g`` / ``fmts`` are the port's DistGraph / ChunkFormats (tensors on
+        any device).  ``partitions`` restricts the store to a subset of
+        destination partitions; by default it owns all of them.
+        ``compression`` selects the layout and must match the engine's
+        ``EngineConfig.compression`` (validated at Engine construction).
+
+        Encoding is batched per destination partition: runs, pair deltas
+        and dst residues of every chunk of ``q`` are computed and
+        varint-encoded in one whole-partition numpy pass (per-value codecs
+        concatenate byte-exactly), and the per-chunk loop only slices and
+        writes.  With ``fmts.values_elided`` (unweighted graph, compressed
+        layout) the uniform f32 data column is dropped from every chunk
+        and re-synthesized at decode (DESIGN.md §10)."""
+        spec = g.spec
+        p_cnt, b_cnt = spec.num_partitions, spec.num_batches
+        bs = spec.batch_size
+        part_sizes = spec.partition_sizes()
+        owned = (list(range(p_cnt)) if partitions is None
+                 else [int(q) for q in partitions])
+        os.makedirs(root, exist_ok=True)
+        chunk_ptr = _np(g.chunk_ptr)
+        src_l = _np(g.edge_src_local)
+        dst_l = _np(g.edge_dst_local)
+        data = _np(g.edge_data)
+        has_csr = _np(fmts.has_csr)
+        elide = bool(compression) and bool(getattr(fmts, "values_elided",
+                                                   False))
+
+        chunks_meta: dict[int, list] = {}
+        chunks_crc: dict[int, list] = {}
+        for q in owned:
+            meta_q = []
+            crc_q = []
+            off = 0
+            n_q = int(chunk_ptr[q, -1, -1])
+            # --- whole-partition pass: runs + delta streams for all chunks
+            flat = np.concatenate(
+                [chunk_ptr[q, :, :-1].reshape(-1),
+                 chunk_ptr[q, -1, -1:]]).astype(np.int64)
+            widths = np.diff(flat)                       # [P*B] chunk edges
+            src_q = src_l[q, :n_q].astype(np.int64)
+            dst_q = dst_l[q, :n_q].astype(np.int64)
+            cid = np.repeat(np.arange(widths.shape[0]), widths)
+            is_start = np.empty(n_q, bool)
+            if n_q:
+                is_start[0] = True
+                is_start[1:] = ((src_q[1:] != src_q[:-1])
+                                | (cid[1:] != cid[:-1]))
+            sidx = np.flatnonzero(is_start)              # global run starts
+            run_cid = cid[sidx]
+            first = np.empty(sidx.size, bool)
+            if sidx.size:
+                first[0] = True
+                first[1:] = run_cid[1:] != run_cid[:-1]
+            rel = sidx - flat[run_cid]                   # chunk-relative
+            pairs_all = np.empty(sidx.size, PAIR_DT)
+            pairs_all["src"] = src_q[sidx]
+            pairs_all["idx"] = rel
+            runs_per_chunk = np.bincount(run_cid,
+                                         minlength=widths.shape[0])
+            run_ptr = np.concatenate([[0], np.cumsum(runs_per_chunk)])
+            if compression:
+                # pair deltas (per chunk: diff prepend 0 on (src, rel))
+                prev_src = np.empty(sidx.size, np.int64)
+                prev_rel = np.empty(sidx.size, np.int64)
+                if sidx.size:
+                    prev_src[0] = prev_rel[0] = 0
+                    prev_src[1:] = src_q[sidx[:-1]]
+                    prev_rel[1:] = rel[:-1]
+                pair_vals = np.empty(2 * sidx.size, np.int64)
+                pair_vals[0::2] = np.where(first, src_q[sidx],
+                                           src_q[sidx] - prev_src)
+                pair_vals[1::2] = np.where(first, rel, rel - prev_rel)
+                pair_vals = pair_vals.astype(np.uint64)
+                pair_stream = codec.varint_encode(pair_vals)
+                pvnb = codec.varint_sizes(pair_vals)
+                pnb_chunk = np.bincount(
+                    np.repeat(run_cid, 2), weights=pvnb.astype(np.float64),
+                    minlength=widths.shape[0]).astype(np.int64)
+                pair_off = np.concatenate([[0], np.cumsum(pnb_chunk)])
+                # dst residues (per run: delta restart against batch base)
+                res = np.empty(n_q, np.int64)
+                if n_q:
+                    res[1:] = dst_q[1:] - dst_q[:-1]
+                    res[sidx] = dst_q[sidx] - (cid[sidx] % b_cnt) * bs
+                res = res.astype(np.uint64)
+                dst_stream = codec.varint_encode(res)
+                dnb_chunk = np.bincount(
+                    cid, weights=codec.varint_sizes(res).astype(np.float64),
+                    minlength=widths.shape[0]).astype(np.int64)
+                dst_off = np.concatenate([[0], np.cumsum(dnb_chunk)])
+            with open(os.path.join(root, f"edges_q{q}.bin"), "wb") as f:
+                for p in range(p_cnt):
+                    v_src = int(part_sizes[p])
+                    for k in range(b_cnt):
+                        c = p * b_cnt + k
+                        s, e = int(flat[c]), int(flat[c + 1])
+                        if e <= s:
+                            continue
+                        pairs = pairs_all[run_ptr[c]:run_ptr[c + 1]]
+                        f.write(pairs.tobytes())
+                        nbytes = pairs.nbytes
+                        pnb = vnb = 0
+                        crc_row = [crc32(pairs), 0, 0, 0]
+                        if compression:
+                            pd = pair_stream[
+                                pair_off[c]:pair_off[c + 1]].tobytes()
+                            f.write(pd)
+                            crc_row[CRC_DELTA] = crc32(pd)
+                            pnb = int(pnb_chunk[c])
+                            nbytes += pnb
+                        if has_csr[q, p, k]:
+                            idx = np.zeros(v_src + 1, np.int32)
+                            np.add.at(idx, src_l[q, s:e] + 1, 1)
+                            idx = np.cumsum(idx, dtype=np.int32)
+                            f.write(idx.tobytes())
+                            crc_row[CRC_IDX] = crc32(idx)
+                            nbytes += idx.nbytes
+                        if compression:
+                            # Columnar payload: dst residues (+ f32 data,
+                            # unless elided).
+                            dv = dst_stream[
+                                dst_off[c]:dst_off[c + 1]].tobytes()
+                            f.write(dv)
+                            pay_crc = crc32(dv)
+                            vnb = int(dnb_chunk[c])
+                            nbytes += vnb
+                            if not elide:
+                                db = np.ascontiguousarray(
+                                    data[q, s:e], "<f4").tobytes()
+                                f.write(db)
+                                pay_crc = crc32(db, pay_crc)
+                                nbytes += (e - s) * 4
+                            crc_row[CRC_PAYLOAD] = pay_crc
+                        else:
+                            payload = np.empty(e - s, EDGE_DT)
+                            payload["dst"] = dst_l[q, s:e]
+                            payload["data"] = data[q, s:e]
+                            f.write(payload.tobytes())
+                            crc_row[CRC_PAYLOAD] = crc32(payload)
+                            nbytes += payload.nbytes
+                        meta_q.append([p, k, off, int(pairs.shape[0]),
+                                       int(e - s), bool(has_csr[q, p, k]),
+                                       int(pnb), int(vnb)])
+                        crc_q.append(crc_row)
+                        off += nbytes
+            chunks_meta[q] = meta_q
+            chunks_crc[q] = crc_q
+
+        manifest = dict(
+            version=MANIFEST_VERSION,
+            compression=bool(compression),
+            values_elided=elide,
+            num_partitions=p_cnt,
+            num_batches=b_cnt,
+            v_max=spec.v_max,
+            batch_size=spec.batch_size,
+            partition_sizes=[int(x) for x in part_sizes],
+            inflate_ratio=fmts.inflate_ratio,
+            gamma=fmts.gamma,
+            partitions=owned,
+            chunks=[chunks_meta.get(q, []) for q in range(p_cnt)],
+            chunk_crcs=[chunks_crc.get(q, []) for q in range(p_cnt)],
+        )
+        manifest["manifest_crc"] = manifest_self_crc(manifest)
+        atomic_write_json(os.path.join(root, MANIFEST_NAME), manifest)
+        return cls(root, manifest)
+
+    @classmethod
+    def open(cls, root: str) -> "ChunkStore":
+        path = os.path.join(root, MANIFEST_NAME)
+        try:
+            with open(path) as f:
+                manifest = json.load(f)
+        except OSError as exc:
+            raise ChunkStoreError(
+                f"cannot read chunk store manifest {path}: {exc}") from exc
+        except json.JSONDecodeError as exc:
+            raise ChunkStoreError(
+                f"chunk store manifest {path} is truncated or corrupt "
+                f"(invalid JSON: {exc})") from exc
+        if manifest.get("version") != MANIFEST_VERSION:
+            raise ChunkStoreError(
+                f"chunk store manifest {path}: found version "
+                f"{manifest.get('version')!r}, expected {MANIFEST_VERSION} "
+                f"(the chunk layout changed; rebuild with ChunkStore.build)")
+        missing = [k for k in ("num_partitions", "num_batches",
+                               "batch_size", "partition_sizes", "chunks",
+                               "chunk_crcs", "manifest_crc")
+                   if k not in manifest]
+        if missing:
+            raise ChunkStoreError(
+                f"chunk store manifest {path} is truncated or corrupt "
+                f"(missing keys: {missing})")
+        if manifest_self_crc(manifest) != manifest["manifest_crc"]:
+            raise IntegrityError(
+                f"chunk store manifest {path} failed its checksum "
+                f"(stored manifest_crc {manifest['manifest_crc']}, "
+                f"computed {manifest_self_crc(manifest)})")
+        store = cls(root, manifest)
+        for q in store.partitions:
+            epath = os.path.join(root, f"edges_q{q}.bin")
+            if not os.path.exists(epath):
+                raise ChunkStoreError(
+                    f"chunk store at {root} is missing edge file {epath} "
+                    f"(manifest owns destination partition {q})")
+        return store
+
+    # -- reads ---------------------------------------------------------------
+    def _map(self, q: int) -> mmap.mmap:
+        # Opened under the counters' lock so a prefetch thread racing the
+        # consumer never double-opens or sees a half-published map.  A
+        # stdlib mmap: slicing it is one C-level memcpy into fresh bytes.
+        with self._lock:
+            mm = self._mm.get(q)
+            if mm is None:
+                with open(os.path.join(self.root, f"edges_q{q}.bin"),
+                          "rb") as f:
+                    mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+                self._mm[q] = mm
+            return mm
+
+    def chunk_stored_nbytes(self, q: int, p: int, k: int
+                            ) -> tuple[int, int, int]:
+        """(dcsr, csr, dcsr_delta) read bytes for a chunk; csr is 0 when no
+        CSR representation is stored, dcsr_delta is 0 on uncompressed
+        stores.  Mirrors the analytic byte model exactly."""
+        lay = self._layout_of(q)
+        if lay.offset[p, k] < 0:
+            return 0, 0, 0
+        if self.compression:
+            pay = int(lay.dstv_nb[p, k]) + (
+                0 if self.values_elided else int(lay.edges[p, k]) * 4)
+        else:
+            pay = int(lay.edges[p, k]) * EDGE_DT.itemsize
+        dcsr = int(lay.nnz[p, k]) * PAIR_DT.itemsize + pay
+        csr = ((int(self.part_sizes[p]) + 1) * 4 + pay
+               if lay.has_csr[p, k] else 0)
+        delta = (int(lay.pair_nb[p, k]) + pay) if self.compression else 0
+        return dcsr, csr, delta
+
+    def _sections(self, lay: _ChunkLayout, p: int, k: int):
+        """Byte sizes of a chunk's sections:
+        (pairs_nb, pair_delta_nb, idx_nb, payload_nb)."""
+        nnz = int(lay.nnz[p, k])
+        n_e = int(lay.edges[p, k])
+        pairs_nb = nnz * PAIR_DT.itemsize
+        idx_nb = (int(self.part_sizes[p]) + 1) * 4 if lay.has_csr[p, k] else 0
+        if self.compression:
+            data_nb = 0 if self.values_elided else n_e * 4
+            return (pairs_nb, int(lay.pair_nb[p, k]), idx_nb,
+                    int(lay.dstv_nb[p, k]) + data_nb)
+        return pairs_nb, 0, idx_nb, n_e * EDGE_DT.itemsize
+
+    def read_chunk_bytes(self, q: int, p: int, k: int, rep: int
+                         ) -> tuple[bytes, bytes, int]:
+        """The measured I/O half of a chunk read: the chosen index section
+        (raw DCSR pairs, delta-varint pairs, or CSR idx) and the shared
+        payload, each CRC-verified; returns (index bytes, payload bytes,
+        nbytes read).  Asking for CSR where none is stored, or for the
+        delta section of an uncompressed store, raises."""
+        lay = self._layout_of(q)
+        off = int(lay.offset[p, k])
+        if off < 0:
+            raise KeyError(f"chunk ({q}, {p}, {k}) is empty")
+        mm = self._map(q)
+        pairs_nb, pd_nb, idx_nb, pay_nb = self._sections(lay, p, k)
+        pay_off = off + pairs_nb + pd_nb + idx_nb
+        payload = mm[pay_off:pay_off + pay_nb]
+        if rep == REP_CSR:
+            if not lay.has_csr[p, k]:
+                raise ValueError(
+                    f"chunk ({q}, {p}, {k}) has no CSR representation")
+            index = mm[off + pairs_nb + pd_nb:off + pairs_nb + pd_nb + idx_nb]
+            sec = CRC_IDX
+        elif rep == REP_DCSR_DELTA:
+            if not self.compression:
+                raise ValueError(
+                    f"chunk store at {self.root} was built without "
+                    "compression; no delta-varint pair section exists")
+            index = mm[off + pairs_nb:off + pairs_nb + pd_nb]
+            sec = CRC_DELTA
+        elif rep == REP_DCSR:
+            index = mm[off:off + pairs_nb]
+            sec = CRC_PAIRS
+        else:
+            raise ValueError(f"unknown chunk representation {rep!r}")
+        self._verify_section(lay, q, p, k, sec, index)
+        self._verify_section(lay, q, p, k, CRC_PAYLOAD, payload)
+        nbytes = len(index) + len(payload)
+        with self._lock:
+            self.chunks_read += 1
+            self.bytes_read += nbytes
+        return index, payload, nbytes
+
+    def _verify_section(self, lay: _ChunkLayout, q: int, p: int, k: int,
+                        sec: int, data: bytes) -> None:
+        want = int(lay.crc[p, k, sec])
+        got = crc32(data)
+        if got != want:
+            raise IntegrityError(
+                f"chunk store {os.path.join(self.root, f'edges_q{q}.bin')}: "
+                f"chunk (q={q}, p={p}, k={k}) section "
+                f"'{_CRC_SECTION_NAMES[sec]}' failed its checksum "
+                f"(stored {want}, read {got}) — disk corruption")
+
+    def decode_chunk(self, q: int, p: int, k: int, rep: int,
+                     index: bytes, payload: bytes):
+        """Decode the bytes of :meth:`read_chunk_bytes` on the host back to
+        the (src_local, dst_local, data) numpy triple — bit-identical
+        round trip through every representation."""
+        lay = self._layout_of(q)
+        n_e = int(lay.edges[p, k])
+        v_src = int(self.part_sizes[p])
+        if rep == REP_CSR:
+            idx = np.frombuffer(index, dtype="<i4")
+            deg = np.diff(idx)
+            nzd = deg > 0
+            starts = idx[:-1][nzd]
+            runs = deg[nzd]
+            src = np.repeat(np.arange(v_src, dtype=np.int32), deg)
+        else:
+            if rep == REP_DCSR_DELTA:
+                nnz = int(lay.nnz[p, k])
+                srcs, starts = codec.pair_delta_restore(
+                    codec.varint_decode(index, 2 * nnz))
+            else:
+                pairs = np.frombuffer(index, dtype=PAIR_DT)
+                srcs, starts = pairs["src"], pairs["idx"]
+            runs = np.append(starts[1:], np.int32(n_e)) - starts
+            src = np.repeat(srcs, runs)
+        if not self.compression:
+            pay = np.frombuffer(payload, dtype=EDGE_DT)
+            return src, pay["dst"].copy(), pay["data"].copy()
+        vnb = int(lay.dstv_nb[p, k])
+        dst = codec.dst_delta_restore(
+            codec.varint_decode(payload[:vnb], n_e), starts, runs,
+            k * self.batch_size)
+        if self.values_elided:
+            data = np.ones(n_e, np.float32)
+        else:
+            data = np.frombuffer(payload[vnb:], dtype="<f4").copy()
+        return src, dst, data
+
+    def decode_chunk_device(self, q: int, p: int, k: int, rep: int,
+                            index: bytes, payload: bytes, device=None):
+        """Twin of :meth:`decode_chunk` on ``device`` (CUDA unless given;
+        compressed stores only): the varint expansion, pair-delta cumsums
+        and run restores run through :mod:`repro_torch.kernels.varint`, and
+        the (src, dst, data) triple is returned as tensors on that device —
+        bit-identical to the host decode."""
+        dev = resolve_device(device)
+        dec = self._device_decoders.get(dev)
+        if dec is None:
+            with self._lock:
+                dec = self._device_decoders.get(dev)
+                if dec is None:
+                    dec = DeviceChunkDecoder(self, dev)
+                    self._device_decoders[dev] = dec
+        return dec.decode(q, p, k, rep, index, payload)
+
+    def read_chunk(self, q: int, p: int, k: int, rep: int):
+        """Read + host-decode one chunk; returns (src_local, dst_local,
+        data, nbytes)."""
+        index, payload, nbytes = self.read_chunk_bytes(q, p, k, rep)
+        src, dst, data = self.decode_chunk(q, p, k, rep, index, payload)
+        return src, dst, data, nbytes
+
+    def reset_io_counters(self) -> None:
+        with self._lock:
+            self.chunks_read = 0
+            self.bytes_read = 0
+
+    # -- offline scrub -------------------------------------------------------
+    def verify(self) -> list[str]:
+        """Check every section of every stored chunk against its manifest
+        CRC.  Returns damage descriptions naming file, chunk and section —
+        empty when clean."""
+        damage = []
+        for q, p, k in self.nonempty_chunks():
+            lay = self._layout_of(q)
+            mm = self._map(q)
+            path = os.path.join(self.root, f"edges_q{q}.bin")
+            off = int(lay.offset[p, k])
+            pairs_nb, pd_nb, idx_nb, pay_nb = self._sections(lay, p, k)
+            spans = [(CRC_PAIRS, off, pairs_nb),
+                     (CRC_DELTA, off + pairs_nb, pd_nb),
+                     (CRC_IDX, off + pairs_nb + pd_nb, idx_nb),
+                     (CRC_PAYLOAD, off + pairs_nb + pd_nb + idx_nb, pay_nb)]
+            for sec, s_off, s_nb in spans:
+                if s_nb == 0 and sec != CRC_PAYLOAD:
+                    continue
+                got = crc32(mm[s_off:s_off + s_nb])
+                want = int(lay.crc[p, k, sec])
+                if got != want:
+                    damage.append(
+                        f"{path}: chunk (q={q}, p={p}, k={k}) section "
+                        f"'{_CRC_SECTION_NAMES[sec]}' crc mismatch "
+                        f"(stored {want}, read {got})")
+        return damage
+
+
+def _to_device(raw: bytes, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(raw, dtype).copy()).to(device)
+
+
+class DeviceChunkDecoder:
+    """The decode of one compressed store's chunks on a torch device
+    (DESIGN.md §10).
+
+    Per call, the raw section bytes are copied to the device and the
+    varint / delta / run-expand steps of :mod:`repro_torch.kernels.varint`
+    run there; the exact-length (src, dst, data) triple stays on the
+    device for the combine — bit-identical to
+    :meth:`ChunkStore.decode_chunk`.  Every buffer is sized by its own
+    chunk.  (The reference padded each to the store's largest chunk so one
+    compiled program served all of them; at R-MAT scale 21 that chunk
+    holds 989,695 edges against a mean of ~44k.)
+    """
+
+    def __init__(self, store: ChunkStore, device):
+        if not store.compression:
+            raise ValueError(
+                f"device decode requires a compressed store; the store at "
+                f"{store.root} was built with compression=False")
+        from repro_torch.kernels import varint as vk
+        self._vk = vk
+        self.store = store
+        self.device = torch.device(device)
+
+    def decode(self, q: int, p: int, k: int, rep: int,
+               index: bytes, payload: bytes):
+        vk = self._vk
+        store = self.store
+        dev = self.device
+        lay = store._layout_of(q)
+        n_e = int(lay.edges[p, k])
+        nnz = int(lay.nnz[p, k])
+        v_src = int(store.part_sizes[p])
+        vnb = int(lay.dstv_nb[p, k])
+        if rep == REP_CSR:
+            src, smask = vk.expand_csr_index(
+                _to_device(index, "<i4", dev), v_src, n_e, out_len=n_e)
+        elif rep in (REP_DCSR_DELTA, REP_DCSR):
+            if rep == REP_DCSR_DELTA:
+                pv = vk.varint_decode(_to_device(index, np.uint8, dev),
+                                      len(index), count=2 * nnz)
+                srcs, starts = vk.pair_delta_restore(pv)
+            else:
+                pairs = _to_device(index, "<i4", dev).reshape(-1, 2)
+                srcs, starts = pairs[:, 0], pairs[:, 1]
+            src, smask = vk.expand_dcsr_index(srcs, starts, nnz, n_e,
+                                              out_len=n_e)
+        else:
+            raise ValueError(f"unknown chunk representation {rep!r}")
+        res = vk.varint_decode(_to_device(payload[:vnb], np.uint8, dev), vnb,
+                               count=n_e)
+        dst = vk.dst_delta_restore(res, smask, k * store.batch_size, n_e)
+        if store.values_elided:
+            data = torch.ones(n_e, dtype=torch.float32, device=dev)
+        else:
+            data = _to_device(payload[vnb:], "<f4", dev)
+        return src, dst, data
+
+
+# ---------------------------------------------------------------------------
+# VertexSpill: vertex arrays on disk, batch-granular access
+# ---------------------------------------------------------------------------
+
+class VertexSpill:
+    """Per-batch disk residence for the [P, V] vertex state arrays.
+
+    Each array is one memmap of shape [P, num_batches * batch_size] (padded
+    to whole batches so a touched batch is always a full-stride
+    read/write), plus ``active.bits`` — the row-packed active bitmap.
+    ``load`` is the unmeasured preprocessing sync; ``read``/``write``/
+    ``read_bitmap``/``write_bitmap`` are the measured per-request entry
+    points the OOC executor issues.  ``num_queries`` is recorded in
+    ``spill_meta.json``; reopening a spill with a different Q raises
+    :class:`ChunkStoreError`.
+    """
+
+    def __init__(self, root: str, num_partitions: int, num_batches: int,
+                 batch_size: int, v_max: int, num_queries: int = 1):
+        if num_queries < 1:
+            raise ChunkStoreError(
+                f"vertex spill at {root}: num_queries must be >= 1, got "
+                f"{num_queries}")
+        self.root = root
+        self.p_cnt = num_partitions
+        self.b_cnt = num_batches
+        self.batch_size = batch_size
+        self.v_max = v_max
+        self.v_pad = num_batches * batch_size
+        self.num_queries = num_queries
+        os.makedirs(root, exist_ok=True)
+        meta_path = self._meta_path = os.path.join(root, "spill_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                meta = json.load(f)
+            found = int(meta.get("num_queries", 1))
+            if found != num_queries:
+                raise ChunkStoreError(
+                    f"vertex spill at {root} was built for num_queries="
+                    f"{found}, but the engine requires num_queries="
+                    f"{num_queries}; use a fresh spill root (or an engine "
+                    f"with the matching Q) — the per-query column files "
+                    f"on disk do not match the requested panel width")
+        else:
+            atomic_write_json(meta_path, {"num_queries": num_queries})
+        self._mm: dict[str, np.memmap] = {}
+        # Per-(partition, batch) CRC32 sidecars, one uint32 [P, B] memmap
+        # per array (``vertex_{name}.crc``): unmeasured control metadata.
+        self._crc: dict[str, np.memmap] = {}
+        self.bytes_read = 0
+        self.bytes_written = 0
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.root, f"vertex_{name}.bin")
+
+    def _crc_path(self, name: str) -> str:
+        return os.path.join(self.root, f"vertex_{name}.crc")
+
+    def _crc_update(self, name: str, runs: list) -> None:
+        """Recompute the sidecar CRCs of every batch covered by ``runs``."""
+        mm, cm, bs = self._mm[name], self._crc[name], self.batch_size
+        for p, lo, hi in runs:
+            for k in range(lo // bs, hi // bs):
+                cm[p, k] = crc32(mm[p, k * bs:(k + 1) * bs])
+
+    def _crc_verify(self, name: str, runs: list) -> None:
+        """Check every covered batch against its sidecar CRC before the
+        data is handed out — a flipped byte raises IntegrityError."""
+        mm, cm, bs = self._mm[name], self._crc[name], self.batch_size
+        for p, lo, hi in runs:
+            for k in range(lo // bs, hi // bs):
+                got = crc32(mm[p, k * bs:(k + 1) * bs])
+                if got != int(cm[p, k]):
+                    raise IntegrityError(
+                        f"vertex spill {self._path(name)}: array "
+                        f"{name!r} batch (p={p}, k={k}) failed its "
+                        f"checksum (stored {int(cm[p, k])}, read {got}) "
+                        f"— disk corruption")
+
+    def _all_runs(self) -> list:
+        return [(p, 0, self.v_pad) for p in range(self.p_cnt)]
+
+    def load(self, state: dict[str, np.ndarray]) -> None:
+        """Full (unmeasured) sync of caller state into the spill files;
+        records the array names and dtypes in ``spill_meta.json``."""
+        self._mm = {}
+        self._crc = {}
+        for name, arr in state.items():
+            arr = np.asarray(arr)
+            assert arr.shape == (self.p_cnt, self.v_max), (name, arr.shape)
+            mm = np.memmap(self._path(name), dtype=arr.dtype, mode="w+",
+                           shape=(self.p_cnt, self.v_pad))
+            mm[:, :self.v_max] = arr
+            mm[:, self.v_max:] = np.zeros((), arr.dtype)
+            self._mm[name] = mm
+            self._crc[name] = np.memmap(self._crc_path(name),
+                                        dtype=np.uint32, mode="w+",
+                                        shape=(self.p_cnt, self.b_cnt))
+            self._crc_update(name, self._all_runs())
+        atomic_write_json(self._meta_path, {
+            "num_queries": self.num_queries,
+            "arrays": {name: str(mm.dtype)
+                       for name, mm in self._mm.items()}})
+
+    def names(self) -> list[str]:
+        return list(self._mm)
+
+    def arrays_bytes(self, keys: Sequence[str] | None = None) -> int:
+        """Per-vertex byte width across the spilled arrays (model
+        constant); ``keys`` restricts it to a subset."""
+        names = self._mm if keys is None else keys
+        return sum(self._mm[name].dtype.itemsize for name in names)
+
+    def state_views(self) -> dict[str, np.ndarray]:
+        """Zero-copy [P, v_max] views of the authoritative on-disk state."""
+        return {name: mm[:, :self.v_max] for name, mm in self._mm.items()}
+
+    def _batch_runs(self, batch_mask: np.ndarray) -> list:
+        """Coalesce touched batches into per-row contiguous column spans
+        ``(p, lo, hi)`` — one slice per run instead of one per batch; the
+        byte counters still see exactly the touched batches."""
+        bs = self.batch_size
+        runs = []
+        for p in range(self.p_cnt):
+            ks = np.flatnonzero(batch_mask[p])
+            if not ks.size:
+                continue
+            splits = np.flatnonzero(np.diff(ks) > 1) + 1
+            for grp in np.split(ks, splits):
+                runs.append((p, int(grp[0]) * bs, (int(grp[-1]) + 1) * bs))
+        return runs
+
+    def read(self, batch_mask: np.ndarray,
+             keys: Sequence[str] | None = None) -> dict[str, np.ndarray]:
+        """Measured read of every batch with a set bit in ``batch_mask``
+        [P, B].  Returns padded [P, v_pad] copies, zeros where unread."""
+        out = {}
+        touched = int(batch_mask.sum())
+        runs = self._batch_runs(batch_mask)
+        for name in (self._mm if keys is None else keys):
+            mm = self._mm[name]
+            self._crc_verify(name, runs)
+            arr = np.zeros((self.p_cnt, self.v_pad), mm.dtype)
+            for p, lo, hi in runs:
+                arr[p, lo:hi] = mm[p, lo:hi]
+            out[name] = arr
+            self.bytes_read += touched * self.batch_size * mm.dtype.itemsize
+        return out
+
+    def write(self, updates: dict[str, np.ndarray], batch_mask: np.ndarray
+              ) -> None:
+        """Measured write-back of touched batches from padded [P, v_pad]
+        (or [P, v_max]) arrays."""
+        touched = int(batch_mask.sum())
+        runs = self._batch_runs(batch_mask)
+        for name, arr in updates.items():
+            mm = self._mm[name]
+            arr = np.asarray(arr, mm.dtype)
+            if arr.shape[1] != self.v_pad:
+                pad = np.zeros((self.p_cnt, self.v_pad), mm.dtype)
+                pad[:, :arr.shape[1]] = arr
+                arr = pad
+            for p, lo, hi in runs:
+                mm[p, lo:hi] = arr[p, lo:hi]
+            self._crc_update(name, runs)
+            self.bytes_written += (touched * self.batch_size
+                                   * mm.dtype.itemsize)
+
+    def merge_write(self, padded_state: dict[str, np.ndarray],
+                    updates: dict[str, np.ndarray], mask: np.ndarray,
+                    batch_mask: np.ndarray) -> None:
+        """Masked update + measured write-back, shared by ProcessEdges
+        apply and ProcessVertices: ``np.where(mask, update, old)`` into
+        the padded arrays previously returned by :meth:`read`, then write
+        the touched batches."""
+        for name, v in updates.items():
+            av = padded_state[name]
+            av[:, :self.v_max] = np.where(mask, np.asarray(v, av.dtype),
+                                          av[:, :self.v_max])
+        self.write(padded_state, batch_mask)
+
+    # -- active bitmap -------------------------------------------------------
+    def bitmap_nbytes(self) -> int:
+        return bitmap_nbytes(self.p_cnt, self.v_max)
+
+    def write_bitmap(self, mask: np.ndarray, name: str = "active",
+                     measured: bool = True) -> None:
+        packed = np.packbits(np.asarray(mask, bool), axis=1)
+        with open(os.path.join(self.root, f"{name}.bits"), "wb") as f:
+            f.write(packed.tobytes())
+        with open(os.path.join(self.root, f"{name}.bits.crc"), "w") as f:
+            f.write(str(crc32(packed)))
+        if measured:
+            self.bytes_written += packed.nbytes
+
+    def read_bitmap(self, name: str = "active",
+                    measured: bool = True) -> np.ndarray | None:
+        path = os.path.join(self.root, f"{name}.bits")
+        row = ceil_div(self.v_max, 8)
+        if not os.path.exists(path):
+            if measured:
+                self.bytes_read += self.p_cnt * row  # fresh file reads zeros
+            return None
+        packed = np.fromfile(path, np.uint8).reshape(self.p_cnt, row)
+        self._verify_bitmap(name, path, packed)
+        if measured:
+            self.bytes_read += packed.nbytes
+        return np.unpackbits(packed, axis=1)[:, :self.v_max].astype(bool)
+
+    def _verify_bitmap(self, name: str, path: str,
+                       packed: np.ndarray) -> None:
+        cpath = path + ".crc"
+        if not os.path.exists(cpath):
+            raise IntegrityError(
+                f"vertex spill bitmap {path} has no crc sidecar {cpath}")
+        with open(cpath) as f:
+            want = int(f.read())
+        got = crc32(packed)
+        if got != want:
+            raise IntegrityError(
+                f"vertex spill bitmap {path} ({name!r}) failed its "
+                f"checksum (stored {want}, read {got}) — disk corruption")
+
+    # -- offline scrub -------------------------------------------------------
+    def verify(self) -> list[str]:
+        """Check every batch of every loaded array, and every bitmap file,
+        against its CRC sidecar.  Returns damage descriptions naming file,
+        array and batch."""
+        damage = []
+        for name in self._mm:
+            try:
+                self._crc_verify(name, self._all_runs())
+            except IntegrityError as exc:
+                damage.append(str(exc))
+        for fname in sorted(os.listdir(self.root)):
+            if not fname.endswith(".bits"):
+                continue
+            path = os.path.join(self.root, fname)
+            row = ceil_div(self.v_max, 8)
+            packed = np.fromfile(path, np.uint8).reshape(self.p_cnt, row)
+            try:
+                self._verify_bitmap(fname[:-5], path, packed)
+            except IntegrityError as exc:
+                damage.append(str(exc))
+        return damage
+
+    def reset_io_counters(self) -> None:
+        self.bytes_read = 0
+        self.bytes_written = 0
+
+
+# ---------------------------------------------------------------------------
+# ChunkSource contract: how executors see storage (DESIGN.md §6)
+# ---------------------------------------------------------------------------
 
 class HBMChunkSource:
     """Everything-resident realization: the LOCAL executor reads edge chunks
@@ -37,3 +938,203 @@ class HBMChunkSource:
     def edge_arrays(cls, g) -> dict:
         """Per-edge arrays for the segment compute backend."""
         return {k: cls._get(g, k) for k in cls.EDGE_KEYS}
+
+
+class DiskChunkSource:
+    """Disk realization: bulk edge data streams from a :class:`ChunkStore`;
+    dispatch metadata and format stats stay memory-resident (host numpy),
+    in both the compressed and the legacy ``*_raw`` pricing families."""
+
+    kind = "disk"
+
+    def __init__(self, store: ChunkStore, graph, fmts):
+        self.store = store
+        self.graph = graph
+        self.fmts = fmts
+        self.compression = store.compression
+        self.dcsr_src = _np(fmts.dcsr_src)
+        self.dcsr_part = _np(fmts.dcsr_part)
+        self.dcsr_batch = _np(fmts.dcsr_batch)
+        self.dcsr_valid = _np(fmts.dcsr_valid)
+        self.dcsr_ptr = _np(fmts.dcsr_ptr)
+        self.has_csr = _np(fmts.has_csr)
+        self.csr_bytes = _np(fmts.csr_bytes, np.float64)
+        self.dcsr_bytes = _np(fmts.dcsr_bytes, np.float64)
+        self.dcsr_delta_bytes = _np(fmts.dcsr_delta_bytes, np.float64)
+        self.csr_raw_bytes = _np(fmts.csr_raw_bytes, np.float64)
+        self.dcsr_raw_bytes = _np(fmts.dcsr_raw_bytes, np.float64)
+
+    def read_chunk_bytes(self, q: int, p: int, k: int, rep: int):
+        return self.store.read_chunk_bytes(q, p, k, rep)
+
+    def decode_chunk(self, q: int, p: int, k: int, rep: int,
+                     index: bytes, payload: bytes):
+        return self.store.decode_chunk(q, p, k, rep, index, payload)
+
+    def decode_chunk_device(self, q: int, p: int, k: int, rep: int,
+                            index: bytes, payload: bytes, device=None):
+        return self.store.decode_chunk_device(q, p, k, rep, index, payload,
+                                              device=device)
+
+
+# ---------------------------------------------------------------------------
+# Double-buffered prefetch pipeline
+# ---------------------------------------------------------------------------
+
+class ScheduleMark:
+    """Marker base for passthrough schedule items: a
+    :class:`ChunkPrefetcher` forwards them to the consumer unchanged, in
+    order, without touching the store."""
+
+
+@dataclasses.dataclass
+class BatchWork:
+    """One dst-batch work item: the chunks the selective schedule marked
+    active, decoded and concatenated, as tensors on the engine's device."""
+    q: int
+    k: int
+    src: torch.Tensor      # int32 [E] source local ids
+    part: torch.Tensor     # int32 [E] source partitions
+    dst: torch.Tensor      # int32 [E] destination local ids
+    data: torch.Tensor     # f32  [E] edge payloads
+    nbytes: int            # measured bytes read for this item
+    n_chunks: int
+    n_device_chunks: int = 0   # chunks decoded on the device
+    read_s: float = 0.0        # host wall seconds reading the chunk bytes
+    decode_s: float = 0.0      # host wall seconds decoding them
+
+
+def _assemble(q: int, k: int, decoded, on_device: bool,
+              device) -> BatchWork:
+    """Concatenate the per-chunk (src, dst, data) triples of one schedule
+    item — tensors from the device decode, or numpy arrays from the host
+    codec — into one :class:`BatchWork` of tensors on ``device``."""
+    parts = [p for p, _, _ in decoded]
+    cols = list(zip(*(t for _, t, _ in decoded)))      # srcs, dsts, datas
+    if on_device:
+        src, dst, data = (torch.cat(c) for c in cols)
+    else:
+        src, dst, data = (torch.from_numpy(np.concatenate(c)).to(device)
+                          for c in cols)
+    part = torch.repeat_interleave(
+        torch.tensor(parts, dtype=torch.int32),
+        torch.tensor([len(s) for s in cols[0]])).to(device)
+    return BatchWork(q=q, k=k, src=src, part=part, dst=dst, data=data,
+                     nbytes=sum(nb for _, _, nb in decoded),
+                     n_chunks=len(decoded),
+                     n_device_chunks=len(decoded) if on_device else 0)
+
+
+class ChunkPrefetcher:
+    """Thread-based double-buffered chunk reader.
+
+    ``schedule`` is any iterable whose items are either
+    ``(q, k, [(p, rep), ...])`` — a chunk-read request: the thread reads
+    and decodes those chunks and enqueues one :class:`BatchWork` — or a
+    :class:`ScheduleMark`, forwarded to the consumer unchanged, in order.
+
+    The thread keeps at most ``depth`` decoded items ahead of the consumer,
+    so disk reads and decodes for batch *i+1* overlap the combine of batch
+    *i*.  A generator schedule is advanced on the thread and closed when
+    the pipeline shuts down, normally or early.  Worker exceptions
+    re-raise in the consumer.
+
+    ``compute_lock`` is an optional shared compute token held for each
+    host decode burst (never across a queue put/get).  ``device_decode`` decodes each chunk on ``device`` through
+    :class:`DeviceChunkDecoder`, outside the token; either way the work
+    items hold tensors on ``device``.
+    """
+
+    _DONE = object()
+
+    def __init__(self, source: DiskChunkSource, schedule, depth: int = 2,
+                 compute_lock=None, device_decode: bool = False,
+                 device=None):
+        self._source = source
+        self._schedule = schedule
+        self._device_decode = bool(device_decode)
+        self._device = resolve_device(device)
+        self._lock_ctx = token_ctx(compute_lock)
+        self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Blocking put that aborts when the consumer closed the pipeline
+        (so an abandoned iteration never strands the worker on a full
+        queue)."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _load(self, q: int, k: int, chunks) -> BatchWork:
+        """Read and decode one schedule item.  The bytes are fetched
+        first, outside the compute token; the host decode takes the token,
+        the device decode does not (it is a chain of kernel launches, not
+        a host-CPU burst)."""
+        src = self._source
+        t0 = time.perf_counter()
+        raw = [(p, rep, src.read_chunk_bytes(q, p, k, rep))
+               for p, rep in chunks]
+        t1 = time.perf_counter()
+        if self._device_decode:
+            decoded = [(p, src.decode_chunk_device(q, p, k, rep, index,
+                                                   payload,
+                                                   device=self._device), nb)
+                       for p, rep, (index, payload, nb) in raw]
+            work = _assemble(q, k, decoded, True, self._device)
+        else:
+            with self._lock_ctx:
+                decoded = [(p, src.decode_chunk(q, p, k, rep, index,
+                                                payload), nb)
+                           for p, rep, (index, payload, nb) in raw]
+                work = _assemble(q, k, decoded, False, self._device)
+        work.read_s = t1 - t0
+        work.decode_s = time.perf_counter() - t1
+        return work
+
+    def _run(self):
+        try:
+            try:
+                for item in self._schedule:
+                    if isinstance(item, ScheduleMark):
+                        if not self._put(item):
+                            return
+                        continue
+                    if not self._put(self._load(*item)):
+                        return
+                self._put(self._DONE)
+            finally:
+                close = getattr(self._schedule, "close", None)
+                if close is not None:
+                    close()
+        except BaseException as exc:   # propagate to the consumer
+            self._put(exc)
+
+    def close(self) -> None:
+        """Tear the pipeline down (idempotent; called automatically when
+        iteration ends — normally, via break, or via an exception)."""
+        self._stop.set()
+        while True:                    # unblock a worker stuck on put()
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join()
+
+    def __iter__(self) -> Iterator[BatchWork]:
+        try:
+            while True:
+                item = self._queue.get()
+                if item is self._DONE:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            self.close()

@@ -182,8 +182,14 @@ def mask_gap_bytes(mask, xp=np):
         prev = np.concatenate(
             [np.full(mask.shape[:-1] + (1,), -1, np.int32), run[..., :-1]],
             axis=-1)
-        nb = varint_sizes(idx - prev, xp=np)
-        return np.sum(np.where(mask, nb, 0).astype(np.float64), axis=-1)
+        # Gaps are int32, so at most 5 varint groups: the four int32
+        # comparisons of the torch path give varint_sizes's values without
+        # its uint64 pass over all ten groups (the OOC executor prices
+        # [P, P, V] masks here every iteration).
+        gap = idx - prev
+        nb = (1 + (gap >= 1 << 7).astype(np.int8) + (gap >= 1 << 14)
+              + (gap >= 1 << 21) + (gap >= 1 << 28))
+        return np.sum(np.where(mask, nb, 0), axis=-1, dtype=np.float64)
     idx = torch.arange(v, dtype=torch.int32, device=mask.device)
     filled = torch.where(mask, idx, torch.full_like(idx, -1))
     run = torch.cummax(filled, dim=-1).values

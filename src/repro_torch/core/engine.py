@@ -1,5 +1,5 @@
 """DFOGraph engine: vertex-centric push with signal/slot (paper §3) — the
-LOCAL subset of ``repro.core.engine``.
+LOCAL and OOC subset of ``repro.core.engine``.
 
 ProcessEdges runs the paper's four phases:
   1. generating          — active vertices produce messages (``signal``),
@@ -10,11 +10,19 @@ ProcessEdges runs the paper's four phases:
   4. processing          — ``slot`` contributions along edges are combined per
                            destination vertex and ``apply`` updates vertex state.
 
-The phase implementations live in :mod:`repro_torch.core.phases`; this slice
-runs the ``LOCAL`` executor of :mod:`repro_torch.core.executor` — one device,
-the partition axis a leading tensor axis, "network" traffic accounted by
-counters.  ``slot`` contributions are reduced with an associative +
-commutative **monoid** (add/min/max — all four paper algorithms fit), the
+The phase implementations live in :mod:`repro_torch.core.phases`; two
+executors of :mod:`repro_torch.core.executor` realize them:
+
+  * ``LOCAL`` (``executor="auto"``) — one device, the partition axis a
+    leading tensor axis, everything resident in device memory;
+  * ``OOC`` (``executor="ooc"``) — one host, edge chunks streamed from a
+    disk :class:`~repro_torch.core.chunkstore.ChunkStore` and vertex state
+    in a :class:`~repro_torch.core.chunkstore.VertexSpill`; only the reads
+    the selective schedule marks necessary are issued, and measured bytes
+    are cross-checked against the analytic model (``verify_io``).
+
+``slot`` contributions are reduced with an associative + commutative
+**monoid** (add/min/max — all four paper algorithms fit), the
 data-race-free equivalent of the C++ system's serialized slot calls
 (DESIGN.md §2).
 
@@ -24,13 +32,14 @@ Phase 4 runs on a configurable compute backend
 partition, destination batch) tiles that zero-skips chunks which received
 no messages (selective computation, §4.1/§4.4, on the compute path).
 
-Counters use float32 0-d tensors, as in the reference, so they are the
-same function; algorithm loops accumulate them across iterations in
-Python floats.
+LOCAL counters are float32 0-d tensors, as in the reference; OOC counters
+are Python floats from the host phases, as in the reference.  Algorithm
+loops accumulate both in Python floats.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Callable, Dict
 
@@ -38,7 +47,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor as _executor
-from repro_torch.core.formats import ChunkFormats, build_block_tiles
+from repro_torch.core.chunkstore import (
+    ChunkStore, DiskChunkSource, VertexSpill,
+)
+from repro_torch.core.formats import ChunkFormats, _np, build_block_tiles
 from repro_torch.core.partition import DistGraph
 from repro_torch.core.phases import batch_touched, bitmap_model_bytes
 from repro_torch.utils import resolve_device
@@ -46,7 +58,6 @@ from repro_torch.utils import resolve_device
 State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
 
 # The slices of the port that bring what this one does not run.
-SLICE_OOC = "slice 2 (fully out of core)"
 SLICE_DIST_OOC = "slice 3 (distributed out of core)"
 SLICE_MULTIQUERY = "slice 4 (multi-query serving)"
 SLICE_MESH = "slice 5 (the mesh executor)"
@@ -84,9 +95,9 @@ MAX = Monoid("max", float(np.finfo(np.float32).min))
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Tunables mirroring the paper's knobs, with the reference's field
-    names and defaults.  Fields this slice does not run (the out-of-core,
-    distributed and multi-query ones) keep their defaults; anything else
-    raises ``NotImplementedError`` naming the slice that brings it."""
+    names and defaults.  Fields the port does not run yet (the
+    distributed, mesh and multi-query ones) keep their defaults; anything
+    else raises ``NotImplementedError`` naming the slice that brings it."""
 
     enable_filtering: bool = True
     """Apply the paper's §4.3 need-list message filter in phase 2."""
@@ -99,35 +110,48 @@ class EngineConfig:
     """Payload bytes per message value in the I/O and network byte models."""
 
     enable_adaptive_formats: bool = True
-    """Per-chunk runtime CSR/DCSR selection (paper §4.1)."""
+    """Per-chunk runtime CSR/DCSR selection (paper §4.1).  Required by the
+    ooc executor: its physical reads follow the same decision, which is
+    what makes measured bytes equal the model."""
 
     account_io: bool = True
-    """Maintain the modeled I/O counters (vertex/edge/bitmap bytes)."""
+    """Maintain the modeled I/O counters (vertex/edge/bitmap bytes).
+    Required by the ooc executor: the measured-vs-modeled cross-check
+    needs both sides."""
 
     compression: bool = True
     """The §4.1 compression tier (DESIGN.md §9) in the byte models: the
     three-way {CSR-pruned, DCSR-raw, DCSR-delta} read choice and the
-    delta-varint wire encodings.  Results are bit-identical either way."""
+    delta-varint wire encodings.  Results are bit-identical either way.
+    The ooc executor requires a store built with the same flag
+    (``ChunkStore.build(..., compression=...)``, validated)."""
 
     compute_backend: str = "segment"
     """Phase-4 combine: ``"segment"`` (flat per-edge gather + scatter
     reduction; the reference) or ``"block_csr"`` (the CUDA block-CSR
     kernel with zero-skipping — DESIGN.md §4).  Non-affine slot functions
-    fall back to segment with a warning."""
+    fall back to segment with a warning.  The ooc executor runs phase 4 on
+    the engine's device with either backend: segment as a monoid scatter
+    over each streamed batch, block_csr as one kernel launch per streamed
+    batch."""
 
     block_tile: int = 8
     """Tile edge length T for the block_csr backend (tiles are [T, T]);
     the CUDA kernel is built for T = 8."""
 
     executor: str = "auto"
-    """``"auto"`` is LOCAL here; ``"ooc"`` / ``"dist_ooc"`` come with
-    later slices."""
+    """``"auto"`` is LOCAL; ``"ooc"`` streams disk-resident chunks on one
+    host (requires ``store=ChunkStore.build(...)``); ``"dist_ooc"`` comes
+    with a later slice."""
 
     verify_io: bool = True
-    """ooc / dist_ooc measured-vs-model audit (later slices)."""
+    """For ooc: raise inside every call if any measured counter (disk
+    bytes, chunks) deviates from the analytic model.  The repo's
+    signature invariant; leave it on."""
 
     ooc_prefetch_depth: int = 2
-    """ooc chunk prefetch depth (later slices)."""
+    """How many decoded dst-batch work items the chunk prefetch thread may
+    run ahead of the combine (2 = classic double buffering)."""
 
     num_workers: int = 1
     """W for ``executor="dist_ooc"`` (later slices)."""
@@ -136,7 +160,13 @@ class EngineConfig:
     """dist_ooc only (later slices)."""
 
     device_decode: bool | None = None
-    """ooc / dist_ooc on-device chunk decode (later slices)."""
+    """ooc, compressed stores only: decode chunk payloads on the engine's
+    device with the varint/delta kernels (``kernels/varint.py``) instead
+    of the host numpy codec (DESIGN.md §10).  Bytes read, the byte model
+    and the decoded triples are bit-identical either way.  ``None`` (auto)
+    enables it exactly when the engine's device is CUDA and compression is
+    on; uncompressed stores always decode on the host (their payload is a
+    plain memcpy, nothing to decode)."""
 
     physical_sparse_exchange: bool | None = None
     """SHARD_MAP only (later slices)."""
@@ -157,6 +187,25 @@ COUNTER_KEYS = (
     "net_payload_elems", "net_payload_elems_dense",
     "measured_net_payload_elems",
     "exchange_compacted_iters", "exchange_dense_iters",
+)
+
+# Measured twins of the modeled I/O counters, reported by the OOC executor
+# (what the storage tier actually served) and cross-checked against the
+# analytic model when EngineConfig.verify_io is on.
+MEASURED_KEYS = (
+    "measured_chunks_read", "measured_edge_read_bytes",
+    "measured_vertex_read_bytes", "measured_vertex_write_bytes",
+    # how many of the measured chunk reads were decoded on the device
+    # (EngineConfig.device_decode); no analytic twin — it reports the
+    # decode path taken, not bytes moved
+    "measured_chunks_device_decoded",
+)
+
+MEASURED_PAIRS = (
+    ("measured_chunks_read", "chunks_read"),
+    ("measured_edge_read_bytes", "edge_read_bytes"),
+    ("measured_vertex_read_bytes", "vertex_read_bytes"),
+    ("measured_vertex_write_bytes", "vertex_write_bytes"),
 )
 
 
@@ -191,9 +240,6 @@ class Engine:
                  *, device=None):
         if config.executor not in ("auto", "ooc", "dist_ooc"):
             raise ValueError(f"unknown executor: {config.executor!r}")
-        if config.executor == "ooc" or store is not None:
-            raise NotImplementedError(
-                f"executor='ooc' and chunk stores come with {SLICE_OOC}")
         if config.executor == "dist_ooc":
             raise NotImplementedError(
                 f"executor='dist_ooc' comes with {SLICE_DIST_OOC}")
@@ -212,7 +258,8 @@ class Engine:
         if config.parallel_workers:
             raise ValueError(
                 "parallel_workers applies only to executor='dist_ooc' (the "
-                "other executors have no per-worker loops to overlap)")
+                "other executors have no per-worker loops to overlap); got "
+                f"executor={config.executor!r}")
         if config.device_decode and not config.compression:
             raise ValueError(
                 "device_decode=True requires compression=True: uncompressed "
@@ -227,6 +274,14 @@ class Engine:
         gid = (np.asarray(spec.boundaries[:-1], np.int32)[:, None]
                + np.arange(spec.v_max, dtype=np.int32)[None, :])
         self.global_id = torch.from_numpy(gid).to(self.device)   # [P, V]
+        self._ooc = config.executor == "ooc"
+        if config.device_decode is None:
+            self.device_decode = (config.compression and self._ooc
+                                  and self.device.type == "cuda")
+        else:
+            self.device_decode = bool(config.device_decode)
+        if self._ooc:
+            self._init_ooc(store, fmts)
         # block_csr backend state (built lazily on first use)
         self._block = None
         self._block_host = None
@@ -235,15 +290,97 @@ class Engine:
         self._pe_cache: dict = {}
         self._warned_slot_fallback = False
 
+    def _init_ooc(self, store, fmts):
+        """OOC executor state (DESIGN.md §6): the validations of the
+        reference, the disk chunk source and the vertex spill."""
+        config, spec = self.config, self._host_graph.spec
+        if not config.enable_adaptive_formats:
+            raise ValueError(
+                "executor='ooc' requires enable_adaptive_formats: the "
+                "non-adaptive model prices DCSR-only chunks at 0 bytes, "
+                "which no physical read can match")
+        if not config.account_io:
+            raise ValueError("executor='ooc' requires account_io (the "
+                             "measured/modeled cross-check needs both)")
+        if not isinstance(store, ChunkStore):
+            raise ValueError("executor='ooc' requires a ChunkStore "
+                             "(ChunkStore.build(graph, fmts, root))")
+        self.check_store_spec(store.manifest, store.root, fmts)
+        self.counter_keys = COUNTER_KEYS + MEASURED_KEYS
+        self.ooc_source = DiskChunkSource(store, self._host_graph, fmts)
+        self.spill = VertexSpill(
+            os.path.join(store.root, "vertex"), spec.num_partitions,
+            spec.num_batches, spec.batch_size, spec.v_max,
+            num_queries=config.num_queries)
+        self._ooc_last_state = None
+        # host wall seconds per OOC stage (executor.OOC_WALL_KEYS)
+        self.ooc_wall = dict.fromkeys(_executor.OOC_WALL_KEYS, 0.0)
+
+    def check_store_spec(self, manifest, root, fmts):
+        """A store built for a different partitioning or layout must fail
+        here with a clear error, not via oblique slicing downstream."""
+        config, spec = self.config, self._host_graph.spec
+        got = tuple(manifest.get(k) for k in
+                    ("num_partitions", "num_batches", "batch_size", "v_max"))
+        want = (spec.num_partitions, spec.num_batches, spec.batch_size,
+                spec.v_max)
+        if got != want:
+            raise ValueError(
+                f"chunk store at {root} was built for a different "
+                f"partitioning (P, B, batch_size, v_max) = {got}; this "
+                f"graph's spec has {want}")
+        stored = bool(manifest.get("compression", False))
+        if stored != config.compression:
+            raise ValueError(
+                f"chunk store at {root} was built with compression={stored}"
+                f", but EngineConfig.compression={config.compression}; the "
+                "physical layout must match the byte model (rebuild the "
+                "store or flip the knob)")
+        elided = bool(manifest.get("values_elided", False))
+        want_elided = config.compression and bool(
+            getattr(fmts, "values_elided", False))
+        if elided != want_elided:
+            raise ValueError(
+                f"chunk store at {root} has values_elided={elided}, but "
+                f"this graph's formats price values_elided={want_elided}; "
+                "the physical layout must match the byte model (rebuild "
+                "the store from these formats)")
+
     def init_state(self, **arrays) -> State:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in arrays.items()}
+
+    # -- OOC state residency and audit ---------------------------------------
+    def _sync_ooc_state(self, state: State) -> None:
+        """Make the spill authoritative for ``state``.
+
+        States returned by OOC calls are recognized by identity and skipped
+        (the spill already holds them); anything else — the initial
+        ``init_state`` dict or caller-constructed arrays — is loaded as an
+        unmeasured preprocessing sync."""
+        if state is self._ooc_last_state:
+            return
+        self.spill.load({k: _np(v) for k, v in state.items()})
+        self.spill.write_bitmap(_np(self._host_graph.vertex_valid))
+        self.spill.reset_io_counters()
+
+    def _check_measured(self, counters: dict) -> None:
+        """Cross-check measured storage traffic against the analytic model
+        (the fully-out-of-core claim, enforced every call)."""
+        if not self.config.verify_io:
+            return
+        for mk, ak in MEASURED_PAIRS:
+            if abs(float(counters[mk]) - float(counters[ak])) > 0.5:
+                raise RuntimeError(
+                    f"{self.config.executor} measured/model I/O mismatch: "
+                    f"{mk}={counters[mk]:.1f} vs {ak}={counters[ak]:.1f}")
 
     # -- block_csr backend plumbing ----------------------------------------
     def _ensure_block(self):
         if self._block is None:
             bt, self._block_host = build_block_tiles(
-                self._host_graph, tile=self.config.block_tile)
+                self._host_graph, tile=self.config.block_tile,
+                device=self.device)
             self._block = bt.to(self.device)
 
     def _probe_slot(self, slot_fn, monoid):
@@ -290,6 +427,8 @@ class Engine:
         Updates vertices in ``active`` (all valid, if None); returns
         (new_state, sum of ret over active vertices, counters).  Batches with
         no active vertex are skipped in the I/O model (paper §4.4)."""
+        if self._ooc:
+            return self._ooc_process_vertices(state, work_fn, active)
         g, cfg = self.graph, self.config
         vertex_valid = g.vertex_valid
         amask = vertex_valid if active is None else (active & vertex_valid)
@@ -305,6 +444,48 @@ class Engine:
             counters["vertex_read_bytes"] = (
                 touched * arrays_bytes + bitmap_model_bytes(amask))
             counters["vertex_write_bytes"] = touched * arrays_bytes
+        return new_state, total, counters
+
+    def _spill_process_vertices(self, spill, amask_rows, gid_rows, work_fn,
+                                counters):
+        """ProcessVertices against one spill: measured bitmap and
+        active-batch reads, ``work_fn`` on the device, measured write-back;
+        accumulates the modeled and measured vertex-I/O counters and
+        returns the total of ``ret``."""
+        spec = self.graph.spec
+        bs, b_cnt, v_max = spec.batch_size, spec.num_batches, spec.v_max
+        sr0, sw0 = spill.bytes_read, spill.bytes_written
+        spill.read_bitmap()                                     # measured
+        batches = _executor._batch_any(amask_rows, bs, b_cnt)
+        rstate_pad = spill.read(batches)                        # measured
+        rstate = {k: v[:, :v_max] for k, v in rstate_pad.items()}
+        updates, ret = work_fn(_executor._device_state(rstate, self.device),
+                               gid_rows)
+        spill.merge_write(rstate_pad, _executor._host_state(updates),
+                          amask_rows, batches)                  # measured
+        total = float(np.where(amask_rows, _np(ret).astype(np.float32),
+                               0.0).sum())
+        touched = float(batches.sum()) * bs
+        arrays_bytes = spill.arrays_bytes()
+        counters["vertex_read_bytes"] += (touched * arrays_bytes
+                                          + float(spill.bitmap_nbytes()))
+        counters["vertex_write_bytes"] += touched * arrays_bytes
+        counters["measured_vertex_read_bytes"] += spill.bytes_read - sr0
+        counters["measured_vertex_write_bytes"] += spill.bytes_written - sw0
+        return total
+
+    def _ooc_process_vertices(self, state, work_fn, active):
+        """ProcessVertices against the disk-resident vertex spill."""
+        self._sync_ooc_state(state)
+        vertex_valid = _np(self._host_graph.vertex_valid)
+        amask = (vertex_valid if active is None
+                 else _np(active).astype(bool) & vertex_valid)
+        counters = {k: 0.0 for k in self.counter_keys}
+        total = self._spill_process_vertices(
+            self.spill, amask, self.global_id, work_fn, counters)
+        self._check_measured(counters)
+        new_state = self.spill.state_views()
+        self._ooc_last_state = new_state
         return new_state, total, counters
 
     # -- ProcessEdges ---------------------------------------------------------
@@ -327,6 +508,9 @@ class Engine:
         backend = self.config.compute_backend
         if backend not in ("segment", "block_csr"):
             raise ValueError(f"unknown compute_backend: {backend!r}")
+        if self._ooc:
+            return self._ooc_process_edges(state, signal_fn, slot_fn,
+                                           monoid, apply_fn, active, backend)
         mode_meta, vals = None, None
         if backend == "block_csr":
             lowered = self._block_slot_values(slot_fn, monoid)
@@ -353,3 +537,34 @@ class Engine:
         bt = self._block if backend == "block_csr" else None
         return fn(state, active, self.graph, self.fmts, self.global_id,
                   bt, vals)
+
+    def _ooc_process_edges(self, state, signal_fn, slot_fn, monoid,
+                           apply_fn, active, backend):
+        """OOC realization of :meth:`process_edges` (DESIGN.md §6): the
+        step of ``executor.make_ooc_pe`` against the spill, then the
+        measured-vs-model audit.  The returned state is the spill's
+        zero-copy host views; ``new_active`` is a host bool array."""
+        mode_meta = None
+        if backend == "block_csr":
+            probe = self._probe_slot(slot_fn, monoid)
+            if probe is None:
+                backend = "segment"
+            else:
+                _, mode, a_const, _, _ = probe
+                mode_meta = (mode, a_const)
+        keys = tuple(_executor.fn_code_key(f)
+                     for f in (signal_fn, slot_fn, apply_fn))
+        cache_key = None
+        if all(k is not None for k in keys):
+            cache_key = ("ooc",) + keys + (monoid.name, backend, mode_meta)
+        fn = self._pe_cache.get(cache_key) if cache_key is not None else None
+        if fn is None:
+            fn = _executor.make_ooc_pe(self, signal_fn, slot_fn, monoid,
+                                       apply_fn, backend, mode_meta)
+            if cache_key is not None:
+                self._pe_cache[cache_key] = fn
+        self._sync_ooc_state(state)
+        new_state, new_active, total, counters = fn(active)
+        self._check_measured(counters)
+        self._ooc_last_state = new_state
+        return new_state, new_active, total, counters

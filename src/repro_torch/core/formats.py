@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.core import codec
 from repro_torch.core.partition import DistGraph, tensors_to
-from repro_torch.kernels.csr_spmv import build_tile_struct
+from repro_torch.kernels.csr_spmv import build_tile_struct_np
 from repro_torch.utils import ceil_div
 
 DEFAULT_INFLATE_RATIO = 32
@@ -340,11 +340,12 @@ class BlockTilesHost:
     tile: int
 
 
-def build_block_tiles(g: DistGraph, *, tile: int = 8
+def build_block_tiles(g: DistGraph, *, tile: int = 8, device=None
                       ) -> tuple[BlockTiles, BlockTilesHost]:
     """Host-side preprocessing: per destination partition, group the (dst
     batch x src partition) adjacency into T x T block-CSR tiles (reusing the
-    kernel-side :func:`build_tile_struct` core)."""
+    kernel-side :func:`build_tile_struct` core, which sorts the tile keys
+    on ``device``, the CPU by default)."""
 
     spec = g.spec
     p_cnt, v_max = spec.num_partitions, spec.v_max
@@ -366,8 +367,8 @@ def build_block_tiles(g: DistGraph, *, tile: int = 8
     for q in range(p_cnt):
         m = evalid[q]
         v, u, p = edl[q][m], esl[q][m], esp[q][m]
-        slot_row, slot_col, row_ptr, eslot = build_tile_struct(
-            v // t, p * pb + u // t, n_rows, n_col_blocks)
+        slot_row, slot_col, row_ptr, eslot = build_tile_struct_np(
+            v // t, p * pb + u // t, n_rows, n_col_blocks, device=device)
         edge_slot[q, m] = eslot
         per_q.append((slot_row, slot_col, row_ptr))
 

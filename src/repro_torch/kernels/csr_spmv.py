@@ -24,9 +24,10 @@ so the float32 result does not depend on the summation order; min/max are
 exact.  A warp's time grows with its row, and R-MAT hub rows hold tens of
 thousands of live tiles: balancing them is a later version's work.
 
-The host-side structure builders (:func:`build_tile_struct`,
-:func:`compact_live_tiles`, :func:`build_block_csr`) are numpy copied from
-the reference, so the tile structures are bit-equal to JAX's.
+The structure builders (:func:`build_tile_struct`, in torch on whatever
+device its inputs lie; :func:`compact_live_tiles` and
+:func:`build_block_csr`, numpy copied from the reference) give tile
+structures bit-equal to JAX's.
 """
 from __future__ import annotations
 
@@ -224,19 +225,31 @@ def block_csr_combine_ref(row_ptr, tile_idx, tile_col, row_cnt,
 # Host-side structure builders
 # ---------------------------------------------------------------------------
 
-def build_tile_struct(row_blk: np.ndarray, col_blk: np.ndarray,
+def build_tile_struct(row_blk: torch.Tensor, col_blk: torch.Tensor,
                       n_row_blocks: int, n_col_blocks: int):
-    """Edge block coordinates -> ragged tile structure sorted by (row, col).
+    """Edge block coordinates -> ragged tile structure sorted by (row, col),
+    built on the device the coordinates lie on.
 
     Returns (slot_row [S] i32, slot_col [S] i32, row_ptr [R+1] i32,
-    edge_slot [E] i32 — which slot each edge's cell belongs to)."""
-    key = row_blk.astype(np.int64) * n_col_blocks + col_blk.astype(np.int64)
-    uniq, inv = np.unique(key, return_inverse=True)
-    slot_row = (uniq // n_col_blocks).astype(np.int32)
-    slot_col = (uniq % n_col_blocks).astype(np.int32)
-    counts = np.bincount(slot_row, minlength=n_row_blocks)
-    row_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return slot_row, slot_col, row_ptr, inv.astype(np.int32)
+    edge_slot [E] i32 — which slot each edge's cell belongs to), tensors
+    beside the inputs.  ``torch.unique`` sorts as the reference's
+    ``np.unique`` does, so the structures are equal to its."""
+    key = row_blk.long() * n_col_blocks + col_blk.long()
+    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+    slot_row = (uniq // n_col_blocks).to(torch.int32)
+    counts = torch.bincount(slot_row, minlength=n_row_blocks)
+    row_ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return (slot_row, (uniq % n_col_blocks).to(torch.int32),
+            row_ptr.to(torch.int32), inv.to(torch.int32))
+
+
+def build_tile_struct_np(row_blk: np.ndarray, col_blk: np.ndarray,
+                         n_row_blocks: int, n_col_blocks: int, device=None):
+    """:func:`build_tile_struct` for numpy coordinates: built on
+    ``device`` (the CPU by default), returned as numpy arrays."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return tuple(x.cpu().numpy() for x in build_tile_struct(
+        t(row_blk), t(col_blk), n_row_blocks, n_col_blocks))
 
 
 def compact_live_tiles(slot_row: np.ndarray, slot_col: np.ndarray,
@@ -267,7 +280,7 @@ def build_block_csr(src, dst, data, num_vertices: int, tile: int):
     row_ptr [n_rows+1] i32, n_rows, n_cols, max_tiles_per_row)."""
     t = tile
     n_blocks = -(-num_vertices // t)
-    slot_row, slot_col, rp, edge_slot = build_tile_struct(
+    slot_row, slot_col, rp, edge_slot = build_tile_struct_np(
         np.asarray(dst) // t, np.asarray(src) // t, n_blocks, n_blocks)
     max_tiles = max(1, int((rp[1:] - rp[:-1]).max()) if n_blocks else 1)
 

@@ -3,6 +3,7 @@ port's device rule."""
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import os
 import tempfile
@@ -60,6 +61,18 @@ def atomic_write_json(path: str, obj: Any) -> None:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
+
+
+def token_ctx(lock):
+    """Context manager over an optional shared compute token: the lock
+    itself when given, a no-op otherwise.
+
+    A prefetch pipeline holds it for each host-CPU decode burst, so
+    concurrent pipelines take orderly turns at the host CPU instead of
+    convoying on the GIL at every small numpy call; disk waits and queue
+    handoffs stay outside the token.  Sequential pipelines pass None and
+    pay nothing."""
+    return lock if lock is not None else contextlib.nullcontext()
 
 
 def ceil_div(a: int, b: int) -> int:

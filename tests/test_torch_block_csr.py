@@ -25,7 +25,7 @@ def _combine_setup(seed=0, T=8, R=3, C=4, e=150):
     src = rng.integers(0, m, e)
     dst = rng.integers(0, n, e)
     w = rng.random(e).astype(np.float32)
-    slot_row, slot_col, rp, eslot = csr_spmv.build_tile_struct(
+    slot_row, slot_col, rp, eslot = csr_spmv.build_tile_struct_np(
         dst // T, src // T, R, C)
     mask = rng.random(m) < 0.6
     x = rng.random(m).astype(np.float32)
@@ -85,9 +85,13 @@ def test_host_builders_match_reference(seed):
     src, dst, *_, rp, idx, col, cnt, mt, T, live = _combine_setup(seed=seed)
     R, C = 3, 4
     ref = build_tile_struct(dst // T, src // T, R, C)
-    port = csr_spmv.build_tile_struct(dst // T, src // T, R, C)
+    port = csr_spmv.build_tile_struct_np(dst // T, src // T, R, C)
     for a, b in zip(ref, port):
         assert a.dtype == b.dtype and np.array_equal(a, b)
+    on_tensors = csr_spmv.build_tile_struct(
+        torch.from_numpy(dst // T), torch.from_numpy(src // T), R, C)
+    for a, b in zip(ref, on_tensors):
+        assert b.dtype == torch.int32 and np.array_equal(a, b.numpy())
     for a, b in zip(compact_live_tiles(ref[0], ref[1], ref[2], live, R),
                     (idx, col, cnt)):
         assert a.dtype == b.dtype and np.array_equal(a, b)

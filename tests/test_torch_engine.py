@@ -137,13 +137,13 @@ def test_default_device_is_the_gpu(problem, monkeypatch):
         Engine(dg, fm)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(executor="ooc"), "slice 2"),
-    (dict(executor="dist_ooc"), "slice 3"),
-    (dict(num_queries=2), "slice 4"),
-    (dict(physical_sparse_exchange=True), "slice 5"),
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(executor="ooc"), ValueError, "ChunkStore"),    # needs its store
+    (dict(executor="dist_ooc"), NotImplementedError, "slice 3"),
+    (dict(num_queries=2), NotImplementedError, "slice 4"),
+    (dict(physical_sparse_exchange=True), NotImplementedError, "slice 5"),
 ])
-def test_later_slices_raise(problem, kw, match):
+def test_later_slices_raise(problem, kw, error, match):
     _, _, dg, fm = problem["fwd"]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         Engine(dg, fm, EngineConfig(**kw), device="cpu")
