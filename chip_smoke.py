@@ -49,8 +49,35 @@ on the card).  It
   * runs BFS once more with the host decode: values and counters
     bit-identical except the device-decoded chunk count, which is 0.
 
+Serving (multi-query, on the same graph, while the forward store exists).
+The 12 highest out-degree vertices are the sources (query 0 is the BFS
+source above).  It
+  * runs a solo LOCAL ``segment`` BFS from each of the 12 sources on the
+    card: the reference levels, iteration counts and counters;
+  * serves them on LOCAL (``segment``, Q = 8): ``multi_bfs`` of sources
+    0–7, each column bit-equal to its solo BFS with equal iteration
+    counts; ``pairwise_reachability`` of the pairs s_k -> s_(k+1 mod 8),
+    each answer equal to the solo levels' finiteness;
+    ``personalized_pagerank`` of sources 0–7 (2 iterations), query 0
+    within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
+  * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
+    a fresh spill): a ``GraphServeSession`` with 8 slots takes all 12
+    sources and drains — every result bit-equal to its solo BFS with its
+    run iterations equal to the solo count, every logical counter equal to
+    the sum of the 12 solo runs' (rtol 1e-5) and every shared-stream
+    counter at most that sum; then ``personalized_pagerank`` of sources
+    0–7 (2 iterations), values within 1e-5 of LOCAL serving's and every
+    counter LOCAL reports within rtol 1e-5 of LOCAL's;
+  * counts the launches of ``block_csr_combine_mq`` (set to 0 before the
+    session and before PPR; each must have grown, in min and add mode),
+    of the stencil and of the scans;
+  * replays the largest panel-combine call of the session (min) and of
+    PPR (add) against its plain version (min bit-equal, add within rtol
+    1e-5) and against 8 solo ``block_csr_combine`` launches, one per
+    column (bit-equal in both modes), and times it as above.
+
 Every phase prints one JSON line; the line before the last holds the
-kernel table (the combine once per mode and path, each row measured on
+kernel table (each combine once per mode and path, each row measured on
 that path's inputs beside that path's launches), the last line is ``{"ok": true, "device": {...}}``.  Any
 failed check raises and the script exits non-zero.  Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -73,6 +100,7 @@ from concurrent.futures import ThreadPoolExecutor
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_csr_combine.cu"
 TPU_KERNEL = "src/repro/kernels/csr_spmv.py:203"
+TPU_KERNEL_MQ = "src/repro/kernels/csr_spmv.py:354"
 VARINT_SOURCE = "src/repro_torch/kernels/csrc/varint.cu"
 TPU_SCAN = "src/repro/kernels/varint.py:88"
 TPU_STENCIL = "src/repro/kernels/varint.py:159"
@@ -86,6 +114,9 @@ LIBRARY_CALLS = {
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
 PR_ITERS = 5
+SERVE_SOURCES = 12             # queries the serving phase submits
+SERVE_Q = 8                    # concurrent query slots
+PPR_ITERS = 2
 
 
 def emit(**obj):
@@ -108,12 +139,13 @@ def cuda_ms(fn, reps, warmup=1):
 
 
 @contextlib.contextmanager
-def recorded_combine(module, largest=False):
-    """Record the arguments of one block_csr_combine call the engine makes
-    through ``module`` (``phases`` on LOCAL, ``executor`` on OOC) inside
-    the block: the first call, or with ``largest`` the call with the most
-    tile slots — the kernel's inputs at the main path's shapes."""
-    real = module.block_csr_combine
+def recorded_combine(module, largest=False, name="block_csr_combine"):
+    """Record the arguments of one combine call the engine makes through
+    ``module.<name>`` (``phases`` on LOCAL, ``executor`` on OOC,
+    ``multiquery`` for the panel combine) inside the block: the first
+    call, or with ``largest`` the call with the most tile slots — the
+    kernel's inputs at the main path's shapes."""
+    real = getattr(module, name)
     seen = {}
 
     def recording(*args, **kw):
@@ -122,11 +154,11 @@ def recorded_combine(module, largest=False):
             seen.update(args=args, kw=kw)
         return real(*args, **kw)
 
-    module.block_csr_combine = recording
+    setattr(module, name, recording)
     try:
         yield seen
     finally:
-        module.block_csr_combine = real
+        setattr(module, name, real)
 
 
 def live_slots(row_cnt):
@@ -136,11 +168,12 @@ def live_slots(row_cnt):
 def combine_bound_ms(args, mode):
     """Least time for one combine call on these inputs: every byte it must
     move (each live tile of each tile array it reads, the slot indices,
-    the vector blocks the live tiles select, the row metadata, the two
-    outputs) at the HBM rate, or its float32 operations at the float32
-    rate, whichever is larger."""
+    the vector blocks the live tiles select — Q columns of them for a
+    panel call — the row metadata, the two outputs) at the HBM rate, or
+    its float32 operations at the float32 rate, whichever is larger."""
     import torch
     row_ptr, tile_idx, tile_col, row_cnt = args[:4]
+    nq = args[7].shape[2] if args[7].dim() == 3 else 1
     q_cnt, n_rows = row_cnt.shape
     n_slots = tile_idx.shape[1]
     t = 8
@@ -158,11 +191,11 @@ def combine_bound_ms(args, mode):
             + tile_col.long())[live]
     n_blocks = int(torch.unique(cols).numel())
     bytes_ = (n_live * (n_tile_arrays * t * t * 4 + 8)
-              + q_cnt * n_rows * 8 + n_blocks * 2 * t * 4
-              + 2 * q_cnt * n_rows * t * 4)
+              + q_cnt * n_rows * 8 + n_blocks * 2 * t * 4 * nq
+              + 2 * q_cnt * n_rows * t * 4 * nq)
     products = {"add": 2, "add_b": 3, "min": 1, "max": 1}[mode]
-    ops = n_live * t * t * 2 * (products + (1 if mode in ("min", "max")
-                                            else 0))
+    ops = n_live * t * t * 2 * nq * (products + (1 if mode in ("min", "max")
+                                                 else 0))
     by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     by_ops = ops / F32_FLOPS * 1e3
     return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
@@ -172,14 +205,16 @@ def combine_bound_ms(args, mode):
 def library_call(args, kw):
     """One PyTorch library computation of the same function, for scale:
     add/add_b — one ``torch.sparse.mm`` of the live cells (value rows over
-    [xv; xc] and count rows over xc in one CSR matrix); min/max — the
-    live cells' ``B + xv`` gathered and folded with ``scatter_reduce_``
-    (val only).  Returns a zero-argument callable."""
+    [xv; xc] and count rows over xc in one CSR matrix) against the vector,
+    or the [C*T, Q] panel of a panel call; min/max — the live cells'
+    ``B + xv`` gathered and folded with ``scatter_reduce_`` (val only, all
+    Q columns of a panel at once).  Returns a zero-argument callable."""
     import torch
     row_ptr, tile_idx, tile_col, row_cnt, tv, tb, tc, xv, xc = args
     mode, t, ident = kw["mode"], kw["tile"], kw["identity"]
     q_cnt, n_rows = row_cnt.shape
     n_slots, n_src = tile_idx.shape[1], xv.shape[1]
+    panel = xv.dim() == 3
     dev = row_cnt.device
     counts = row_cnt.reshape(-1).long()
     owner = torch.repeat_interleave(torch.arange(q_cnt * n_rows,
@@ -199,8 +234,18 @@ def library_call(args, kw):
     if mode in ("min", "max"):
         b = tb.reshape(-1, t, t)[tid][nz]
         del cnt_cells, nz
-        xflat = xv.reshape(-1)
         red = "amin" if mode == "min" else "amax"
+        if panel:
+            nq = xv.shape[2]
+            xrows = xv.reshape(-1, nq)
+            rows_q = row[:, None].expand(-1, nq)
+
+            def call():
+                out = torch.full((n_out, nq), ident, device=dev)
+                return out.scatter_reduce_(0, rows_q, b[:, None] + xrows[src],
+                                           reduce=red)
+            return call
+        xflat = xv.reshape(-1)
 
         def call():
             out = torch.full((n_out,), ident, device=dev)
@@ -219,18 +264,26 @@ def library_call(args, kw):
         torch.stack([torch.cat(rows), torch.cat(cols_)]), torch.cat(vals),
         (2 * n_out, 2 * n_x), check_invariants=False
     ).coalesce().to_sparse_csr()
-    x = torch.cat([xv.reshape(-1), xc.reshape(-1)])[:, None]
+    if panel:
+        x = torch.cat([xv.reshape(n_x, -1), xc.reshape(n_x, -1)])
+    else:
+        x = torch.cat([xv.reshape(-1), xc.reshape(-1)])[:, None]
     return lambda: torch.sparse.mm(a, x)
 
 
-def check_kernel(csr, args, kw, path, reps=10):
+def check_kernel(csr, args, kw, path, reps=10, panel=False):
     """Kernel vs plain version on the same inputs (one call of ``path``,
-    LOCAL or OOC); returns the table row fields (times in ms)."""
+    LOCAL or OOC); with ``panel``, the panel combine, also held column by
+    column against solo kernel launches (bit-equal in every mode).
+    Returns the table row fields (times in ms)."""
     import torch
     mode = kw["mode"]
-    val, hc = csr.block_csr_combine(*args, **kw)
+    kernel = csr.block_csr_combine_mq if panel else csr.block_csr_combine
+    plain = (csr.block_csr_combine_mq_ref if panel
+             else csr.block_csr_combine_ref)
+    val, hc = kernel(*args, **kw)
     torch.cuda.synchronize()
-    rval, rhc = csr.block_csr_combine_ref(*args, **kw)
+    rval, rhc = plain(*args, **kw)
     if not torch.equal(hc, rhc):
         raise AssertionError(f"{mode}: has-message counts differ")
     err = float((val - rval).abs().max())
@@ -243,8 +296,24 @@ def check_kernel(csr, args, kw, path, reps=10):
         if not bool(((val - rval).abs() <= tol).all()):
             raise AssertionError(f"{mode}: kernel differs from the plain "
                                  f"version beyond rtol 1e-5 ({err})")
-    ms = cuda_ms(lambda: csr.block_csr_combine(*args, **kw), reps)
-    plain_ms = cuda_ms(lambda: csr.block_csr_combine_ref(*args, **kw), 2)
+    extra = {}
+    if panel:
+        # every column against a solo launch on that column: bit-equal
+        for j in range(val.shape[2]):
+            solo = list(args)
+            solo[7], solo[8] = (args[7][..., j].contiguous(),
+                                args[8][..., j].contiguous())
+            sv, sh = csr.block_csr_combine(*solo, **kw)
+            if not (torch.equal(val[..., j].view(torch.int32),
+                                sv.view(torch.int32))
+                    and torch.equal(hc[..., j], sh)):
+                raise AssertionError(f"{mode}: panel column {j} is not "
+                                     "bit-equal to a solo launch")
+        extra = dict(columns=int(val.shape[2]),
+                     columns_bit_equal_to_solo=True)
+        del sv, sh, solo
+    ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), 2)
     lib = library_call(args, kw)
     library_ms = cuda_ms(lib, 5)
     del lib
@@ -255,7 +324,7 @@ def check_kernel(csr, args, kw, path, reps=10):
          live_tiles=live_slots(args[3]),
          longest_row_tiles=int(args[3].max()),
          dest_partitions=int(args[3].shape[0]),
-         row_blocks=int(args[3].shape[1]))
+         row_blocks=int(args[3].shape[1]), **extra)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -585,8 +654,8 @@ def main(argv=None) -> int:
     os.makedirs(tmp_root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="stores-", dir=tmp_root)
     try:
-        ooc = run_ooc(tmp, dg=dg, fm=fm, dg_rev=dg_rev, fm_rev=fm_rev,
-                      checks=checks, drives=drives,
+        ooc = run_ooc(tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
+                      fm_rev=fm_rev, checks=checks, drives=drives,
                       local_results=local_results)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -608,6 +677,16 @@ def main(argv=None) -> int:
                 max_abs_err=row["max_abs_err"], ms=row["ms"],
                 plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                 bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    serving = ooc["serving"]
+    for mode in ("add", "min"):
+        row = serving["rows"][mode]
+        table.append(dict(
+            name=f"block_csr_combine_mq[{mode}] OOC", route="cuda",
+            source=KERNEL_SOURCE, replaces=TPU_KERNEL_MQ,
+            launches=serving["launches"][mode]["combine_mq"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
     for name, key, source_line in (
             ("blocked_scan[add]", "add", TPU_SCAN),
             ("blocked_scan[max]", "max", TPU_SCAN),
@@ -629,12 +708,13 @@ def main(argv=None) -> int:
     return 0
 
 
-def run_ooc(tmp, *, dg, fm, dg_rev, fm_rev, checks, drives,
+def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
             local_results):
     """The OOC phases (5–8) of :func:`main` on its graphs (forward and
-    reversed), held against its oracle ``checks`` and LOCAL results; the
-    stores live under ``tmp``.  Returns the per-algorithm launch counts
-    and the varint kernel rows."""
+    reversed), held against its oracle ``checks`` and LOCAL results, then
+    the serving phase (9) on the forward store; the stores live under
+    ``tmp``.  Returns the per-algorithm launch counts, the kernel rows and
+    the serving results."""
     import numpy as np
     import torch
     from repro_torch.core import ChunkStore, Engine, EngineConfig, executor
@@ -780,8 +860,224 @@ def run_ooc(tmp, *, dg, fm, dg_rev, fm_rev, checks, drives,
         raise AssertionError("the host decode launched decode kernels")
     emit(phase="ooc_host_decode", algorithm="bfs", seconds=host_s,
          iterations=hs.iterations, bit_identical=True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serving = run_serving(stores["fwd"], g=g, source=source, dg=dg, fm=fm,
+                          bfs_oracle=checks["bfs"])
     return dict(launches=launches, kernel_rows=kernel_rows,
-                combine_rows=combine_rows)
+                combine_rows=combine_rows, serving=serving)
+
+
+def run_serving(store, *, g, source, dg, fm, bfs_oracle):
+    """The serving phase (9) of :func:`main`: solo references, LOCAL
+    serving and OOC serving of the 12 highest out-degree sources on the
+    forward ``store`` (its vertex spill is replaced by a fresh Q = 8 one).
+    Returns the panel-combine launch counts per mode and its kernel rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        Engine, EngineConfig, GraphServeSession, accumulate_counters,
+        multiquery,
+    )
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import COUNTER_KEYS, MEASURED_PAIRS
+    from repro_torch.kernels import csr_spmv, varint
+    n = g.num_vertices
+    f32_max = np.float32(np.finfo(np.float32).max)
+    sources = [int(v) for v in np.argsort(-g.out_degrees(),
+                                          kind="stable")[:SERVE_SOURCES]]
+    if sources[0] != source:
+        raise AssertionError("serving: query 0 is not the BFS source")
+    first = sources[:SERVE_Q]
+
+    # -- 9a. solo references: LOCAL segment BFS from every source ----------
+    t0 = time.perf_counter()
+    seg = Engine(dg, fm, EngineConfig(compute_backend="segment"))
+    solo = {s: alg.bfs(seg, s) for s in sources}
+    torch.cuda.synchronize()
+    bfs_oracle(solo[source][0])
+    emit(phase="serve_solo", sources=sources,
+         iterations=[solo[s][1].iterations for s in sources],
+         seconds=time.perf_counter() - t0)
+    del seg
+
+    # -- 9b. LOCAL serving (segment, Q = 8) --------------------------------
+    local = Engine(dg, fm, EngineConfig(num_queries=SERVE_Q))
+    t0 = time.perf_counter()
+    levels, mstats = alg.multi_bfs(local, first)
+    torch.cuda.synchronize()
+    bfs_s = time.perf_counter() - t0
+    for j, s in enumerate(first):
+        lv, st = solo[s]
+        if not np.array_equal(levels[:, j].view(np.int32), lv.view(np.int32)):
+            raise AssertionError(f"local multi_bfs: column {j} differs from "
+                                 "its solo BFS")
+        if mstats.iterations[j] != st.iterations:
+            raise AssertionError(f"local multi_bfs: query {j} ran "
+                                 f"{mstats.iterations[j]} iterations, solo "
+                                 f"{st.iterations}")
+    pairs = [(first[k], first[(k + 1) % SERVE_Q]) for k in range(SERVE_Q)]
+    reach, _ = alg.pairwise_reachability(local, pairs)
+    want = [bool(solo[s][0][d] < f32_max) for s, d in pairs]
+    if [bool(r) for r in reach] != want:
+        raise AssertionError(f"pairwise_reachability {list(reach)} != {want}")
+    t0 = time.perf_counter()
+    ppr_local, ppr_lstats = alg.personalized_pagerank(local, first,
+                                                      PPR_ITERS)
+    torch.cuda.synchronize()
+    ppr_s = time.perf_counter() - t0
+    np.testing.assert_allclose(
+        ppr_local[:, 0], alg.ref_ppr(n, g.src, g.dst, source, PPR_ITERS),
+        rtol=1e-4, atol=1e-7)
+    emit(phase="serve_local", queries=SERVE_Q, multi_bfs_s=bfs_s,
+         multi_bfs_iterations=mstats.iterations, reachable=want,
+         ppr_iterations=PPR_ITERS, ppr_s=ppr_s,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9c. OOC serving: a session of 8 slots takes all 12 sources --------
+    shutil.rmtree(os.path.join(store.root, "vertex"))  # fresh Q = 8 spill
+    eng = Engine(dg, fm, EngineConfig(executor="ooc",
+                                      compute_backend="block_csr",
+                                      num_queries=SERVE_Q), store=store)
+    if not eng.device_decode:
+        raise AssertionError("device_decode is not on by default on the card")
+
+    def reset():
+        varint.reset_launches()
+        csr_spmv.block_csr_combine_mq.launches = 0
+        eng.ooc_wall = dict.fromkeys(eng.ooc_wall, 0.0)
+        torch.cuda.reset_peak_memory_stats()
+
+    def read_counts(path):
+        counts = dict(combine_mq=csr_spmv.block_csr_combine_mq.launches,
+                      stencil=varint.byte_stencil.launches,
+                      add=varint.blocked_scan.launches_by_mode["add"],
+                      max=varint.blocked_scan.launches_by_mode["max"])
+        for kname, cnt in counts.items():
+            if cnt < 1:
+                raise AssertionError(f"serving {path}: kernel {kname} was "
+                                     "never launched")
+        return counts
+
+    def check_io(c, path):
+        if c["measured_chunks_device_decoded"] != c["measured_chunks_read"]:
+            raise AssertionError(f"serving {path}: not every chunk read was "
+                                 "decoded on the card")
+        for mk, ak in MEASURED_PAIRS:
+            if abs(c[mk] - c[ak]) > 0.5:
+                raise AssertionError(f"serving {path}: {mk} {c[mk]} != {ak} "
+                                     f"{c[ak]}")
+
+    sess = GraphServeSession(eng)
+    for s in sources:
+        sess.submit(s)
+    reset()
+    results, step_s = [], []
+    t0 = time.perf_counter()
+    with recorded_combine(multiquery, largest=True,
+                          name="block_csr_combine_mq") as big_min:
+        while sess.in_flight:
+            t1 = time.perf_counter()
+            results.extend(sess.step())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+    drain_s = time.perf_counter() - t0
+    launches = {"min": read_counts("session")}
+    if big_min["kw"]["mode"] != "min":
+        raise AssertionError(f"session ran combine mode {big_min['kw']}")
+    split = {k: v / sess.steps for k, v in eng.ooc_wall.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(r.source for r in results) != sorted(sources):
+        raise AssertionError("the session did not answer every query")
+    for r in results:
+        lv, st = solo[r.source]
+        if not np.array_equal(r.levels.view(np.int32), lv.view(np.int32)):
+            raise AssertionError(f"session: query from {r.source} differs "
+                                 "from its solo BFS")
+        if r.run_iters != st.iterations:
+            raise AssertionError(f"session: query from {r.source} ran "
+                                 f"{r.run_iters} iterations, solo "
+                                 f"{st.iterations}")
+    c = sess.counters
+    check_io(c, "session")
+    solo_sum = {}
+    for s in sources:
+        solo_sum = accumulate_counters(solo_sum, solo[s][1].counters)
+    for k in ("msgs_generated", "msgs_sent", "edges_touched",
+              "vertex_read_bytes", "vertex_write_bytes"):
+        if abs(c[k] - solo_sum[k]) > 1e-3 + 1e-5 * abs(solo_sum[k]):
+            raise AssertionError(f"session: logical counter {k} = {c[k]}, "
+                                 f"sum of the solo runs {solo_sum[k]}")
+    for k in ("chunks_read", "seek_cost", "edge_read_bytes", "net_bytes"):
+        if c[k] > solo_sum[k] * (1 + 1e-5) + 1e-3:
+            raise AssertionError(f"session: shared-stream counter {k} = "
+                                 f"{c[k]} exceeds the solo runs' sum "
+                                 f"{solo_sum[k]}")
+    disk = (c["measured_edge_read_bytes"] + c["measured_vertex_read_bytes"]
+            + c["measured_vertex_write_bytes"])
+    walls = np.array([r.wall_s for r in results])
+    emit(phase="serve_ooc_session", queries=SERVE_SOURCES, slots=SERVE_Q,
+         steps=sess.steps, drain_s=drain_s,
+         queries_per_s=SERVE_SOURCES / drain_s,
+         p50_wall_s=float(np.median(walls)), max_wall_s=float(walls.max()),
+         wait_iters=[r.wait_iters for r in results],
+         run_iters=[r.run_iters for r in results],
+         step_s=step_s, split_per_step_s=split, launches=launches["min"],
+         measured_disk_bytes=disk, net_bytes=c["net_bytes"],
+         bytes_per_query=(disk + c["net_bytes"]) / SERVE_SOURCES,
+         solo_disk_bytes=solo_sum["edge_read_bytes"]
+         + solo_sum["vertex_read_bytes"] + solo_sum["vertex_write_bytes"],
+         solo_net_bytes=solo_sum["net_bytes"],
+         shared_over_solo={k: c[k] / solo_sum[k] for k in (
+             "chunks_read", "seek_cost", "edge_read_bytes", "net_bytes")
+             if solo_sum[k]},
+         chunks_read=c["measured_chunks_read"],
+         chunks_device_decoded=c["measured_chunks_device_decoded"],
+         max_memory_allocated=peak)
+    del sess, results
+
+    # -- 9d. OOC personalized PageRank of sources 0-7 -----------------------
+    reset()
+    t0 = time.perf_counter()
+    with recorded_combine(multiquery, largest=True,
+                          name="block_csr_combine_mq") as big_add:
+        ppr_ooc, ppr_ostats = alg.personalized_pagerank(eng, first,
+                                                        PPR_ITERS)
+    torch.cuda.synchronize()
+    ppr_ooc_s = time.perf_counter() - t0
+    launches["add"] = read_counts("ppr")
+    if big_add["kw"]["mode"] != "add":
+        raise AssertionError(f"ooc ppr ran combine mode {big_add['kw']}")
+    check_io(ppr_ostats.counters, "ppr")
+    np.testing.assert_allclose(ppr_ooc, ppr_local, rtol=0, atol=1e-5)
+    for k in COUNTER_KEYS:
+        a, b = ppr_ostats.counters[k], ppr_lstats.counters[k]
+        if abs(a - b) > 1e-3 + 1e-5 * abs(b):
+            raise AssertionError(f"ooc ppr: counter {k} = {a}, LOCAL {b}")
+    emit(phase="serve_ooc_ppr", queries=SERVE_Q, iterations=PPR_ITERS,
+         seconds=ppr_ooc_s,
+         max_abs_diff_vs_local=float(np.abs(ppr_ooc - ppr_local).max()),
+         launches=launches["add"],
+         split_per_iteration_s={k: v / PPR_ITERS
+                                for k, v in eng.ooc_wall.items()},
+         measured_edge_read_bytes=ppr_ostats.counters[
+             "measured_edge_read_bytes"],
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 9e. the panel kernel replayed on the serving path's own inputs ----
+    rows = {}
+    for mode, call in (("min", big_min), ("add", big_add)):
+        rows[mode] = check_kernel(csr_spmv, call["args"], call["kw"], "ooc",
+                                  reps=5, panel=True)
+    return dict(launches=launches, rows=rows)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ adaptive CSR/DCSR, filtered push message passing, signal/slot engine.
 Layering mirrors ``repro.core``: ``phases`` holds the four ProcessEdges
 phases; ``chunkstore`` the storage tier (on-disk chunk store, vertex spill,
 prefetcher and the ChunkSource contract); ``exchange`` the wire byte model;
-``executor`` composes them into the LOCAL and OOC executors; ``engine`` is
-the public signal/slot API on top.
+``executor`` composes them into the LOCAL and OOC executors and
+``multiquery`` into their Q-query panel twins; ``engine`` is the public
+signal/slot API on top, and ``serve`` the continuous-query session.
 """
 from repro_torch.core.partition import (  # noqa: F401
     TwoLevelSpec, DistGraph, make_spec, build_dist_graph,
@@ -29,4 +30,7 @@ from repro_torch.core.exchange import (  # noqa: F401
 from repro_torch.core.engine import (  # noqa: F401
     ADD, MIN, MAX, Engine, EngineConfig, Monoid, accumulate_counters,
     zero_counters,
+)
+from repro_torch.core.serve import (  # noqa: F401
+    GraphServeSession, QueryResult,
 )

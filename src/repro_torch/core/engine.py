@@ -1,5 +1,5 @@
 """DFOGraph engine: vertex-centric push with signal/slot (paper §3) — the
-LOCAL and OOC subset of ``repro.core.engine``.
+LOCAL and OOC subset of ``repro.core.engine``, single- and multi-query.
 
 ProcessEdges runs the paper's four phases:
   1. generating          — active vertices produce messages (``signal``),
@@ -20,6 +20,12 @@ executors of :mod:`repro_torch.core.executor` realize them:
     in a :class:`~repro_torch.core.chunkstore.VertexSpill`; only the reads
     the selective schedule marks necessary are issued, and measured bytes
     are cross-checked against the analytic model (``verify_io``).
+
+``process_edges_multi`` / ``process_vertices_multi`` serve
+``EngineConfig.num_queries`` concurrent queries through one selective pass
+over [P, V, Q] state panels (DESIGN.md §11), on LOCAL (segment backend)
+and OOC (both backends); :mod:`repro_torch.core.multiquery` holds their
+executors.
 
 ``slot`` contributions are reduced with an associative + commutative
 **monoid** (add/min/max — all four paper algorithms fit), the
@@ -47,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import executor as _executor
+from repro_torch.core import multiquery as _multiquery
 from repro_torch.core.chunkstore import (
     ChunkStore, DiskChunkSource, VertexSpill,
 )
@@ -58,8 +65,7 @@ from repro_torch.utils import resolve_device
 State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
 
 # The slices of the port that bring what this one does not run.
-SLICE_DIST_OOC = "slice 3 (distributed out of core)"
-SLICE_MULTIQUERY = "slice 4 (multi-query serving)"
+SLICE_DIST_OOC = "slice 4 (distributed out of core)"
 SLICE_MESH = "slice 5 (the mesh executor)"
 SLICE_PROCESS = "slice 6 (process mode)"
 
@@ -96,8 +102,8 @@ MAX = Monoid("max", float(np.finfo(np.float32).min))
 class EngineConfig:
     """Tunables mirroring the paper's knobs, with the reference's field
     names and defaults.  Fields the port does not run yet (the
-    distributed, mesh and multi-query ones) keep their defaults; anything
-    else raises ``NotImplementedError`` naming the slice that brings it."""
+    distributed and mesh ones) keep their defaults; anything else raises
+    ``NotImplementedError`` naming the slice that brings it."""
 
     enable_filtering: bool = True
     """Apply the paper's §4.3 need-list message filter in phase 2."""
@@ -172,7 +178,15 @@ class EngineConfig:
     """SHARD_MAP only (later slices)."""
 
     num_queries: int = 1
-    """Q for the multi-query serving surface (later slices)."""
+    """Q for the multi-query serving surface (``process_edges_multi`` /
+    ``process_vertices_multi``, DESIGN.md §11): vertex state carries a
+    trailing query axis ([P, V, Q] panels) and ONE selective pass serves
+    all Q frontiers — the scheduled active set is the union of the
+    per-query frontiers, per-query masks keep the combines independent.
+    The ooc vertex spill is laid out per query (``{key}@q{j}`` columns,
+    ``active_q{j}`` bitmaps), so a spill root must be (re)built with the
+    same Q (``VertexSpill`` validates).  The single-query API is
+    unaffected by this knob."""
 
 
 COUNTER_KEYS = (
@@ -252,9 +266,6 @@ class Engine:
         if config.num_queries < 1:
             raise ValueError(
                 f"num_queries must be >= 1, got {config.num_queries}")
-        if config.num_queries > 1:
-            raise NotImplementedError(
-                f"num_queries > 1 comes with {SLICE_MULTIQUERY}")
         if config.parallel_workers:
             raise ValueError(
                 "parallel_workers applies only to executor='dist_ooc' (the "
@@ -313,6 +324,7 @@ class Engine:
             spec.num_batches, spec.batch_size, spec.v_max,
             num_queries=config.num_queries)
         self._ooc_last_state = None
+        self._mq_last_state = None
         # host wall seconds per OOC stage (executor.OOC_WALL_KEYS)
         self.ooc_wall = dict.fromkeys(_executor.OOC_WALL_KEYS, 0.0)
 
@@ -360,8 +372,28 @@ class Engine:
         unmeasured preprocessing sync."""
         if state is self._ooc_last_state:
             return
+        self._mq_last_state = None
         self.spill.load({k: _np(v) for k, v in state.items()})
         self.spill.write_bitmap(_np(self._host_graph.vertex_valid))
+        self.spill.reset_io_counters()
+
+    def _sync_mq_state(self, state: State) -> None:
+        """Multi-query twin of :meth:`_sync_ooc_state`: make the spill
+        authoritative for a [P, V, Q] state panel, flattened to the
+        per-query ``{key}@q{j}`` columns with one ``active_q{j}`` bitmap
+        each.  Panels returned by multi-query OOC calls are recognized by
+        identity and skipped; anything else loads as an unmeasured
+        preprocessing sync."""
+        if state is self._mq_last_state:
+            return
+        self._ooc_last_state = None
+        nq = self.config.num_queries
+        arrs = {k: _np(v) for k, v in state.items()}
+        valid = _np(self._host_graph.vertex_valid)
+        self.spill.load({f"{k}@q{j}": np.ascontiguousarray(v[:, :, j])
+                         for k, v in arrs.items() for j in range(nq)})
+        for j in range(nq):
+            self.spill.write_bitmap(valid, name=f"active_q{j}")
         self.spill.reset_io_counters()
 
     def _check_measured(self, counters: dict) -> None:
@@ -568,3 +600,198 @@ class Engine:
         self._check_measured(counters)
         self._ooc_last_state = new_state
         return new_state, new_active, total, counters
+
+    # -- multi-query (DESIGN.md §11) -----------------------------------------
+    def _check_mq_state(self, state, active) -> None:
+        nq = self.config.num_queries
+        for k, v in state.items():
+            if v.ndim != 3 or tuple(v.shape)[-1] != nq:
+                raise ValueError(
+                    "multi-query state arrays must be [P, V, "
+                    f"num_queries={nq}] panels; state[{k!r}] has shape "
+                    f"{tuple(v.shape)}")
+        if active is not None and (active.ndim != 3
+                                   or tuple(active.shape)[-1] != nq):
+            raise ValueError(
+                f"multi-query active must be a [P, V, num_queries={nq}] "
+                f"panel; got shape {tuple(active.shape)}")
+
+    def _on_device(self, x):
+        """A LOCAL panel (tensor or array) as a tensor on the engine's
+        device; OOC results come back as host arrays."""
+        return torch.as_tensor(x).to(self.device)
+
+    def process_edges_multi(self, state: State, *,
+                            signal_fn: Callable, slot_fn: Callable,
+                            monoid: Monoid, apply_fn: Callable,
+                            active=None):
+        """One ProcessEdges call serving ``num_queries`` concurrent
+        queries through a single selective pass (DESIGN.md §11).
+
+        ``state`` holds [P, V, Q] panels and ``active`` (if given) a
+        [P, V, Q] boolean panel; the per-vertex callbacks are the
+        unchanged single-query ``signal_fn`` / ``slot_fn`` / ``apply_fn``,
+        applied per query column.  Each query's column of the result is
+        bit-identical to the solo ``process_edges`` run for that query;
+        the chunk stream and the seeks are paid once over the union
+        frontier.  Returns (new_state panels, new_active [P, V, Q],
+        totals [Q], counters)."""
+        cfg = self.config
+        nq = cfg.num_queries
+        self._check_mq_state(state, active)
+        if not cfg.enable_adaptive_formats:
+            raise ValueError(
+                "process_edges_multi requires enable_adaptive_formats: "
+                "the union-frontier chunk price is the adaptive min-bytes "
+                "choice (DESIGN.md §11)")
+        backend = cfg.compute_backend
+        if backend not in ("segment", "block_csr"):
+            raise ValueError(f"unknown compute_backend: {backend!r}")
+        if self._ooc:
+            return self._mq_ooc_process_edges(state, signal_fn, slot_fn,
+                                              monoid, apply_fn, active,
+                                              backend)
+        if backend == "block_csr":
+            raise ValueError(
+                "multi-query block_csr runs on the streamed executor "
+                "(ooc), where one decoded chunk feeds the Q-panel kernel; "
+                "LOCAL multi-query supports compute_backend='segment'")
+        keys = tuple(_executor.fn_code_key(f)
+                     for f in (signal_fn, slot_fn, apply_fn))
+        cache_key = None
+        if all(k is not None for k in keys):
+            cache_key = ("mq",) + keys + (monoid.name, nq)
+        fn = self._pe_cache.get(cache_key) if cache_key is not None else None
+        if fn is None:
+            fn = _multiquery.make_local_pe_mq(
+                self, signal_fn, slot_fn, monoid, apply_fn, nq)
+            if cache_key is not None:
+                self._pe_cache[cache_key] = fn
+        state = {k: self._on_device(v) for k, v in state.items()}
+        active = None if active is None else self._on_device(active)
+        return fn(state, active, self.graph, self.fmts, self.global_id)
+
+    def _mq_ooc_process_edges(self, state, signal_fn, slot_fn, monoid,
+                              apply_fn, active, backend):
+        """OOC realization of :meth:`process_edges_multi`: the step of
+        ``multiquery.make_ooc_pe_mq`` against the spill, then the
+        measured-vs-model audit.  Panels and ``new_active`` come back as
+        host arrays."""
+        mode_meta = None
+        if backend == "block_csr":
+            probe = self._probe_slot(slot_fn, monoid)
+            if probe is None:
+                backend = "segment"
+            else:
+                _, mode, a_const, _, _ = probe
+                mode_meta = (mode, a_const)
+        nq = self.config.num_queries
+        keys = tuple(_executor.fn_code_key(f)
+                     for f in (signal_fn, slot_fn, apply_fn))
+        cache_key = None
+        if all(k is not None for k in keys):
+            cache_key = ("mq", "ooc") + keys + (monoid.name, backend,
+                                                mode_meta, nq)
+        fn = self._pe_cache.get(cache_key) if cache_key is not None else None
+        if fn is None:
+            fn = _multiquery.make_ooc_pe_mq(self, signal_fn, slot_fn, monoid,
+                                            apply_fn, backend, mode_meta, nq)
+            if cache_key is not None:
+                self._pe_cache[cache_key] = fn
+        self._sync_mq_state(state)
+        new_state, new_active, totals, counters = fn(active)
+        self._check_measured(counters)
+        self._mq_last_state = new_state
+        return new_state, new_active, totals, counters
+
+    def process_vertices_multi(self, state: State, work_fn: Callable,
+                               active=None):
+        """Multi-query ProcessVertices: ``work_fn(state, global_id)`` runs
+        per query column, updating vertices in that query's ``active``
+        column (all valid, if None).  A query with an empty active column
+        costs zero vertex I/O (physically skipped on OOC).  Returns
+        (new_state, totals [Q], counters)."""
+        nq = self.config.num_queries
+        self._check_mq_state(state, active)
+        if self._ooc:
+            return self._mq_ooc_process_vertices(state, work_fn, active)
+        state = {k: self._on_device(v) for k, v in state.items()}
+        active = None if active is None else self._on_device(active)
+        counters = zero_counters(self.device)
+        new_cols, totals = {k: [] for k in state}, []
+        for j in range(nq):
+            active_j = None if active is None else active[..., j]
+            ns_j, total_j, c_j = self.process_vertices(
+                {k: v[..., j] for k, v in state.items()}, work_fn, active_j)
+            # The bitmap term is shape-static: gate the query's I/O on
+            # aliveness so a converged query prices zero.
+            amask_j = (self.graph.vertex_valid if active_j is None
+                       else active_j & self.graph.vertex_valid)
+            alive_f = torch.any(amask_j).to(torch.float32)
+            for k, v in c_j.items():
+                counters[k] += alive_f * v
+            for k in state:
+                new_cols[k].append(ns_j[k])
+            totals.append(total_j)
+        new_state = {k: torch.stack(cols, dim=-1)
+                     for k, cols in new_cols.items()}
+        return new_state, torch.stack(totals), counters
+
+    def _mq_amasks(self, active):
+        vertex_valid = _np(self._host_graph.vertex_valid)
+        return [(vertex_valid if active is None
+                 else _np(active[..., j]).astype(bool) & vertex_valid)
+                for j in range(self.config.num_queries)]
+
+    def _mq_spill_process_vertices(self, spill, amask_rows, work_fn, base,
+                                   alive, counters):
+        """One spill's multi-query ProcessVertices body: each alive
+        query's bitmap and active batches are read, computed on the
+        device, and merged back into its own ``{key}@q{j}`` columns (dead
+        queries cost zero bytes, measured and modeled alike).  Returns the
+        per-query totals."""
+        spec = self.graph.spec
+        bs, b_cnt, v_max = spec.batch_size, spec.num_batches, spec.v_max
+        sr0, sw0 = spill.bytes_read, spill.bytes_written
+        totals = np.zeros(self.config.num_queries, np.float64)
+        for j in alive:
+            keys_j = _multiquery.mq_query_keys(base, j)
+            spill.read_bitmap(name=f"active_q{j}")              # measured
+            batches = _executor._batch_any(amask_rows[j], bs, b_cnt)
+            rstate_pad = spill.read(batches, keys=keys_j)       # measured
+            rstate = {bk: rstate_pad[f"{bk}@q{j}"][:, :v_max]
+                      for bk in base}
+            updates, ret = work_fn(
+                _executor._device_state(rstate, self.device),
+                self.global_id)
+            spill.merge_write(
+                rstate_pad, {f"{bk}@q{j}": v for bk, v in
+                             _executor._host_state(updates).items()},
+                amask_rows[j], batches)                         # measured
+            totals[j] = float(np.where(amask_rows[j],
+                                       _np(ret).astype(np.float32),
+                                       0.0).sum())
+            touched = float(batches.sum()) * bs
+            ab_j = spill.arrays_bytes(keys_j)
+            counters["vertex_read_bytes"] += (
+                touched * ab_j + float(spill.bitmap_nbytes()))
+            counters["vertex_write_bytes"] += touched * ab_j
+        counters["measured_vertex_read_bytes"] += spill.bytes_read - sr0
+        counters["measured_vertex_write_bytes"] += spill.bytes_written - sw0
+        return totals
+
+    def _mq_ooc_process_vertices(self, state, work_fn, active):
+        """:meth:`process_vertices_multi` against the disk-resident
+        per-query spill columns."""
+        self._sync_mq_state(state)
+        nq = self.config.num_queries
+        amask = self._mq_amasks(active)
+        alive = [j for j in range(nq) if amask[j].any()]
+        counters = {k: 0.0 for k in self.counter_keys}
+        base = _multiquery.mq_base_names(self.spill)
+        totals = self._mq_spill_process_vertices(
+            self.spill, amask, work_fn, base, alive, counters)
+        self._check_measured(counters)
+        new_state = _multiquery.mq_state_views(self.spill, base, nq)
+        self._mq_last_state = new_state
+        return new_state, totals, counters

@@ -18,8 +18,11 @@ The reference writes phases 3–4 for one destination and ``vmap``s them;
 here the vmap axis is written out: every ``*_one_dest`` function takes its
 per-destination arrays with a leading destination axis Q and returns
 per-destination results ``[Q, ...]``, so phase 4 of a whole ProcessEdges
-is one kernel launch.  Functions the host (numpy) executors of later
-slices share keep the reference's ``xp=`` switch (numpy or torch).
+is one kernel launch.  Functions the host (numpy) executors share keep
+the reference's ``xp=`` switch (numpy or torch).
+
+The ``mq_*`` functions price a multi-query pass (DESIGN.md §11): the
+wire batches and chunk reads of the union of Q frontiers, paid once.
 """
 from __future__ import annotations
 
@@ -115,6 +118,69 @@ def net_bytes_model(counts, cross, v_max, msg_bytes, gap_bytes=None,
     return net, raw
 
 
+def mq_wire_bytes(counts, union_count, v_max, msg_bytes, gap_bytes=None,
+                  union_gap=None, uniform=None, xp=torch):
+    """Adaptive wire price of one multi-query (p, q) message batch
+    (DESIGN.md §11).
+
+    ``counts`` [Q, ...] per-query routing counts; ``union_count`` [...] the
+    routing counts of the OR of the per-query send masks; ``gap_bytes`` /
+    ``uniform`` [Q, ...] the per-query delta-varint index-stream sizes and
+    value-uniformity flags; ``union_gap`` [...] the index-stream size of
+    the union mask.  Two arms, min-combined per batch: the **legacy sum**
+    (each nonempty query column as its own solo batch) and, with
+    compression, the **panel** (one union gap stream, then per
+    participating query a presence bitmap over the union positions plus
+    its value column, or one value when uniform).  So a Q-query batch
+    never prices above its Q solo batches.  Host (numpy) callers price in
+    float64, the torch path in float32, as the reference.  Zero where the
+    union is empty."""
+    legacy = batch_wire_bytes(counts, v_max, msg_bytes, gap_bytes=gap_bytes,
+                              uniform=uniform, xp=xp)
+    if xp is np:
+        legacy_sum = np.sum(np.asarray(legacy, np.float64), axis=0)
+        if gap_bytes is None:
+            return legacy_sum
+        c = np.asarray(counts, np.float64)
+        pres = np.floor((np.asarray(union_count, np.float64) + 7.0) / 8.0)
+        vb = np.where(uniform, float(msg_bytes), c * float(msg_bytes))
+        percol = np.where(c > 0, pres[None] + vb, 0.0)
+        panel = np.asarray(union_gap, np.float64) + np.sum(percol, axis=0)
+        return np.where(union_count > 0, np.minimum(panel, legacy_sum), 0.0)
+    legacy_sum = torch.sum(legacy.to(F32), dim=0)
+    if gap_bytes is None:
+        return legacy_sum
+    c = counts.to(F32)
+    pres = torch.floor((union_count.to(F32) + 7.0) / 8.0)
+    vb = torch.where(uniform, float(msg_bytes), c * float(msg_bytes))
+    percol = torch.where(c > 0, pres[None] + vb, 0.0)
+    panel = union_gap.to(F32) + torch.sum(percol, dim=0)
+    return torch.where(union_count > 0, torch.minimum(panel, legacy_sum),
+                       0.0)
+
+
+def mq_net_bytes_model(counts, union_count, cross, v_max, msg_bytes,
+                       gap_bytes=None, union_gap=None, uniform=None,
+                       xp=torch):
+    """Analytic network bytes of a multi-query pass.
+
+    ``counts``/``gap_bytes``/``uniform`` carry a leading query axis over
+    the solo shapes; ``cross`` matches the union shape.  Returns
+    ``(net, net_raw)``: each crossing batch priced by
+    :func:`mq_wire_bytes`, and the sum of the per-query legacy pairs/slab
+    prices — the compressed/raw twins of :func:`net_bytes_model`."""
+    raw = xp.sum(xp.where(
+        cross[None], batch_wire_bytes(counts, v_max, msg_bytes, xp=xp),
+        0.0))
+    if gap_bytes is None:
+        return raw, raw
+    net = xp.sum(xp.where(
+        cross, mq_wire_bytes(counts, union_count, v_max, msg_bytes,
+                             gap_bytes=gap_bytes, union_gap=union_gap,
+                             uniform=uniform, xp=xp), 0.0))
+    return net, raw
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: intra-node dispatch over the dispatching graph (paper §4.2)
 # ---------------------------------------------------------------------------
@@ -188,10 +254,16 @@ def format_choice_one_dest(dcsr_ptr, has_csr, csr_bytes, dcsr_bytes,
     Returns the per-destination counter contributions: seek cost, the
     compressed/raw read-byte twins, and the per-format active-chunk
     counts."""
-    use_csr, use_delta, seek, per_chunk, per_raw = format_choice_matrix(
+    return _reduce_choice(format_choice_matrix(
         dcsr_ptr, has_csr, csr_bytes, dcsr_bytes, dcsr_delta_bytes,
         csr_raw_bytes, dcsr_raw_bytes, part_sizes, gamma, msgs_from,
-        compression)
+        compression), chunk_active)
+
+
+def _reduce_choice(choice, chunk_active):
+    """A format-choice matrix reduced over each destination's active
+    chunks ([Q, P, B] -> [Q]), as counter contributions."""
+    use_csr, use_delta, seek, per_chunk, per_raw = choice
 
     def red(x):
         return torch.sum(torch.where(chunk_active, x.to(F32), 0.0),
@@ -205,6 +277,53 @@ def format_choice_one_dest(dcsr_ptr, has_csr, csr_bytes, dcsr_bytes,
         "chunks_read_dcsr_delta": red(use_delta),
         "chunks_read_dcsr": red(~use_csr & ~use_delta),
     }
+
+
+def mq_format_choice_matrix(dcsr_ptr, has_csr, csr_bytes, dcsr_bytes,
+                            dcsr_delta_bytes, csr_raw_bytes, dcsr_raw_bytes,
+                            part_sizes, gamma, msgs_from, compression,
+                            xp=torch):
+    """Per-chunk format selection for a multi-query (union-frontier) pass.
+
+    Same arguments and results as :func:`format_choice_matrix`, but the
+    choice is **pure min-bytes** over the stored representations instead
+    of the solo seek-cost rule: the byte columns are static per chunk, so
+    each chunk the union schedule reads costs at most what any solo run
+    would have paid for it — which is what bounds a batched run's edge
+    bytes by the sum of its solo runs'.  ``msgs_from`` (union counts) only
+    feeds the modeled seek term of the chosen arm."""
+    nnz = _f32(dcsr_ptr[..., 1:] - dcsr_ptr[..., :-1], xp)
+    v_src = _f32(part_sizes, xp)[:, None]                      # [P, 1]
+    m = _f32(msgs_from, xp)[..., None]
+    cost_dcsr = 2.0 * nnz
+    cost_csr = xp.minimum(float(gamma) * m, v_src)
+    if compression:
+        dcsr_best = xp.minimum(dcsr_bytes, dcsr_delta_bytes)
+        use_csr = has_csr & (csr_bytes < dcsr_best)
+        use_delta = (~use_csr) & (dcsr_delta_bytes < dcsr_bytes)
+        per_chunk = xp.where(use_csr, csr_bytes,
+                             xp.where(use_delta, dcsr_delta_bytes,
+                                      dcsr_bytes))
+    else:
+        use_csr = has_csr & (csr_raw_bytes < dcsr_raw_bytes)
+        use_delta = xp.zeros_like(use_csr)
+        per_chunk = xp.where(use_csr, csr_raw_bytes, dcsr_raw_bytes)
+    seek = xp.where(use_csr, cost_csr, cost_dcsr)
+    per_raw = xp.where(use_csr, csr_raw_bytes, dcsr_raw_bytes)
+    return use_csr, use_delta, seek, per_chunk, per_raw
+
+
+def mq_format_choice_one_dest(dcsr_ptr, has_csr, csr_bytes, dcsr_bytes,
+                              dcsr_delta_bytes, csr_raw_bytes,
+                              dcsr_raw_bytes, part_sizes, gamma, msgs_from,
+                              compression, chunk_active):
+    """:func:`mq_format_choice_matrix` reduced over each destination's
+    union-active chunks — the multi-query twin of
+    :func:`format_choice_one_dest`, same counter keys."""
+    return _reduce_choice(mq_format_choice_matrix(
+        dcsr_ptr, has_csr, csr_bytes, dcsr_bytes, dcsr_delta_bytes,
+        csr_raw_bytes, dcsr_raw_bytes, part_sizes, gamma, msgs_from,
+        compression), chunk_active)
 
 
 # ---------------------------------------------------------------------------

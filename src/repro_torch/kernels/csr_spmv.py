@@ -24,6 +24,17 @@ so the float32 result does not depend on the summation order; min/max are
 exact.  A warp's time grows with its row, and R-MAT hub rows hold tens of
 thousands of live tiles: balancing them is a later version's work.
 
+:func:`block_csr_combine_mq` is the multi-query panel form (it replaces
+the Pallas kernel ``block_csr_combine_mq`` of the same reference file,
+body ``_make_combine_kernel_mq``): the same tiles folded against Q value
+and presence columns, each tile read once for all of them.  It launches
+the same CUDA kernel body, instantiated for 1, 2, 4, 8 or 16 columns, so
+each column is bit-identical to a solo call on it; the wrapper pads the
+panel to the next such width with dead columns (identity values, no
+presence) and runs more than 16 columns in groups of 16.  Its plain
+version :func:`block_csr_combine_mq_ref` is the solo plain version
+column by column.
+
 The structure builders (:func:`build_tile_struct`, in torch on whatever
 device its inputs lie; :func:`compact_live_tiles` and
 :func:`build_block_csr`, numpy copied from the reference) give tile
@@ -96,6 +107,9 @@ def _library():
         fn.restype = ci
         lib.block_csr_combine_error_string.argtypes = [ci]
         lib.block_csr_combine_error_string.restype = ctypes.c_char_p
+        mq = lib.block_csr_combine_mq_launch
+        mq.argtypes = [ci] * 9 + [ctypes.c_float] + [vp] * 12
+        mq.restype = ci
     return lib
 
 
@@ -219,6 +233,143 @@ def block_csr_combine_ref(row_ptr, tile_idx, tile_col, row_cnt,
     val = val.to(torch.float32).reshape(q_cnt, n_rows * t)
     hascnt = hascnt.to(torch.float32).reshape(q_cnt, n_rows * t)
     return val, hascnt
+
+
+# ---------------------------------------------------------------------------
+# The multi-query panel combine: wrapper, CUDA launch, plain version
+# ---------------------------------------------------------------------------
+
+MQ_WIDTHS = (1, 2, 4, 8, 16)     # column counts the CUDA kernel is built for
+
+
+def block_csr_combine_mq(row_ptr, tile_idx, tile_col, row_cnt,
+                         tiles_v, tiles_b, tiles_cnt, xv, xc, *,
+                         mode: str, tile: int, identity: float = 0.0):
+    """:func:`block_csr_combine` over Q-column value panels.
+
+    Same structure and tile arguments (leading destination axis D); ``xv``
+    / ``xc`` are [D, C*T, Q] panels — one slot-transformed message column
+    and one presence column per query — and the outputs are [D, R*T, Q]
+    panels.  Each column equals a solo :func:`block_csr_combine` call on
+    that column bit for bit.  CPU tensors run
+    :func:`block_csr_combine_mq_ref`; CUDA tensors launch the kernel (one
+    launch per group of at most 16 columns, each counted in
+    ``block_csr_combine_mq.launches``) or raise."""
+    if mode not in MODES:
+        raise ValueError(f"unknown combine mode {mode!r}")
+    kind = row_cnt.device.type
+    if kind == "cpu":
+        return block_csr_combine_mq_ref(
+            row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
+            tiles_cnt, xv, xc, mode=mode, tile=tile, identity=identity)
+    if kind != "cuda":
+        raise ValueError(
+            f"block_csr_combine_mq runs on cpu or cuda, not {kind}")
+    return _launch_mq(row_ptr, tile_idx, tile_col, row_cnt, tiles_v,
+                      tiles_b, tiles_cnt, xv, xc, mode=mode, tile=tile,
+                      identity=identity)
+
+
+block_csr_combine_mq.launches = 0
+
+
+def mq_layout(n_queries: int):
+    """(group width, padded column count) of a Q-column panel: Q up to 16
+    pads to the next kernel width and runs in one launch; more runs in
+    groups of 16."""
+    if n_queries < 1:
+        raise ValueError(f"a panel needs at least one column, got "
+                         f"{n_queries}")
+    width = next(w for w in MQ_WIDTHS if w >= min(n_queries, MQ_WIDTHS[-1]))
+    return width, -(-n_queries // width) * width
+
+
+def _launch_mq(row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
+               tiles_cnt, xv, xc, *, mode, tile, identity):
+    if tile not in KERNEL_TILES:
+        raise ValueError(f"the CUDA combine kernel is built for tile sizes "
+                         f"{KERNEL_TILES}, not {tile}")
+    need_v, need_b = mode in ("add", "add_b"), mode != "add"
+    if (need_v and tiles_v is None) or (need_b and tiles_b is None):
+        raise ValueError(f"mode {mode!r} needs "
+                         f"{'tiles_v' if need_v else ''} "
+                         f"{'tiles_b' if need_b else ''}".strip())
+    tiles_v = tiles_v if need_v else None
+    tiles_b = tiles_b if need_b else None
+    if xv.dim() != 3 or xv.shape != xc.shape:
+        raise ValueError(f"xv / xc must be [D, C*T, Q] panels of one shape, "
+                         f"got {tuple(xv.shape)} and {tuple(xc.shape)}")
+    q_cnt, n_rows = row_cnt.shape
+    n_slots = tile_idx.shape[1]
+    n_src, n_cols = xv.shape[1], xv.shape[2]
+    width, padded = mq_layout(n_cols)
+    if padded != n_cols:
+        # dead columns: identity values, no presence; cut off below
+        pad = (0, padded - n_cols)
+        xv = torch.nn.functional.pad(xv, pad, value=float(identity))
+        xc = torch.nn.functional.pad(xc, pad)
+    dev = row_cnt.device
+    align = 16 if width >= 4 else 8     # float4 / float2 panel loads
+    shapes = {"row_ptr": (row_ptr, torch.int32, (q_cnt, n_rows + 1), 4),
+              "tile_idx": (tile_idx, torch.int32, (q_cnt, n_slots), 4),
+              "tile_col": (tile_col, torch.int32, (q_cnt, n_slots), 4),
+              "row_cnt": (row_cnt, torch.int32, (q_cnt, n_rows), 4),
+              "tiles_cnt": (tiles_cnt, torch.float32,
+                            (q_cnt, n_slots, tile, tile), 8),
+              "xv": (xv, torch.float32, (q_cnt, n_src, padded), align),
+              "xc": (xc, torch.float32, (q_cnt, n_src, padded), align)}
+    for name, tv in (("tiles_v", tiles_v), ("tiles_b", tiles_b)):
+        if tv is not None:
+            shapes[name] = (tv, torch.float32,
+                            (q_cnt, n_slots, tile, tile), 8)
+    for name, (x, dtype, shape, nbytes) in shapes.items():
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if not x.is_contiguous() or x.data_ptr() % nbytes:
+            raise ValueError(f"{name} must be contiguous and {nbytes}-byte "
+                             "aligned")
+    if n_src % tile:
+        raise ValueError(f"source panel height {n_src} is not a multiple "
+                         f"of the tile {tile}")
+    val = torch.empty((q_cnt, n_rows * tile, padded), dtype=torch.float32,
+                      device=dev)
+    hascnt = torch.empty_like(val)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for col0 in range(0, padded, width):
+            code = lib.block_csr_combine_mq_launch(
+                MODES.index(mode), tile, width, q_cnt, n_rows, n_slots,
+                n_src, padded, col0, float(identity), ptr(row_ptr),
+                ptr(tile_idx), ptr(tile_col), ptr(row_cnt), ptr(tiles_v),
+                ptr(tiles_b), ptr(tiles_cnt), ptr(xv), ptr(xc),
+                val.data_ptr(), hascnt.data_ptr(), stream)
+            if code != 0:
+                msg = lib.block_csr_combine_error_string(code).decode()
+                raise RuntimeError(f"block_csr_combine_mq launch failed: "
+                                   f"{msg} (cudaError {code})")
+            block_csr_combine_mq.launches += 1
+    if padded != n_cols:
+        val = val[..., :n_cols].contiguous()
+        hascnt = hascnt[..., :n_cols].contiguous()
+    return val, hascnt
+
+
+def block_csr_combine_mq_ref(row_ptr, tile_idx, tile_col, row_cnt,
+                             tiles_v, tiles_b, tiles_cnt, xv, xc, *,
+                             mode: str, tile: int, identity: float = 0.0):
+    """Plain PyTorch version of :func:`block_csr_combine_mq`: the solo
+    plain version :func:`block_csr_combine_ref` on each column, stacked
+    (same arguments, same result, any device)."""
+    cols = [block_csr_combine_ref(
+        row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b, tiles_cnt,
+        xv[..., j].contiguous(), xc[..., j].contiguous(), mode=mode,
+        tile=tile, identity=identity) for j in range(xv.shape[-1])]
+    return (torch.stack([v for v, _ in cols], dim=-1),
+            torch.stack([h for _, h in cols], dim=-1))
 
 
 # ---------------------------------------------------------------------------

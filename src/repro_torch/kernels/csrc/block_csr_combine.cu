@@ -38,6 +38,18 @@
 //
 // Hub rows (R-MAT's low ids) own thousands of live tiles, so warps are
 // uneven; balancing them is left to a later version.
+//
+// The multi-query panel entry point (`block_csr_combine_mq_launch`)
+// replaces the Pallas TPU kernel `block_csr_combine_mq` of the same file
+// (body `_make_combine_kernel_mq`): the same tiles folded against NQ value
+// and presence columns at once, xv / xc being row-major [C * 8, ld] panels
+// of which the launch reads the NQ columns starting at col0.  The kernel
+// body is one template over NQ; the solo entry point is its NQ = 1
+// instance, so every column runs the solo kernel's lane mapping, loads,
+// accumulation order and shuffle steps, and is bit-identical to a solo
+// call on that column (in the add modes too).  A tile is read once for
+// all NQ columns; the 8 x NQ vector block a tile selects is two rows of
+// NQ contiguous floats per lane (float4 loads when NQ >= 4).
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,7 +72,36 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
 
-template <int MODE>
+// The two vector cells a lane multiplies, for NQ columns: x0 from panel
+// row c, x1 from row c + 1 (row stride ld).  NQ = 1 is the solo layout,
+// where the two cells are neighbours and load as one float2.
+template <int NQ>
+__device__ __forceinline__ void load_pair(const float* p, long long ld,
+                                          float (&x0)[NQ], float (&x1)[NQ]) {
+  if constexpr (NQ == 1) {
+    const float2 v = load2(p);
+    x0[0] = v.x;
+    x1[0] = v.y;
+  } else if constexpr (NQ % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NQ; i += 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p + i));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(p + ld + i));
+      x0[i] = a.x; x0[i + 1] = a.y; x0[i + 2] = a.z; x0[i + 3] = a.w;
+      x1[i] = b.x; x1[i + 1] = b.y; x1[i + 2] = b.z; x1[i + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NQ; i += 2) {
+      const float2 a = load2(p + i);
+      const float2 b = load2(p + ld + i);
+      x0[i] = a.x; x0[i + 1] = a.y;
+      x1[i] = b.x; x1[i + 1] = b.y;
+    }
+  }
+}
+
+template <int MODE, int NQ>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 combine_kernel(const int* __restrict__ row_ptr,
                const int* __restrict__ tile_idx,
@@ -73,8 +114,8 @@ combine_kernel(const int* __restrict__ row_ptr,
                const float* __restrict__ xc,
                float* __restrict__ val,
                float* __restrict__ hascnt,
-               int n_dest, int n_rows, int n_slots, int n_src,
-               float identity) {
+               int n_dest, int n_rows, int n_slots, int n_src, int ld,
+               int col0, float identity) {
   const long long warp =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (warp >= static_cast<long long>(n_dest) * n_rows) return;  // whole warp
@@ -89,52 +130,117 @@ combine_kernel(const int* __restrict__ row_ptr,
   const int* idx = tile_idx + static_cast<long long>(q) * n_slots + start;
   const int* col = tile_col + static_cast<long long>(q) * n_slots + start;
   const long long tile0 = static_cast<long long>(q) * n_slots;
-  const float* xvq = xv + static_cast<long long>(q) * n_src;
-  const float* xcq = xc + static_cast<long long>(q) * n_src;
+  const float* xvq = xv + static_cast<long long>(q) * n_src * ld + col0;
+  const float* xcq = xc + static_cast<long long>(q) * n_src * ld + col0;
 
-  double acc = 0.0;    // add / add_b
-  float ext = identity;  // min / max
-  float hc = 0.0f;
+  double acc[NQ];    // add / add_b
+  float ext[NQ];     // min / max
+  float hc[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) {
+    acc[i] = 0.0;
+    ext[i] = identity;
+    hc[i] = 0.0f;
+  }
 #pragma unroll 4
   for (int k = 0; k < cnt; ++k) {
     const long long off = (tile0 + idx[k]) * kCells + cell;
-    const int c = col[k] * kTile + j0;
+    const long long c = static_cast<long long>(col[k] * kTile + j0) * ld;
     const float2 tc = load2(tiles_cnt + off);
-    const float2 pc = load2(xcq + c);
-    hc += tc.x * pc.x + tc.y * pc.y;  // small integers: exact
+    float p0[NQ], p1[NQ];
+    load_pair<NQ>(xcq + c, ld, p0, p1);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      hc[i] += tc.x * p0[i] + tc.y * p1[i];  // small integers: exact
+    }
     if (MODE == kAdd || MODE == kAddB) {
       const float2 tv = load2(tiles_v + off);
-      const float2 pv = load2(xvq + c);
-      acc += static_cast<double>(tv.x) * pv.x +
-             static_cast<double>(tv.y) * pv.y;
+      float v0[NQ], v1[NQ];
+      load_pair<NQ>(xvq + c, ld, v0, v1);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        acc[i] += static_cast<double>(tv.x) * v0[i] +
+                  static_cast<double>(tv.y) * v1[i];
+      }
       if (MODE == kAddB) {
         const float2 tb = load2(tiles_b + off);
-        acc += static_cast<double>(tb.x) * pc.x +
-               static_cast<double>(tb.y) * pc.y;
+#pragma unroll
+        for (int i = 0; i < NQ; ++i) {
+          acc[i] += static_cast<double>(tb.x) * p0[i] +
+                    static_cast<double>(tb.y) * p1[i];
+        }
       }
     } else {
       const float2 tb = load2(tiles_b + off);
-      const float2 pv = load2(xvq + c);
-      ext = extremum<MODE>(ext, extremum<MODE>(tb.x + pv.x, tb.y + pv.y));
+      float v0[NQ], v1[NQ];
+      load_pair<NQ>(xvq + c, ld, v0, v1);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) {
+        ext[i] = extremum<MODE>(ext[i],
+                                extremum<MODE>(tb.x + v0[i], tb.y + v1[i]));
+      }
     }
   }
 #pragma unroll
   for (int m = 1; m < 4; m <<= 1) {
-    hc += __shfl_xor_sync(kFullMask, hc, m);
-    if (MODE == kAdd || MODE == kAddB) {
-      acc += __shfl_xor_sync(kFullMask, acc, m);
-    } else {
-      ext = extremum<MODE>(ext, __shfl_xor_sync(kFullMask, ext, m));
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      hc[i] += __shfl_xor_sync(kFullMask, hc[i], m);
+      if (MODE == kAdd || MODE == kAddB) {
+        acc[i] += __shfl_xor_sync(kFullMask, acc[i], m);
+      } else {
+        ext[i] = extremum<MODE>(ext[i],
+                                __shfl_xor_sync(kFullMask, ext[i], m));
+      }
     }
   }
   if ((lane & 3) == 0) {
     const long long o =
-        (static_cast<long long>(q) * n_rows + r) * kTile + (lane >> 2);
-    val[o] = (MODE == kAdd || MODE == kAddB)
-                 ? static_cast<float>(static_cast<double>(identity) + acc)
-                 : ext;
-    hascnt[o] = hc;
+        ((static_cast<long long>(q) * n_rows + r) * kTile + (lane >> 2)) * ld +
+        col0;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      val[o + i] = (MODE == kAdd || MODE == kAddB)
+                       ? static_cast<float>(static_cast<double>(identity) +
+                                            acc[i])
+                       : ext[i];
+      hascnt[o + i] = hc[i];
+    }
   }
+}
+
+template <int NQ>
+int launch(int mode, int n_dest, int n_rows, int n_slots, int n_src, int ld,
+           int col0, float identity, const void* row_ptr,
+           const void* tile_idx, const void* tile_col, const void* row_cnt,
+           const void* tiles_v, const void* tiles_b, const void* tiles_cnt,
+           const void* xv, const void* xc, void* val, void* hascnt,
+           void* stream) {
+  const long long warps = static_cast<long long>(n_dest) * n_rows;
+  if (warps == 0) return 0;
+  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const dim3 block(kWarpsPerBlock * 32);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_LAUNCH(M)                                                     \
+  combine_kernel<M, NQ><<<grid, block, 0, s>>>(                             \
+      static_cast<const int*>(row_ptr), static_cast<const int*>(tile_idx),  \
+      static_cast<const int*>(tile_col), static_cast<const int*>(row_cnt),  \
+      static_cast<const float*>(tiles_v), static_cast<const float*>(tiles_b), \
+      static_cast<const float*>(tiles_cnt), static_cast<const float*>(xv),  \
+      static_cast<const float*>(xc), static_cast<float*>(val),              \
+      static_cast<float*>(hascnt), n_dest, n_rows, n_slots, n_src, ld, col0, \
+      identity)
+  switch (mode) {
+    case kAdd: REPRO_LAUNCH(kAdd); break;
+    case kAddB: REPRO_LAUNCH(kAddB); break;
+    case kMin: REPRO_LAUNCH(kMin); break;
+    case kMax: REPRO_LAUNCH(kMax); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -152,30 +258,38 @@ extern "C" int block_csr_combine_launch(
     const void* tiles_b, const void* tiles_cnt, const void* xv,
     const void* xc, void* val, void* hascnt, void* stream) {
   if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = static_cast<long long>(n_dest) * n_rows;
-  if (warps == 0) return 0;
-  const long long blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const dim3 block(kWarpsPerBlock * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(M)                                                     \
-  combine_kernel<M><<<grid, block, 0, s>>>(                                 \
-      static_cast<const int*>(row_ptr), static_cast<const int*>(tile_idx),  \
-      static_cast<const int*>(tile_col), static_cast<const int*>(row_cnt),  \
-      static_cast<const float*>(tiles_v), static_cast<const float*>(tiles_b), \
-      static_cast<const float*>(tiles_cnt), static_cast<const float*>(xv),  \
-      static_cast<const float*>(xc), static_cast<float*>(val),              \
-      static_cast<float*>(hascnt), n_dest, n_rows, n_slots, n_src, identity)
-  switch (mode) {
-    case kAdd: REPRO_LAUNCH(kAdd); break;
-    case kAddB: REPRO_LAUNCH(kAddB); break;
-    case kMin: REPRO_LAUNCH(kMin); break;
-    case kMax: REPRO_LAUNCH(kMax); break;
+  return launch<1>(mode, n_dest, n_rows, n_slots, n_src, 1, 0, identity,
+                   row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
+                   tiles_cnt, xv, xc, val, hascnt, stream);
+}
+
+// The panel combine over columns [col0, col0 + nq) of the row-major panels
+// xv / xc [n_dest, n_src, ld] into val / hascnt [n_dest, n_rows * 8, ld];
+// nq is 1, 2, 4, 8 or 16, and ld and col0 are multiples of min(nq, 4)
+// (the wrapper pads and groups columns to meet that).  Same structure
+// arguments and return value as the solo entry point.
+extern "C" int block_csr_combine_mq_launch(
+    int mode, int tile, int nq, int n_dest, int n_rows, int n_slots,
+    int n_src, int ld, int col0, float identity, const void* row_ptr,
+    const void* tile_idx, const void* tile_col, const void* row_cnt,
+    const void* tiles_v, const void* tiles_b, const void* tiles_cnt,
+    const void* xv, const void* xc, void* val, void* hascnt, void* stream) {
+  if (tile != kTile || col0 < 0 || col0 + nq > ld) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define REPRO_NQ(N)                                                         \
+  launch<N>(mode, n_dest, n_rows, n_slots, n_src, ld, col0, identity,       \
+            row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,         \
+            tiles_cnt, xv, xc, val, hascnt, stream)
+  switch (nq) {
+    case 1: return REPRO_NQ(1);
+    case 2: return REPRO_NQ(2);
+    case 4: return REPRO_NQ(4);
+    case 8: return REPRO_NQ(8);
+    case 16: return REPRO_NQ(16);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+#undef REPRO_NQ
 }
 
 extern "C" const char* block_csr_combine_error_string(int code) {

@@ -28,4 +28,4 @@ def test_port_imports_without_jax_or_repro():
                        text=True, env=env, cwd=REPO, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     n = int(r.stdout.split("ISOLATED")[1])
-    assert n >= 12, r.stdout
+    assert n >= 20, r.stdout
