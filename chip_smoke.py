@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together), then drives the port's two
-main paths on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted,
+graph paths on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted,
 seed 0: 2,097,152 vertices, 33,554,432 edges; P = 8 partitions, 8 x 8
 tiles), through PageRank (5 iterations), BFS, SSSP and WCC.
 
@@ -76,6 +76,33 @@ source above).  It
     1e-5) and against 8 solo ``block_csr_combine`` launches, one per
     column (bit-equal in both modes), and times it as above.
 
+Kernel entry point (``repro_torch.kernels.ops``, after the graph phases
+have freed the card).  Each call runs with its kernel's launch count set
+to 0 just before it (the count must grow), is held against the kernel's
+plain version, and is timed beside its bound and, where one PyTorch call
+computes the same function, that call:
+  * ``ops.spmv`` (``block_csr_spmv``, T = 8) on ``uniform_graph(2**21,
+    2**25, seed=0, weighted=True)`` through ``ops.build_block_csr``'s
+    padded layout (~12 GB of tiles): within rtol/atol 1e-5 of the plain
+    version and of the float64 edge oracle; library ``torch.sparse.mm``;
+  * ``ops.attention`` (``flash_attention``) at Gemma2-9B widths (16 query
+    heads, the 8 KV heads repeated to 16, head dim 256, bf16, 8,192
+    positions, causal, q and k at variance 40 so the scores reach the
+    softcap): global with softcap 50, local (window 4,096) with softcap
+    50, global without softcap (library: SDPA), within rtol 2e-2 / atol
+    1e-3 of the plain version; float32 global at 1,024 positions and
+    local at 8,192 within 1e-5; each call also shows that the plain
+    version without its causal mask, window or softcap falls outside the
+    tolerance, so the check would catch a kernel that dropped one;
+  * ``ops.gla`` (``gla_chunked``, chunk 128, batch 8 x 4,096 steps, bf16
+    q / k / v) at RWKV6-1.6B widths (32 heads of 64, bonus u) and
+    Zamba2-1.2B's Mamba2 (64 heads, state 64, include_current, a per-head
+    decay): y within 2e-2 and the float32 state within 1e-4 of the plain
+    version; bound: the bytes, which bind over the least work counted
+    (``gla_ops_ms``; the kernel's own chunked form is printed beside it).
+``--scale`` below 21 shrinks the spmv graph with the main one, and the
+sequences and the GLA batch by the same factor (heads and widths stay).
+
 Every phase prints one JSON line; the line before the last holds the
 kernel table (each combine once per mode and path, each row measured on
 that path's inputs beside that path's launches), the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -89,6 +116,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -98,13 +126,18 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_csr_combine.cu"
+KERNEL_SOURCE = "block_csr_combine.cu"
 TPU_KERNEL = "src/repro/kernels/csr_spmv.py:203"
 TPU_KERNEL_MQ = "src/repro/kernels/csr_spmv.py:354"
-VARINT_SOURCE = "src/repro_torch/kernels/csrc/varint.cu"
+VARINT_SOURCE = "varint.cu"
 TPU_SCAN = "src/repro/kernels/varint.py:88"
 TPU_STENCIL = "src/repro/kernels/varint.py:159"
-SOURCES = ("block_csr_combine.cu", "varint.cu")
+CSRC = "src/repro_torch/kernels/csrc/"
+TPU_SPMV = "src/repro/kernels/csr_spmv.py:79"
+TPU_FLASH = "src/repro/kernels/flash_attention.py:75"
+TPU_GLA = "src/repro/kernels/gla_chunk.py:76"
+SOURCES = (KERNEL_SOURCE, VARINT_SOURCE, "block_csr_spmv.cu",
+           "flash_attention.cu", "gla_chunk.cu")
 DEVICE = "cuda"
 LIBRARY_CALLS = {
     "add": "torch.cumsum(x, 0, dtype=torch.int32)",
@@ -113,6 +146,26 @@ LIBRARY_CALLS = {
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM, dense bf16 on the tensor cores
+SPMV_TILE = 8
+# kernel_ops widths: Gemma2-9B attention (src/repro/configs/gemma2_9b.py:
+# 16 query heads, 8 KV heads, head dim 256, softcap 50, local window 4,096;
+# 8,192 positions, Gemma 2's context), RWKV6-1.6B time mix
+# (configs/rwkv6_1_6b.py: 32 heads of 64, chunk 128) and Zamba2-1.2B's
+# Mamba2 (configs/zamba2_1_2b.py: 64 heads = 2 x 2048 / 64, state 64,
+# chunk 128), batch 8 x 4,096 steps for both GLA models
+GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_HEAD_DIM = 16, 8, 256
+GEMMA_SEQ, GEMMA_WINDOW, GEMMA_SOFTCAP = 8192, 4096, 50.0
+# q and k are drawn with variance 40, so the scaled scores q.k / 16 have a
+# standard deviation of 40 and reach the softcap as trained Gemma logits
+# do; at variance 1, tanh(s/50)*50 differs from s by ~1e-4
+GEMMA_SCORE_STD = 40.0
+GLA_SUB = 16     # sub-chunk of the least-work GLA count (gla_ops_ms)
+GLA_BATCH, GLA_STEPS, GLA_CHUNK = 8, 4096, 128
+GLA_MODELS = {   # name -> (heads, Dk, Dv, include_current, bonus)
+    "rwkv6_1_6b": (32, 64, 64, False, True),
+    "zamba2_1_2b_mamba2": (64, 64, 64, True, False),
+}
 PR_ITERS = 5
 SERVE_SOURCES = 12             # queries the serving phase submits
 SERVE_Q = 8                    # concurrent query slots
@@ -136,6 +189,26 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(bytes_, ops_ms):
+    """(bound ms, what binds): the larger of the bytes at the memory rate
+    and the operations' time ``ops_ms``."""
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= ops_ms
+            else (ops_ms, "operations"))
+
+
+ROW_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+
+
+def kernel_row(name, source, replaces, launches, row):
+    """One row of the kernel table: ``source`` is the file under
+    ``CSRC``, ``row`` holds the measured ``ROW_KEYS``."""
+    return dict(name=name, route="cuda", source=CSRC + source,
+                replaces=replaces, launches=launches,
+                **{key: row[key] for key in ROW_KEYS})
 
 
 @contextlib.contextmanager
@@ -196,10 +269,7 @@ def combine_bound_ms(args, mode):
     products = {"add": 2, "add_b": 3, "min": 1, "max": 1}[mode]
     ops = n_live * t * t * 2 * nq * (products + (1 if mode in ("min", "max")
                                                  else 0))
-    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_FLOPS * 1e3
-    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops
-            else "operations", bytes_)
+    return (*bound(bytes_, ops / F32_FLOPS * 1e3), bytes_)
 
 
 def library_call(args, kw):
@@ -458,11 +528,12 @@ def check_varint_kernel(vk, name, x):
     plain_ms = cuda_ms(plain, 5)
     library_ms = None if library is None else cuda_ms(library, 20)
     bytes_ = x.numel() * per_elem
+    bound_ms, bound_by = bound(bytes_, 0.0)
     return dict(elements=x.numel(), max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
                 library=LIBRARY_CALLS[name] or "none: no single PyTorch "
                 "call decodes LEB128",
-                bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_ms=bound_ms, bound_by=bound_by,
                 bytes=bytes_, gb_per_s=bytes_ / ms / 1e6)
 
 
@@ -489,7 +560,9 @@ def main(argv=None) -> int:
     )
     from repro_torch.core import algorithms as alg
     from repro_torch.data.graphs import rmat_graph
-    from repro_torch.kernels import build, csr_spmv, varint
+    from repro_torch.kernels import (
+        build, csr_spmv, flash_attention, gla_chunk, varint,
+    )
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -511,7 +584,10 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         list(pool.map(build.load_library, SOURCES))
     csr_spmv._library()
+    csr_spmv._spmv_library()
     varint._library()
+    flash_attention._library()
+    gla_chunk._library()
     ptxas = {}
     for src_name in SOURCES:
         log = build.library_path(src_name).with_suffix(".log")
@@ -660,7 +736,14 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # -- 9. the kernel table: combine rows per mode and path, each measured
+    # -- 10. the kernel entry point at full width, on a card freed of the
+    # graph phases' memory ---------------------------------------------------
+    del g, dg, fm, dg_rev, fm_rev, local_results, checks, drives
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops_rows = run_kernel_ops(opts.scale)
+
+    # -- 11. the kernel table: combine rows per mode and path, each measured
     # on one call of that path and beside that path's launches only ------
     table = []
     for path, rows, counts in (
@@ -669,37 +752,24 @@ def main(argv=None) -> int:
              {a: v["combine"] for a, v in ooc["launches"].items()})):
         for mode, algos in (("add", ("pagerank",)),
                             ("min", ("bfs", "sssp", "wcc"))):
-            row = rows[mode]
-            table.append(dict(
-                name=f"block_csr_combine[{mode}] {path}", route="cuda",
-                source=KERNEL_SOURCE, replaces=TPU_KERNEL,
-                launches=sum(counts[a] for a in algos),
-                max_abs_err=row["max_abs_err"], ms=row["ms"],
-                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-                bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            table.append(kernel_row(
+                f"block_csr_combine[{mode}] {path}", KERNEL_SOURCE,
+                TPU_KERNEL, sum(counts[a] for a in algos), rows[mode]))
     serving = ooc["serving"]
     for mode in ("add", "min"):
-        row = serving["rows"][mode]
-        table.append(dict(
-            name=f"block_csr_combine_mq[{mode}] OOC", route="cuda",
-            source=KERNEL_SOURCE, replaces=TPU_KERNEL_MQ,
-            launches=serving["launches"][mode]["combine_mq"],
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+        table.append(kernel_row(
+            f"block_csr_combine_mq[{mode}] OOC", KERNEL_SOURCE,
+            TPU_KERNEL_MQ, serving["launches"][mode]["combine_mq"],
+            serving["rows"][mode]))
     for name, key, source_line in (
             ("blocked_scan[add]", "add", TPU_SCAN),
             ("blocked_scan[max]", "max", TPU_SCAN),
             ("varint_stencil", "stencil", TPU_STENCIL)):
-        row = ooc["kernel_rows"][key]
-        n_launch = sum(v[key] for v in ooc["launches"].values())
-        table.append(dict(
-            name=name, route="cuda", source=VARINT_SOURCE,
-            replaces=source_line, launches=n_launch,
-            max_abs_err=row["max_abs_err"],
-            ms=row["ms"], plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"]))
+        table.append(kernel_row(
+            name, VARINT_SOURCE, source_line,
+            sum(v[key] for v in ooc["launches"].values()),
+            ooc["kernel_rows"][key]))
+    table.extend(ops_rows)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1078,6 +1148,319 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
         rows[mode] = check_kernel(csr_spmv, call["args"], call["kw"], "ooc",
                                   reps=5, panel=True)
     return dict(launches=launches, rows=rows)
+
+
+# ---------------------------------------------------------------------------
+# The kernel entry point (repro_torch.kernels.ops) at full width
+# ---------------------------------------------------------------------------
+
+def kept_pairs(sq, skv, causal, window):
+    """(query, key) pairs the mask keeps, counted row by row (positions
+    from 0 for both, as the kernel's mask)."""
+    total = 0
+    for qp in range(sq):
+        hi = min(qp, skv - 1) if causal else skv - 1
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def gla_ops_ms(bh, t, chunk, dk, dv, include_current, bonus, sub):
+    """Time for the operations of a chunked GLA that forms the per-channel
+    decays exp(lq_td - lc_sd) only for pairs (t, s) of one ``sub``-step
+    sub-chunk and takes every other pair of the chunk as a matrix product.
+    ``sub = chunk`` counts this kernel's own chunked form
+    (gla_chunk.py:43-67); ``sub = 16`` the sub-chunked form of
+    flash-linear-attention, whose work is the least the smoke counts.  Per
+    kept pair in a sub-chunk and channel a difference, an exponential, two
+    products and a sum, and per step and channel the exponentials and
+    scalings of q * exp(lq) and k * exp(l_last - lc) and the bonus
+    diagonal (float32, 67 TFLOP/s); the matrix products (q * exp(lq)) S,
+    (k * ...)^T v, q k^T over the pairs across sub-chunks and A v (bf16
+    inputs, 989 TFLOP/s).  The two kinds of unit run side by side, so the
+    time is the larger of the two."""
+    causal = chunk * (chunk + 1) // 2
+    diag = (chunk // sub) * (sub * (sub + 1) // 2 if include_current
+                             else sub * (sub - 1) // 2)
+    cross = causal - (chunk // sub) * (sub * (sub + 1) // 2)
+    n = bh * (t // chunk)
+    elementwise = n * (5 * diag * dk + 5 * chunk * dk + dk
+                       + (3 * chunk * dk if bonus else 0))
+    products = n * (4 * chunk * dk * dv + 2 * cross * dk + 2 * causal * dv)
+    return max(elementwise / F32_FLOPS, products / BF16_FLOPS) * 1e3
+
+
+def within(out, want, rtol, atol):
+    """(|out - want| <= atol + rtol |want| everywhere, max |out - want|)."""
+    out, want = out.float(), want.float()
+    diff = (out - want).abs()
+    return (bool((diff <= atol + rtol * want.abs()).all()),
+            float(diff.max()))
+
+
+def check_close(name, out, want, rtol, atol):
+    """Raise unless ``out`` is finite and :func:`within` the tolerance of
+    ``want``; the max absolute difference."""
+    import torch
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    ok, err = within(out, want, rtol, atol)
+    if not ok:
+        raise AssertionError(f"{name}: differs beyond rtol {rtol} / atol "
+                             f"{atol} (max |diff| {err})")
+    return err
+
+
+def run_kernel_ops(scale):
+    """Phase 10 of :func:`main`: ``ops.spmv``, ``ops.attention`` and
+    ``ops.gla`` at full width, each call with its kernel's launch count set
+    to 0 just before and read just after (it must have grown), held against
+    its plain version (and spmv against the float64 edge oracle), and timed
+    beside its bound and a PyTorch library call where one computes the
+    same function.  ``scale`` below 21 shrinks the graph, the sequences and
+    the GLA batch for a rehearsal.  Returns the kernel table's rows."""
+    import numpy as np
+    import torch
+    from repro_torch.data.graphs import uniform_graph
+    from repro_torch.kernels import csr_spmv, flash_attention, gla_chunk
+    from repro_torch.kernels import ops, ref
+    dev = torch.device(DEVICE)
+    cut = max(0, 21 - scale)
+    rows = []
+
+    def launched(counter_owner, fn):
+        counter_owner.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        n_launch = counter_owner.launches
+        if n_launch < 1:
+            raise AssertionError(f"kernel_ops: {counter_owner.__name__} was "
+                                 "never launched")
+        return out, n_launch
+
+    # -- 10a. block_csr_spmv: uniform graph, the main graph's size --------
+    t0 = time.perf_counter()
+    n, n_edges, t = 2 ** scale, 2 ** (scale + 4), SPMV_TILE
+    g = uniform_graph(n, n_edges, seed=0, weighted=True)
+    blocks = ops.build_block_csr(g.src, g.dst, g.data, n, t)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev_blocks = {}
+    for key in list(blocks):           # each host array freed once on the card
+        val = blocks.pop(key)
+        dev_blocks[key] = (torch.from_numpy(val).to(dev)
+                           if isinstance(val, np.ndarray) else val)
+        del val
+    gc.collect()
+    copy_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.default_rng(1).random(
+        dev_blocks["n_cols"] * t, dtype=np.float32)).to(dev)
+    args = (dev_blocks["tiles"], dev_blocks["tile_col"],
+            dev_blocks["row_ptr"], x)
+    y, n_launch = launched(csr_spmv.block_csr_spmv,
+                           lambda: ops.spmv(dev_blocks, x, tile=t))
+    y_plain = csr_spmv.block_csr_spmv_ref(*args, tile=t)
+    err = check_close("spmv vs plain", y, y_plain, 1e-5, 1e-5)
+    y_edges = torch.from_numpy(ref.ref_spmv_from_edges(
+        g.src, g.dst, g.data, x.cpu().numpy(), n)).to(dev)
+    err_edges = check_close("spmv vs the float64 edge oracle", y[:n],
+                            y_edges, 1e-5, 1e-5)
+    check_close("spmv plain vs the edge oracle", y_plain[:n], y_edges, 1e-5,
+                1e-5)
+    ms = cuda_ms(lambda: ops.spmv(dev_blocks, x, tile=t), 10)
+    plain_ms = cuda_ms(lambda: csr_spmv.block_csr_spmv_ref(*args, tile=t), 2)
+    src_d, dst_d = (torch.from_numpy(a).to(dev) for a in (g.src, g.dst))
+    live = int(torch.unique(dst_d // t * dev_blocks["n_cols"]
+                            + src_d // t).numel())
+    csr = torch.sparse_coo_tensor(
+        torch.stack([dst_d, src_d]), torch.from_numpy(g.data).to(dev),
+        (n, n), check_invariants=False).coalesce().to_sparse_csr()
+    del src_d, dst_d
+    library = lambda: torch.sparse.mm(csr, x[:, None])
+    lib_err = check_close("torch.sparse.mm vs the edge oracle",
+                          library()[:, 0], y_edges, 1e-5, 1e-5)
+    library_ms = cuda_ms(library, 10)
+    n_rows, n_slots = dev_blocks["n_rows"], dev_blocks["tile_col"].numel()
+    out_b = n_rows * t * 4
+    bytes_ = sum(a.numel() * a.element_size() for a in args) + out_b
+    live_b = live * (t * t * 4 + 4) + (n_rows + 1) * 4 + x.numel() * 4 + out_b
+    flops = 2 * n_slots * t * t
+    bound_ms, bound_by = bound(bytes_, flops / F32_FLOPS * 1e3)
+    emit(phase="kernel_ops", call="ops.spmv", graph=dict(
+        generator="uniform_graph", vertices=n, edges=n_edges, seed=0,
+        weighted=True), tile=t, row_blocks=n_rows, padded_slots=n_slots,
+        live_tiles=live, max_tiles_per_row=dev_blocks["max_tiles_per_row"],
+        host_build_s=build_s, copy_to_card_s=copy_s, launches=n_launch,
+        max_abs_err=err, max_abs_err_vs_edges=err_edges,
+        library_max_abs_err_vs_edges=lib_err, kernel_ms=ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library="torch.sparse.mm (coalesced f32 CSR of the edges)",
+        bytes=bytes_, bound_ms=bound_ms, bound_by=bound_by,
+        live_bytes=live_b, live_bound_ms=live_b / HBM_BYTES_PER_S * 1e3,
+        gb_per_s=bytes_ / ms / 1e6)
+    rows.append(kernel_row(
+        "block_csr_spmv ops.spmv uniform 2^%d T=%d" % (scale, t),
+        "block_csr_spmv.cu", TPU_SPMV, n_launch, dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=library_ms)))
+    del g, blocks, dev_blocks, args, x, y, y_plain, y_edges, csr, library
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 10b. flash_attention at Gemma2-9B widths ---------------------------
+    seq = max(128, GEMMA_SEQ >> cut)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def gemma_inputs(s, dtype):
+        qk_scale = math.sqrt(GEMMA_SCORE_STD)
+        q = (qk_scale * torch.randn((GEMMA_HEADS, s, GEMMA_HEAD_DIM),
+                                    generator=gen, device=dev)).to(dtype)
+        # 8 KV heads, each serving 2 query heads (the kernel has no GQA)
+        k, v = (scale * torch.randn((GEMMA_KV_HEADS, s, GEMMA_HEAD_DIM),
+                                    generator=gen, device=dev)
+                for scale in (qk_scale, 1.0))
+        return (q,) + tuple(a.to(dtype).repeat_interleave(
+            GEMMA_HEADS // GEMMA_KV_HEADS, dim=0) for a in (k, v))
+
+    local = min(GEMMA_WINDOW, seq // 2)
+    calls = (   # label, dtype, positions, window, softcap, rtol, atol
+        ("global, softcap 50", bf, seq, 0, GEMMA_SOFTCAP, 2e-2, 1e-3),
+        ("local window %d, softcap 50" % local, bf, seq, local,
+         GEMMA_SOFTCAP, 2e-2, 1e-3),
+        ("global, no softcap", bf, seq, 0, 0.0, 2e-2, 1e-3),
+        ("global, softcap 50, float32", torch.float32, min(1024, seq), 0,
+         GEMMA_SOFTCAP, 1e-5, 1e-5),
+        ("local window %d, softcap 50, float32" % local, torch.float32,
+         seq, local, GEMMA_SOFTCAP, 1e-5, 1e-5),
+    )
+    for label, dtype, s, window, softcap, rtol, atol in calls:
+        q, k, v = gemma_inputs(s, dtype)
+        kw = dict(causal=True, window=window, softcap=softcap)
+        o, n_launch = launched(flash_attention.flash_attention,
+                               lambda: ops.attention(q, k, v, **kw))
+        plain = lambda **over: flash_attention.flash_attention_ref(
+            q, k, v, **dict(kw, **over))
+        want = plain()
+        err = check_close(f"attention {label}", o, want, rtol, atol)
+        # the check must tell each masking feature apart at these inputs:
+        # the plain version without it falls outside the tolerance
+        without = dict(causal=dict(causal=False))
+        if window:
+            without["window"] = dict(window=0)
+        if softcap:
+            without["softcap"] = dict(softcap=0.0)
+        feature_diff = {}
+        for feature, over in without.items():
+            ok, feature_diff[feature] = within(plain(**over), want, rtol,
+                                               atol)
+            if ok:
+                raise AssertionError(f"attention {label}: the check cannot "
+                                     f"see the {feature} at these inputs")
+        bf16 = dtype == bf
+        ms = cuda_ms(lambda: ops.attention(q, k, v, **kw), 5 if bf16 else 3)
+        plain_ms = cuda_ms(plain, 2)
+        library_ms = lib_err = None
+        if not softcap:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True)
+            lib_err = float((sdpa()[0].float() - o.float()).abs().max())
+            library_ms = cuda_ms(sdpa, 5)
+        pairs = kept_pairs(s, s, True, window)
+        flops = 4 * pairs * GEMMA_HEAD_DIM * GEMMA_HEADS
+        bytes_ = 4 * q.numel() * q.element_size()
+        bound_ms, bound_by = bound(
+            bytes_, flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3)
+        emit(phase="kernel_ops", call="ops.attention", label=label,
+             heads=GEMMA_HEADS, kv_heads=GEMMA_KV_HEADS,
+             head_dim=GEMMA_HEAD_DIM, seq=s, dtype=str(dtype),
+             score_std=GEMMA_SCORE_STD, **kw, launches=n_launch,
+             max_abs_err=err, rtol=rtol, atol=atol,
+             out_mean_abs=float(want.float().abs().mean()),
+             max_abs_diff_without=feature_diff, kernel_ms=ms,
+             plain_ms=plain_ms, library_ms=library_ms,
+             library=("torch.nn.functional.scaled_dot_product_attention("
+                      "is_causal=True)" if not softcap else
+                      "none: no single PyTorch call applies a tanh softcap"),
+             library_max_abs_diff=lib_err, kept_pairs_per_head=pairs,
+             flops=flops, bytes=bytes_, bound_ms=bound_ms,
+             bound_by=bound_by, tflops=flops / ms / 1e9)
+        rows.append(kernel_row(
+            f"flash_attention ops.attention gemma2-9b {label} S={s}",
+            "flash_attention.cu", TPU_FLASH, n_launch, dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)))
+        del q, k, v, o, want, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 10c. gla_chunked at RWKV6-1.6B and Zamba2-1.2B (Mamba2) widths ----
+    batch = max(1, GLA_BATCH >> cut)
+    steps = max(GLA_CHUNK, GLA_STEPS >> cut)
+    for model, (heads, dk, dv, include_current, bonus) in GLA_MODELS.items():
+        bh = batch * heads
+        rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        q, k = (rand(bh, steps, dk).to(bf) for _ in range(2))
+        v = rand(bh, steps, dv)
+        if include_current:
+            # Mamba2 (models/mamba2.py:95-107): w = -exp(A_log) * dt, one
+            # value per head and step, broadcast over the state dim, and
+            # v = x * dt; A in [1, 16], dt = softplus(N(0, 1) + dt_bias),
+            # dt_bias the inverse softplus of a log-uniform dt in
+            # [1e-3, 1e-1]
+            a = 1 + 15 * torch.rand((heads,), generator=gen, device=dev)
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            dt0 = torch.exp(lo + (hi - lo) * torch.rand(
+                (heads,), generator=gen, device=dev))
+            dt_bias = dt0 + torch.log(-torch.expm1(-dt0))
+            dt = torch.nn.functional.softplus(
+                rand(batch, heads, steps) + dt_bias[None, :, None])
+            w = (-a[None, :, None] * dt).reshape(bh, steps, 1).expand(
+                -1, -1, dk).contiguous()
+            v = v * dt.reshape(bh, steps, 1)
+            u = None
+        else:
+            # RWKV6 (models/rwkv6.py:116-120): w = -exp(.), per channel
+            w = -torch.exp(rand(bh, steps, dk))
+            u = 0.3 * rand(bh, dk) if bonus else None
+        v = v.to(bf)
+        kw = dict(chunk=GLA_CHUNK, include_current=include_current)
+        (y, state), n_launch = launched(
+            gla_chunk.gla_chunked, lambda: ops.gla(q, k, v, w, u, **kw))
+        plain = lambda: gla_chunk.gla_chunked_ref(q, k, v, w, u, **kw)
+        yp, sp = plain()
+        err_y = check_close(f"gla {model} y", y, yp, 2e-2, 2e-2)
+        err_s = check_close(f"gla {model} state", state, sp, 1e-4, 1e-4)
+        del yp, sp
+        ms = cuda_ms(lambda: ops.gla(q, k, v, w, u, **kw), 5)
+        plain_ms = cuda_ms(plain, 1)
+        bytes_ = (sum(a.numel() * a.element_size() for a in (q, k, v, w))
+                  + (0 if u is None else u.numel() * 4)
+                  + y.numel() * y.element_size() + state.numel() * 4)
+        chunked_ms, least_ms = (gla_ops_ms(
+            bh, steps, GLA_CHUNK, dk, dv, include_current, bonus, sub)
+            for sub in (GLA_CHUNK, GLA_SUB))
+        bound_ms, bound_by = bound(bytes_, least_ms)
+        emit(phase="kernel_ops", call="ops.gla", model=model, batch=batch,
+             heads=heads, steps=steps, dk=dk, dv=dv, **kw,
+             bonus=u is not None, launches=n_launch,
+             max_abs_err=err_y, y_max_abs=float(y.float().abs().max()),
+             y_tolerance=2e-2, state_max_abs_err=err_s,
+             state_tolerance=1e-4, kernel_ms=ms, plain_ms=plain_ms,
+             library_ms=None, library="none: no single PyTorch call "
+             "computes gated linear attention", bytes=bytes_,
+             bound_ms=bound_ms, bound_by=bound_by,
+             bytes_bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
+             least_ops_ms=least_ms, chunked_form_ops_ms=chunked_ms)
+        rows.append(kernel_row(
+            f"gla_chunked ops.gla {model} B={batch} T={steps}",
+            "gla_chunk.cu", TPU_GLA, n_launch, dict(
+                max_abs_err=max(err_y, err_s), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)))
+        del q, k, v, w, u, y, state, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

@@ -35,6 +35,13 @@ presence) and runs more than 16 columns in groups of 16.  Its plain
 version :func:`block_csr_combine_mq_ref` is the solo plain version
 column by column.
 
+:func:`block_csr_spmv` is the standalone SpMV over the padded layout of
+:func:`build_block_csr` (it replaces the Pallas kernel ``block_csr_spmv``
+of the same reference file, body ``_kernel``), reached through
+:func:`repro_torch.kernels.ops.spmv`.  Its CUDA kernel lives in its own
+source, ``csrc/block_csr_spmv.cu``, so the combine's library does not
+change with it; its plain version is :func:`block_csr_spmv_ref`.
+
 The structure builders (:func:`build_tile_struct`, in torch on whatever
 device its inputs lie; :func:`compact_live_tiles` and
 :func:`build_block_csr`, numpy copied from the reference) give tile
@@ -51,6 +58,118 @@ MODES = ("add", "add_b", "min", "max")
 KERNEL_TILES = (8,)              # tile sizes the CUDA kernel is built for
 _SOURCE = "block_csr_combine.cu"
 _REF_CHUNK = 1 << 22             # live tiles per step of the plain version
+
+
+# ---------------------------------------------------------------------------
+# The standalone SpMV: wrapper, CUDA launch, plain version
+# ---------------------------------------------------------------------------
+
+SPMV_MAX_TILE = 32               # largest tile the SpMV kernel takes
+_SPMV_SOURCE = "block_csr_spmv.cu"
+_SPMV_REF_CELLS = 1 << 26        # tile cells per step of the plain version
+
+
+def block_csr_spmv(tiles, tile_col, row_ptr, x, *, tile: int):
+    """Block-CSR SpMV: ``out[r*T:(r+1)*T] = sum_s tiles[s] @
+    x[tile_col[s]*T:(tile_col[s]+1)*T]`` over each row block's slots
+    ``[row_ptr[r], row_ptr[r+1])``.
+
+    tiles [n, T, T] f32; tile_col [n] i32 source block per slot; row_ptr
+    [R+1] i32; x [C*T] f32 with every tile_col < C.  On
+    :func:`build_block_csr`'s padded layout each row holds
+    ``max_tiles_per_row`` slots, zero tiles included, so this is the JAX
+    kernel's grid.  Returns out [R*T] f32.  CPU tensors run
+    :func:`block_csr_spmv_ref`; CUDA tensors launch the kernel (counted in
+    ``block_csr_spmv.launches``) or raise."""
+    if tile < 1:
+        raise ValueError(f"tile must be positive, got {tile}")
+    if x.dim() != 1 or x.numel() % tile:
+        raise ValueError(f"x must be a vector of whole tiles of {tile}, got "
+                         f"shape {tuple(x.shape)}")
+    kind = x.device.type
+    if kind == "cpu":
+        return block_csr_spmv_ref(tiles, tile_col, row_ptr, x, tile=tile)
+    if kind != "cuda":
+        raise ValueError(f"block_csr_spmv runs on cpu or cuda, not {kind}")
+    return _launch_spmv(tiles, tile_col, row_ptr, x, tile=tile)
+
+
+block_csr_spmv.launches = 0
+
+
+def _spmv_library():
+    from repro_torch.kernels.build import load_library
+    lib = load_library(_SPMV_SOURCE)
+    fn = lib.block_csr_spmv_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ci, ci] + [vp] * 6
+        fn.restype = ci
+        lib.block_csr_spmv_error_string.argtypes = [ci]
+        lib.block_csr_spmv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch_spmv(tiles, tile_col, row_ptr, x, *, tile):
+    if tile > SPMV_MAX_TILE:
+        raise ValueError(f"the CUDA SpMV kernel takes tiles up to "
+                         f"{SPMV_MAX_TILE}, not {tile}")
+    n_slots = tile_col.shape[0] if tile_col.dim() == 1 else -1
+    n_rows = row_ptr.shape[0] - 1 if row_ptr.dim() == 1 else -1
+    dev = x.device
+    shapes = {"tiles": (tiles, torch.float32, (n_slots, tile, tile)),
+              "tile_col": (tile_col, torch.int32, (n_slots,)),
+              "row_ptr": (row_ptr, torch.int32, (n_rows + 1,)),
+              "x": (x, torch.float32, tuple(x.shape))}
+    for name, (a, dtype, shape) in shapes.items():
+        if a.device != dev or a.dtype != dtype or tuple(a.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got "
+                f"{a.dtype} {tuple(a.shape)} on {a.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    out = torch.empty(max(n_rows, 0) * tile, dtype=torch.float32,
+                      device=dev)
+    if n_rows < 1:
+        return out
+    lib = _spmv_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.block_csr_spmv_launch(
+            tile, n_rows, tiles.data_ptr(), tile_col.data_ptr(),
+            row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(), stream)
+    if code != 0:
+        msg = lib.block_csr_spmv_error_string(code).decode()
+        raise RuntimeError(f"block_csr_spmv launch failed: {msg} "
+                           f"(cudaError {code})")
+    block_csr_spmv.launches += 1
+    return out
+
+
+def block_csr_spmv_ref(tiles, tile_col, row_ptr, x, *, tile: int):
+    """Plain PyTorch version of :func:`block_csr_spmv` (same arguments,
+    same result, any tile size, any device): every row's slots expanded
+    into one flat list, their tile-vector products taken in float64 and
+    folded into the rows with ``index_add_``, as many slots at a time as
+    hold ``_SPMV_REF_CELLS`` tile cells; the float64 sum is rounded to
+    float32 once, as the kernel does."""
+    t = tile
+    dev = x.device
+    n_rows = row_ptr.shape[0] - 1
+    counts = (row_ptr[1:] - row_ptr[:-1]).long()
+    owner = torch.repeat_interleave(torch.arange(n_rows, device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    slot = (row_ptr[:-1].long()[owner]
+            + torch.arange(owner.numel(), device=dev) - first[owner])
+    out = torch.zeros((n_rows, t), dtype=torch.float64, device=dev)
+    lanes = torch.arange(t, device=dev)
+    step = max(1, _SPMV_REF_CELLS // (t * t))
+    for lo in range(0, owner.numel(), step):
+        sl = slot[lo:lo + step]
+        xb = x[tile_col[sl].long()[:, None] * t + lanes].double()
+        out.index_add_(0, owner[lo:lo + step], torch.bmm(
+            tiles[sl].double(), xb[:, :, None])[..., 0])
+    return out.to(torch.float32).reshape(-1)
 
 
 # ---------------------------------------------------------------------------
