@@ -4,10 +4,25 @@
     python3 chip_smoke.py [--scale 21]
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(one ``nvcc`` per source, all started together), then drives the port's two
-graph paths on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted,
+(one ``nvcc`` per source, all started together), runs the combine_balance
+phase, then drives the port's two graph paths on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted,
 seed 0: 2,097,152 vertices, 33,554,432 edges; P = 8 partitions, 8 x 8
 tiles), through PageRank (5 iterations), BFS, SSSP and WCC.
+
+combine_balance (the two combine entry points on synthetic layouts built
+on the card from a seed, ~5 s).  The combine kernels split a call by live
+slots into units of K merge-path items; this phase shows that rows do not
+set the time:
+  * (a) 4,000,000 live tiles over 8 destinations x 8,192 rows, rows even;
+    (b) the same total with one row per destination holding 25% of its
+    tiles, the rest in runs of 64 rows between runs of 64 empty rows;
+    (c) rows of K - 1, K, K + 1, 1, 0 and 3K + 2 tiles (8 x 1,024 rows),
+    a call with a single tile and an all-empty call;
+  * each through the solo kernel in all four modes and the panel kernel in
+    min and add at Q = 8 and Q = 16, held against the plain versions with
+    the tolerances below and every panel column bit-equal to a solo launch;
+  * prints the solo add and min times on (a) and (b) beside their bounds
+    and the balance ratio, add's time on (b) over (a).
 
 LOCAL (the in-memory engine, ``block_csr`` backend).  For each algorithm it
   * resets the combine kernel's launch count, runs the algorithm through
@@ -341,11 +356,12 @@ def library_call(args, kw):
     return lambda: torch.sparse.mm(a, x)
 
 
-def check_kernel(csr, args, kw, path, reps=10, panel=False):
-    """Kernel vs plain version on the same inputs (one call of ``path``,
-    LOCAL or OOC); with ``panel``, the panel combine, also held column by
-    column against solo kernel launches (bit-equal in every mode).
-    Returns the table row fields (times in ms)."""
+def hold_against_plain(csr, args, kw, panel=False):
+    """One combine call (the panel combine with ``panel``) against its
+    plain version on the same inputs: has-message counts exact, min/max
+    bit-equal, add/add_b within rtol 1e-5; with ``panel`` also every column
+    against a solo launch on that column (bit-equal in every mode).
+    Returns (max |diff| against the plain version, extra fields)."""
     import torch
     mode = kw["mode"]
     kernel = csr.block_csr_combine_mq if panel else csr.block_csr_combine
@@ -356,7 +372,7 @@ def check_kernel(csr, args, kw, path, reps=10, panel=False):
     rval, rhc = plain(*args, **kw)
     if not torch.equal(hc, rhc):
         raise AssertionError(f"{mode}: has-message counts differ")
-    err = float((val - rval).abs().max())
+    err = float((val - rval).abs().max()) if val.numel() else 0.0
     if mode in ("min", "max"):
         if not torch.equal(val.view(torch.int32), rval.view(torch.int32)):
             raise AssertionError(f"{mode}: kernel is not bit-equal to the "
@@ -366,6 +382,7 @@ def check_kernel(csr, args, kw, path, reps=10, panel=False):
         if not bool(((val - rval).abs() <= tol).all()):
             raise AssertionError(f"{mode}: kernel differs from the plain "
                                  f"version beyond rtol 1e-5 ({err})")
+    del rval, rhc
     extra = {}
     if panel:
         # every column against a solo launch on that column: bit-equal
@@ -379,9 +396,22 @@ def check_kernel(csr, args, kw, path, reps=10, panel=False):
                     and torch.equal(hc[..., j], sh)):
                 raise AssertionError(f"{mode}: panel column {j} is not "
                                      "bit-equal to a solo launch")
+            del sv, sh, solo
         extra = dict(columns=int(val.shape[2]),
                      columns_bit_equal_to_solo=True)
-        del sv, sh, solo
+    return err, extra
+
+
+def check_kernel(csr, args, kw, path, reps=10, panel=False):
+    """Kernel vs plain version on the same inputs (one call of ``path``,
+    LOCAL or OOC; :func:`hold_against_plain`), then timed beside the plain
+    version, one library call and the bound.  Returns the table row fields
+    (times in ms)."""
+    mode = kw["mode"]
+    kernel = csr.block_csr_combine_mq if panel else csr.block_csr_combine
+    plain = (csr.block_csr_combine_mq_ref if panel
+             else csr.block_csr_combine_ref)
+    err, extra = hold_against_plain(csr, args, kw, panel)
     ms = cuda_ms(lambda: kernel(*args, **kw), reps)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), 2)
     lib = library_call(args, kw)
@@ -397,6 +427,189 @@ def check_kernel(csr, args, kw, path, reps=10, panel=False):
          row_blocks=int(args[3].shape[1]), **extra)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=bound_by, library_ms=library_ms)
+
+
+# ---------------------------------------------------------------------------
+# combine_balance: the combine on synthetic row layouts, built on the card
+# ---------------------------------------------------------------------------
+
+def balance_rows(kind, k, tiles, n_dest, n_rows, gen, dev):
+    """Live tiles per row [n_dest, n_rows] (int32, on ``dev``) of a
+    synthetic layout with ``tiles`` live tiles in all: ``even`` — every
+    row alike (a); ``hub`` — one row per destination holds 25% of that
+    destination's tiles, the rest spread over runs of 64 rows between runs
+    of 64 empty rows (b); ``edges`` — rows of K - 1, K, K + 1, 1, 0 and
+    3K + 2 tiles, rotated per destination (c); ``single`` — one tile in
+    the call; ``empty`` — none."""
+    import torch
+    per_dest = tiles // n_dest
+    cnt = torch.zeros((n_dest, n_rows), dtype=torch.int64, device=dev)
+    if kind == "even":
+        cnt += per_dest // n_rows
+        cnt[:, :per_dest % n_rows] += 1
+    elif kind == "hub":
+        run = min(64, max(1, n_rows // 8))
+        full = ((torch.arange(n_rows, device=dev) // run) % 2 == 0)
+        n_full = int(full.sum())
+        hub_tiles = per_dest // 4
+        rest = per_dest - hub_tiles
+        for q in range(n_dest):
+            rows = full.nonzero()[:, 0]
+            hub = int(rows[torch.randint(n_full, (1,), generator=gen,
+                                         device=dev)])
+            others = rows[rows != hub]
+            cnt[q, others] = rest // others.numel()
+            cnt[q, others[:rest % others.numel()]] += 1
+            cnt[q, hub] = hub_tiles
+    elif kind == "edges":
+        pattern = torch.tensor([k - 1, k, k + 1, 1, 0, 0, k + 1, k - 1,
+                                3 * k + 2, k], device=dev)
+        row = pattern.repeat(-(-n_rows // pattern.numel()))[:n_rows]
+        cnt = torch.stack([row.roll(q) for q in range(n_dest)])
+    elif kind == "single":
+        cnt[n_dest - 1, n_rows // 2] = 1
+    elif kind != "empty":
+        raise ValueError(kind)
+    return cnt.to(torch.int32)
+
+
+def balance_call(row_cnt, gen, dev, n_src):
+    """One combine call's structure and tiles for ``row_cnt`` on the card:
+    each row followed by one dead slot, each destination's live tiles a
+    random permutation of its slots over random source blocks of
+    ``n_src`` cells, ~10% of tile cells holding an edge.  Returns the
+    structure (row_ptr, tile_idx, tile_col, row_cnt), the tile arrays
+    (cnt; v; b for add_b; b for min, identity in empty cells) and a
+    per-column vector maker."""
+    import torch
+    q_cnt, n_rows = row_cnt.shape
+    t = 8
+    big = float(torch.finfo(torch.float32).max)
+    row_ptr = torch.zeros((q_cnt, n_rows + 1), dtype=torch.int64,
+                          device=dev)
+    row_ptr[:, 1:] = torch.cumsum(row_cnt.long() + 1, 1)
+    n_slots = int(row_ptr[:, -1].max())
+    counts = row_cnt.reshape(-1).long()
+    owner = torch.repeat_interleave(torch.arange(counts.numel(), device=dev),
+                                    counts)
+    first = torch.cumsum(counts, 0) - counts
+    q = owner // n_rows
+    j = torch.arange(owner.numel(), device=dev) - first[owner]
+    pos = row_ptr[:, :-1].reshape(-1)[owner] + j
+    # rank of each live slot among its destination's live slots
+    per_q = row_cnt.long().sum(1)
+    rank = torch.arange(owner.numel(), device=dev) - (
+        torch.cumsum(per_q, 0) - per_q)[q]
+    perm = torch.rand((q_cnt, n_slots), generator=gen,
+                      device=dev).argsort(dim=1)
+    tile_idx = torch.zeros((q_cnt, n_slots), dtype=torch.int64, device=dev)
+    tile_col = torch.zeros_like(tile_idx)
+    tile_idx[q, pos] = perm[q, rank]
+    tile_col[q, pos] = torch.randint(n_src // t, (owner.numel(),),
+                                     generator=gen, device=dev)
+    del perm
+    shape = (q_cnt, n_slots, t, t)
+    edge = torch.rand(shape, generator=gen, device=dev) < 0.1
+    tiles = dict(
+        cnt=edge.float(),
+        v=torch.where(edge, torch.rand(shape, generator=gen, device=dev),
+                      0.0),
+        b_add=torch.where(edge, torch.rand(shape, generator=gen,
+                                           device=dev), 0.0),
+        b_min=torch.where(edge, torch.rand(shape, generator=gen,
+                                           device=dev), big))
+    del edge
+    struct = (row_ptr.to(torch.int32), tile_idx.to(torch.int32),
+              tile_col.to(torch.int32), row_cnt)
+
+    def vectors(ident, nq=None):
+        vec = (q_cnt, n_src) + (() if nq is None else (nq,))
+        mask = torch.rand(vec, generator=gen, device=dev) < 0.5
+        xv = torch.where(mask, torch.randn(vec, generator=gen, device=dev),
+                         ident)
+        return xv.contiguous(), mask.float().contiguous()
+
+    return struct, tiles, vectors
+
+
+def mode_args(struct, tiles, vectors, mode, nq=None):
+    """(args, kw) of one combine call in ``mode`` on a balance layout; max
+    mirrors the min inputs."""
+    big = 3.4028234663852886e38
+    ident = {"add": 0.0, "add_b": 0.0, "min": big, "max": -big}[mode]
+    xv, xc = vectors(ident, nq)
+    tv = tiles["v"] if mode in ("add", "add_b") else None
+    tb = {"add": None, "add_b": tiles["b_add"], "min": tiles["b_min"],
+          "max": None}[mode]
+    if mode == "max":
+        tb = -tiles["b_min"]
+    return ((*struct, tv, tb, tiles["cnt"], xv, xc),
+            dict(mode=mode, tile=8, identity=ident))
+
+
+BALANCE_TILES, BALANCE_DEST, BALANCE_ROWS = 4_000_000, 8, 8192
+BALANCE_EDGE_ROWS = 1024       # rows per destination of layout (c)
+BALANCE_SRC = 2 ** 20          # source cells per destination
+
+
+def run_combine_balance(cut):
+    """The combine_balance phase: both combine entry points on synthetic
+    layouts built on the card from a seed — (a) 4,000,000 live tiles over
+    8 destinations x 8,192 rows, rows even; (b) the same total with one
+    row per destination holding 25% of its tiles beside runs of empty
+    rows; (c) rows of K - 1, K and K + 1 tiles (K the kernel's unit), one
+    tile, none — the solo kernel in all four modes, the panel kernel in
+    min and add at Q = 8 and 16, each held against its plain version
+    (:func:`hold_against_plain`).  Times the solo add and min kernels on
+    (a) and (b); the balance ratio is add's time on (b) over (a).
+    ``cut`` shrinks the tiles and rows for a rehearsal."""
+    import torch
+    from repro_torch.kernels import csr_spmv
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k = csr_spmv._library().block_csr_combine_unit_slots()
+    tiles = max(4000, BALANCE_TILES >> cut)
+    rows = max(64, BALANCE_ROWS >> cut)
+    t0 = time.perf_counter()
+    times = {}
+    layouts = (("a", "even", rows, tiles), ("b", "hub", rows, tiles),
+               ("c", "edges", max(64, BALANCE_EDGE_ROWS >> cut), 0),
+               ("c", "single", rows, 0), ("c", "empty", rows, 0))
+    for label, kind, n_rows, n_tiles in layouts:
+        row_cnt = balance_rows(kind, k, n_tiles, BALANCE_DEST, n_rows, gen,
+                               dev)
+        struct, tile_arrays, vectors = balance_call(row_cnt, gen, dev,
+                                                    BALANCE_SRC >> cut)
+        errs, ms = {}, {}
+        for mode in ("add", "add_b", "min", "max"):
+            args, kw = mode_args(struct, tile_arrays, vectors, mode)
+            errs[mode], _ = hold_against_plain(csr_spmv, args, kw)
+            if label in ("a", "b") and mode in ("add", "min"):
+                ms[mode] = cuda_ms(
+                    lambda: csr_spmv.block_csr_combine(*args, **kw), 10)
+                ms[mode + "_bound"] = combine_bound_ms(args, mode)[0]
+            del args
+        for nq in (8, 16):
+            for mode in ("min", "add"):
+                args, kw = mode_args(struct, tile_arrays, vectors, mode, nq)
+                errs[f"{mode}_q{nq}"], _ = hold_against_plain(
+                    csr_spmv, args, kw, panel=True)
+                del args
+        if ms:
+            times[label] = ms
+        emit(phase="combine_balance", layout=label, kind=kind,
+             unit_slots=k, dest_partitions=BALANCE_DEST, row_blocks=n_rows,
+             live_tiles=int(row_cnt.sum()),
+             longest_row_tiles=int(row_cnt.max()),
+             empty_rows=int((row_cnt == 0).sum()), max_abs_err=errs,
+             kernel_ms=ms)
+        del struct, tile_arrays, vectors, row_cnt
+        gc.collect()
+        torch.cuda.empty_cache()
+    ratio = {m: times["b"][m] / times["a"][m] for m in ("add", "min")}
+    emit(phase="combine_balance", balance_ratio_add=ratio["add"],
+         balance_ratio_min=ratio["min"], seconds=time.perf_counter() - t0)
+    return ratio
 
 
 # ---------------------------------------------------------------------------
@@ -595,6 +808,9 @@ def main(argv=None) -> int:
                            if "registers" in ln or "spill" in ln]
     emit(phase="kernel_build", seconds=time.perf_counter() - t0,
          sources=list(SOURCES), ptxas=ptxas)
+
+    # -- 2b. the combine on balanced and unbalanced synthetic rows --------
+    run_combine_balance(max(0, 21 - opts.scale))
 
     # -- 3. the graph ------------------------------------------------------
     t0 = time.perf_counter()

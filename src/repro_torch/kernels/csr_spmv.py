@@ -14,22 +14,31 @@ Source note.  The kernel replaces the Pallas TPU kernel
 ``_make_combine_kernel``).  On an H100 it is bound by bytes: per live
 tile 2–3 tiles of 256 B (C, and V and/or B) plus 8 B of slot index and
 64 B of gathered vector, and 64 B out per row — under 0.5 flop per byte.
-The design moves exactly those bytes, in wide loads: one warp per
-(destination partition, row block) loops over the row's live tiles only
-(the TPU grid's dead steps are gone, and one launch covers all
-destinations), each lane loads two neighbouring cells of a tile as one
-float2 (a coalesced 256 B per warp), partial results stay in registers
-and rows are reduced with warp shuffles.  Add modes accumulate in double,
-so the float32 result does not depend on the summation order; min/max are
-exact.  A warp's time grows with its row, and R-MAT hub rows hold tens of
-thousands of live tiles: balancing them is a later version's work.
+R-MAT rows are very uneven (a hub row holds tens of thousands of live
+tiles, most rows a few hundred, many none), so the work is split by live
+slots, not rows, with Merrill and Garland's merge path (SC'16): the live
+slots of all Q x R rows in row order and the rows' ends form one path,
+and each unit (a warp) takes K items of it (:func:`combine_units`
+computes the split from the prefix of ``row_cnt``, with a sorted search;
+K is the library's compile-time constant).  A unit writes the rows it
+covers whole straight to the outputs; a row that spans units leaves one
+partial per unit in scratch the wrapper allocates, and a second kernel
+folds them in unit order and writes the row.  No atomics, so a call is
+deterministic; add modes accumulate in double (only the association
+differs from the plain version), min/max are exact.  Within a unit the
+slot indices of 32 slots come in one coalesced load and are broadcast by
+shuffles, so a batch of tile loads is in flight at once, and tiles load
+with a streaming hint.  One call launches the split's few torch ops and
+the two kernels; its time follows the live tiles, plus the fixup's fold
+of one partial per K tiles of a hub row.
 
 :func:`block_csr_combine_mq` is the multi-query panel form (it replaces
 the Pallas kernel ``block_csr_combine_mq`` of the same reference file,
 body ``_make_combine_kernel_mq``): the same tiles folded against Q value
 and presence columns, each tile read once for all of them.  It launches
-the same CUDA kernel body, instantiated for 1, 2, 4, 8 or 16 columns, so
-each column is bit-identical to a solo call on it; the wrapper pads the
+the same CUDA kernel bodies, instantiated for 1, 2, 4, 8 or 16 columns,
+over the same split (it depends on ``row_cnt`` alone), so each column is
+bit-identical to a solo call on it; the wrapper pads the
 panel to the next such width with dead columns (identity values, no
 presence) and runs more than 16 columns in groups of 16.  Its plain
 version :func:`block_csr_combine_mq_ref` is the solo plain version
@@ -176,6 +185,52 @@ def block_csr_spmv_ref(tiles, tile_col, row_ptr, x, *, tile: int):
 # The combine: wrapper, CUDA launch, plain version
 # ---------------------------------------------------------------------------
 
+def combine_units(row_cnt, n_slots: int, unit_slots: int):
+    """The merge-path split of a combine call into units of ``unit_slots``
+    items, on the device ``row_cnt`` lies on (CPU tensors too).
+
+    The path holds the Q x R rows of ``row_cnt`` [Q, R] (flattened in row
+    order, f = q * R + r) and their live slots (numbered 0.. in the same
+    order): row f's slots are [row_end[f] - row_cnt[f], row_end[f]), and
+    its end is the path item that follows its last slot.  Unit u takes
+    items [u * K, (u + 1) * K) and starts at row ``unit_row[u]`` and slot
+    ``unit_slot[u]`` (``unit_row[u] + unit_slot[u] = min(u * K, path
+    length)``); it holds slots [unit_slot[u], unit_slot[u + 1]) and
+    finishes rows [unit_row[u], unit_row[u + 1]).  Row f is the unit's own
+    when it finishes there and starts at or after the unit's first slot;
+    otherwise it spans units and the fixup folds it.
+
+    The units are counted for the longest path the slot arrays allow
+    (every one of the ``n_slots`` slots of each destination live), so no
+    value is read back from the device; the units past the path are
+    empty.  Returns (row_end [Q*R], unit_row [n_units + 1], unit_slot
+    [n_units + 1]), int32.  Raises if that path reaches 2**31 items."""
+    if unit_slots < 2:
+        raise ValueError(f"a unit takes at least 2 items, not {unit_slots}")
+    q_cnt, n_rows = row_cnt.shape
+    most = q_cnt * (n_rows + n_slots)
+    if most >= 2**31:
+        raise ValueError(f"a combine call of {q_cnt * n_rows} rows and "
+                         f"{q_cnt * n_slots} slots exceeds the kernel's "
+                         "int32 merge path")
+    n_units = -(-most // unit_slots)
+    dev = row_cnt.device
+    counts = row_cnt.reshape(-1).to(torch.int64)
+    row_end = torch.cumsum(counts, 0)
+    n_flat = counts.numel()
+    # the path position just past row f's end, increasing in f
+    key = row_end + torch.arange(1, n_flat + 1, device=dev)
+    total = key[-1] if n_flat else torch.zeros((), dtype=torch.int64,
+                                               device=dev)
+    diag = torch.minimum(
+        torch.arange(n_units + 1, device=dev, dtype=torch.int64) * unit_slots,
+        total)
+    unit_row = torch.searchsorted(key, diag, right=True)
+    unit_slot = diag - unit_row
+    return (row_end.to(torch.int32), unit_row.to(torch.int32),
+            unit_slot.to(torch.int32))
+
+
 def block_csr_combine(row_ptr, tile_idx, tile_col, row_cnt,
                       tiles_v, tiles_b, tiles_cnt, xv, xc, *,
                       mode: str, tile: int, identity: float = 0.0):
@@ -197,8 +252,8 @@ def block_csr_combine(row_ptr, tile_idx, tile_col, row_cnt,
     Returns (val [Q, R*T] f32 — the monoid aggregate, identity where
     nothing arrived; hascnt [Q, R*T] f32 — live edges that delivered).
     CPU tensors run :func:`block_csr_combine_ref`; CUDA tensors launch the
-    kernel (and count the launch in ``block_csr_combine.launches``) or
-    raise."""
+    split (:func:`combine_units`), the combine kernel and its fixup (the
+    call counted once in ``block_csr_combine.launches``) or raise."""
     if mode not in MODES:
         raise ValueError(f"unknown combine mode {mode!r}")
     kind = row_cnt.device.type
@@ -222,12 +277,13 @@ def _library():
     fn = lib.block_csr_combine_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, ci, ci, ci, ci, ci, ctypes.c_float] + [vp] * 12
+        fn.argtypes = [ci] * 7 + [ctypes.c_float] + [vp] * 16
         fn.restype = ci
         lib.block_csr_combine_error_string.argtypes = [ci]
         lib.block_csr_combine_error_string.restype = ctypes.c_char_p
+        lib.block_csr_combine_unit_slots.restype = ci
         mq = lib.block_csr_combine_mq_launch
-        mq.argtypes = [ci] * 9 + [ctypes.c_float] + [vp] * 12
+        mq.argtypes = [ci] * 10 + [ctypes.c_float] + [vp] * 16
         mq.restype = ci
     return lib
 
@@ -275,18 +331,32 @@ def _launch(row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
     ptr = lambda x: None if x is None else x.data_ptr()
     lib = _library()
     with torch.cuda.device(dev):
+        row_end, unit_row, unit_slot = combine_units(
+            row_cnt, n_slots, lib.block_csr_combine_unit_slots())
+        n_units = unit_row.numel() - 1
+        part_val, part_cnt = _scratch(mode, n_units, tile, 1, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.block_csr_combine_launch(
-            MODES.index(mode), tile, q_cnt, n_rows, n_slots, n_src,
+            MODES.index(mode), tile, q_cnt, n_rows, n_slots, n_src, n_units,
             float(identity), ptr(row_ptr), ptr(tile_idx), ptr(tile_col),
-            ptr(row_cnt), ptr(tiles_v), ptr(tiles_b), ptr(tiles_cnt),
-            ptr(xv), ptr(xc), val.data_ptr(), hascnt.data_ptr(), stream)
+            ptr(row_end), ptr(unit_row), ptr(unit_slot), ptr(tiles_v),
+            ptr(tiles_b), ptr(tiles_cnt), ptr(xv), ptr(xc), val.data_ptr(),
+            hascnt.data_ptr(), ptr(part_val), ptr(part_cnt), stream)
     if code != 0:
         msg = lib.block_csr_combine_error_string(code).decode()
         raise RuntimeError(f"block_csr_combine launch failed: {msg} "
                            f"(cudaError {code})")
     block_csr_combine.launches += 1
     return val, hascnt
+
+
+def _scratch(mode, n_units, tile, width, dev):
+    """The partials of rows that span units: [2, n_units, T, width], double
+    for the add modes, float32 for min/max and the counts."""
+    shape = (2, n_units, tile, width)
+    dtype = torch.float64 if mode in ("add", "add_b") else torch.float32
+    return (torch.empty(shape, dtype=dtype, device=dev),
+            torch.empty(shape, dtype=torch.float32, device=dev))
 
 
 def block_csr_combine_ref(row_ptr, tile_idx, tile_col, row_cnt,
@@ -371,9 +441,10 @@ def block_csr_combine_mq(row_ptr, tile_idx, tile_col, row_cnt,
     and one presence column per query — and the outputs are [D, R*T, Q]
     panels.  Each column equals a solo :func:`block_csr_combine` call on
     that column bit for bit.  CPU tensors run
-    :func:`block_csr_combine_mq_ref`; CUDA tensors launch the kernel (one
-    launch per group of at most 16 columns, each counted in
-    ``block_csr_combine_mq.launches``) or raise."""
+    :func:`block_csr_combine_mq_ref`; CUDA tensors launch the split once
+    and the combine kernel and its fixup per group of at most 16 columns
+    (each group counted once in ``block_csr_combine_mq.launches``) or
+    raise."""
     if mode not in MODES:
         raise ValueError(f"unknown combine mode {mode!r}")
     kind = row_cnt.device.type
@@ -458,14 +529,21 @@ def _launch_mq(row_ptr, tile_idx, tile_col, row_cnt, tiles_v, tiles_b,
     ptr = lambda x: None if x is None else x.data_ptr()
     lib = _library()
     with torch.cuda.device(dev):
+        # one split and one scratch for every group: the split depends on
+        # row_cnt alone, and the groups run in stream order
+        row_end, unit_row, unit_slot = combine_units(
+            row_cnt, n_slots, lib.block_csr_combine_unit_slots())
+        n_units = unit_row.numel() - 1
+        part_val, part_cnt = _scratch(mode, n_units, tile, width, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         for col0 in range(0, padded, width):
             code = lib.block_csr_combine_mq_launch(
                 MODES.index(mode), tile, width, q_cnt, n_rows, n_slots,
-                n_src, padded, col0, float(identity), ptr(row_ptr),
-                ptr(tile_idx), ptr(tile_col), ptr(row_cnt), ptr(tiles_v),
-                ptr(tiles_b), ptr(tiles_cnt), ptr(xv), ptr(xc),
-                val.data_ptr(), hascnt.data_ptr(), stream)
+                n_src, n_units, padded, col0, float(identity), ptr(row_ptr),
+                ptr(tile_idx), ptr(tile_col), ptr(row_end), ptr(unit_row),
+                ptr(unit_slot), ptr(tiles_v), ptr(tiles_b), ptr(tiles_cnt),
+                ptr(xv), ptr(xc), val.data_ptr(), hascnt.data_ptr(),
+                ptr(part_val), ptr(part_cnt), stream)
             if code != 0:
                 msg = lib.block_csr_combine_error_string(code).decode()
                 raise RuntimeError(f"block_csr_combine_mq launch failed: "

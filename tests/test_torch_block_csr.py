@@ -1,8 +1,14 @@
 """block_csr_combine: the port's plain PyTorch version against the JAX
 Pallas kernel (interpret mode, as tests/test_kernels.py runs it) in all
-four modes, and the CUDA kernel against the plain version on a card
+four modes, on the reference tests' layouts and on uneven ones (a hub
+row beside empty runs, rows of K - 1, K and K + 1 tiles), and the CUDA kernel against the plain version on a card
 (``pytest -m cuda`` there; the module imports jax only inside the tests
 that compare with it, so it loads on a machine without jax).
+
+The CUDA kernel splits a call into units of K merge-path items
+(``combine_units``); the split is held here on row lengths with hub rows,
+empty runs and lengths K - 1, K and K + 1, and its fold-then-fixup,
+emulated in plain torch, against the plain version.
 
 Tolerances: min/max are exact in any order, so they are bit-equal and the
 has-message counts (small integers) exact; add/add_b sum in another order
@@ -12,6 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import csr_spmv
+
+from torchhelp import combine_layout, emulate_units, row_lengths
 
 BIG = float(np.finfo(np.float32).max)
 
@@ -97,12 +105,22 @@ def test_host_builders_match_reference(seed):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("inputs", [0, 1, "hub", "edges"])
 @pytest.mark.parametrize("mode", ["add", "add_b", "min", "max"])
-def test_plain_version_matches_jax_kernel(mode, seed):
+def test_plain_version_matches_jax_kernel(mode, inputs):
+    """``inputs``: a seed of the reference tests' setup, or a
+    :func:`row_lengths` layout (a hub row beside empty runs; rows of
+    K - 1, K, K + 1, 1, 0 and 3K + 2 tiles at K = 16) whose one
+    destination goes through both versions."""
     import jax.numpy as jnp
     from repro.kernels.csr_spmv import block_csr_combine as jax_combine
-    args, ident, mt, T = _mode_inputs(mode, seed)
+    if isinstance(inputs, int):
+        args, ident, mt, T = _mode_inputs(mode, inputs)
+    else:
+        cnt = row_lengths(inputs, 16, n_dest=1, n_rows=20, seed=3)
+        full, ident = combine_layout(cnt, mode, seed=3)
+        args = tuple(None if a is None else a[0] for a in full)
+        mt, T = max(1, int(cnt.max())), 8
     jval, jhc = jax_combine(
         *[None if a is None else jnp.asarray(a) for a in args],
         mode=mode, tile=T, max_tiles_per_row=mt, identity=ident,
@@ -155,6 +173,79 @@ def test_unknown_mode_and_tile_rejected():
         csr_spmv.block_csr_combine(*_torch(args), mode="mul", tile=T)
     with pytest.raises(ValueError):
         csr_spmv._launch(*_torch(args), mode="add", tile=16, identity=0.0)
+
+
+LAYOUTS = ["hub", "edges", "single", "empty", "random"]
+
+
+@pytest.mark.parametrize("unit_slots", [2, 5, 16])
+@pytest.mark.parametrize("kind", LAYOUTS)
+def test_combine_units_split(kind, unit_slots):
+    """The merge-path split: every live slot in exactly one unit, in row
+    order; at most K slots a unit; every row's end consumed by exactly one
+    unit; every row, empty ones too, written whole by one unit or fixed up
+    once."""
+    cnt = row_lengths(kind, unit_slots, seed=unit_slots)
+    k = unit_slots
+    n_slots = int(cnt.sum(1).max()) + cnt.shape[1]    # one dead slot a row
+    row_end, unit_row, unit_slot = (x.numpy().astype(np.int64) for x in
+                                    csr_spmv.combine_units(
+                                        torch.from_numpy(cnt), n_slots, k))
+    counts = cnt.reshape(-1).astype(np.int64)
+    n_flat, n_live = counts.size, int(counts.sum())
+    row_start = row_end - counts
+    assert np.array_equal(row_end, np.cumsum(counts))
+    path = n_flat + n_live
+    n_units = unit_row.size - 1          # sized for every slot live
+    assert n_units == -(-cnt.shape[0] * (cnt.shape[1] + n_slots) // k)
+    assert n_units >= -(-path // k)
+    diag = np.minimum(np.arange(n_units + 1) * k, path)
+    assert np.array_equal(unit_row + unit_slot, diag)
+    assert unit_row[0] == unit_slot[0] == 0
+    assert unit_row[-1] == n_flat and unit_slot[-1] == n_live
+    assert (np.diff(unit_row) >= 0).all() and (np.diff(unit_slot) >= 0).all()
+    assert (np.diff(unit_slot) <= k).all()
+    owner = np.repeat(np.arange(n_flat), counts)         # row of each slot
+    covered = np.zeros(n_live, np.int64)
+    done = np.zeros(n_flat, np.int64)
+    for u in range(n_units):
+        f0, f1 = unit_row[u], unit_row[u + 1]
+        s0, s1 = unit_slot[u], unit_slot[u + 1]
+        covered[s0:s1] += 1
+        # the unit's slots belong to its rows, in row order
+        rows = owner[s0:s1]
+        assert (rows >= f0).all() and (rows <= f1).all()
+        assert (np.diff(rows) >= 0).all()
+        if f0 < n_flat:   # merge-path invariant: row f0 is in progress
+            assert row_start[f0] <= s0 <= row_end[f0]
+        for f in range(f0, f1):
+            owned = row_start[f] >= s0
+            fixed = f == f0 and row_start[f] < s0
+            assert owned != fixed
+            done[f] += 1
+    assert (covered == 1).all()
+    assert (done == 1).all()
+
+
+@pytest.mark.parametrize("kind", ["hub", "edges"])
+@pytest.mark.parametrize("mode", ["add", "add_b", "min", "max"])
+def test_units_fold_then_fixup_matches_plain(mode, kind):
+    """The kernel's fold-then-fixup, emulated in plain torch over the
+    split's units, against the plain version: min/max bit-equal, counts
+    exact, add within rtol 1e-5."""
+    k = 4
+    args, ident = combine_layout(row_lengths(kind, k, seed=3), mode, seed=5)
+    targs = _torch_args(args)
+    kw = dict(mode=mode, tile=8, identity=ident)
+    val, hc = emulate_units(targs, unit_slots=k, **kw)
+    rv, rh = csr_spmv.block_csr_combine_ref(*targs, **kw)
+    _check(mode, val.numpy(), hc.numpy(), rv.numpy(), rh.numpy())
+
+
+def _torch_args(args, device="cpu"):
+    """Numpy arguments that already carry the destination axis."""
+    return [None if a is None else torch.from_numpy(a).to(device)
+            for a in args]
 
 
 @pytest.fixture
@@ -211,3 +302,28 @@ def test_engine_on_cuda_matches_oracles(cuda_device, backend):
     dr = build_dist_graph(g.reversed(), spec)
     lb, _ = alg.wcc(eng, Engine(dr, build_formats(dr), cfg))
     np.testing.assert_array_equal(lb, alg.ref_wcc(n, g.src, g.dst))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["hub", "edges", "single", "empty"])
+@pytest.mark.parametrize("mode", ["add", "add_b", "min", "max"])
+def test_cuda_kernel_uneven_rows(cuda_device, mode, kind):
+    """The CUDA kernel on rows the split must balance — a hub row per
+    destination beside runs of empty rows, rows of K - 1, K and K + 1 tiles
+    (K the library's unit size), a single tile, an all-empty call — against
+    the plain version, one counted call each, and the same bits on a second
+    call."""
+    k = csr_spmv._library().block_csr_combine_unit_slots()
+    cnt = row_lengths(kind, k, n_dest=3, n_rows=96, seed=7)
+    args, ident = combine_layout(cnt, mode, seed=8)
+    targs = _torch_args(args, cuda_device)
+    kw = dict(mode=mode, tile=8, identity=ident)
+    before = csr_spmv.block_csr_combine.launches
+    val, hc = csr_spmv.block_csr_combine(*targs, **kw)
+    again, _ = csr_spmv.block_csr_combine(*targs, **kw)
+    torch.cuda.synchronize()
+    assert csr_spmv.block_csr_combine.launches == before + 2
+    assert torch.equal(val.view(torch.int32), again.view(torch.int32))
+    rv, rh = csr_spmv.block_csr_combine_ref(*targs, **kw)
+    _check(mode, val.cpu().numpy(), hc.cpu().numpy(), rv.cpu().numpy(),
+           rh.cpu().numpy())

@@ -32,7 +32,9 @@ from repro_torch.core.engine import MEASURED_PAIRS
 from repro_torch.data.graphs import rmat_graph
 from repro_torch.kernels import csr_spmv
 
-from torchhelp import GRAPH, SPEC, jax_fields
+from torchhelp import (
+    GRAPH, SPEC, combine_layout, emulate_units, jax_fields, row_lengths,
+)
 
 NQ = 3
 F32_MAX = float(np.finfo(np.float32).max)
@@ -162,6 +164,34 @@ def test_combine_mq_plain_matches_jax_and_solo(mode, nq):
         np.testing.assert_array_equal(val[:, col].view(np.int32),
                                       sv[0].numpy().view(np.int32))
         np.testing.assert_array_equal(hc[:, col], sh[0].numpy())
+
+
+@pytest.mark.parametrize("kind", ["hub", "edges"])
+@pytest.mark.parametrize("mode", ["add", "min"])
+def test_combine_mq_units_match_plain_and_solo(mode, kind):
+    """The CUDA kernel's unit split depends on row_cnt alone, so a panel
+    call runs the solo split on every column: the fold-then-fixup emulated
+    over a 3-column panel equals the plain panel version (min bit-equal,
+    add within rtol 1e-5) and, column by column, the emulated solo call
+    bit for bit."""
+    k = 4
+    args, ident = combine_layout(row_lengths(kind, k, seed=11), mode, nq=3,
+                                 seed=12)
+    targs = tuple(None if a is None else torch.from_numpy(a) for a in args)
+    kw = dict(mode=mode, tile=8, identity=ident)
+    val, hc = emulate_units(targs, unit_slots=k, **kw)
+    rval, rhc = csr_spmv.block_csr_combine_mq_ref(*targs, **kw)
+    assert torch.equal(hc, rhc)
+    if mode == "min":
+        assert torch.equal(val.view(torch.int32), rval.view(torch.int32))
+    else:
+        torch.testing.assert_close(val, rval, rtol=1e-5, atol=1e-6)
+    for col in range(3):
+        sv, sh = _solo_column(lambda *a, **o: emulate_units(a, **o), targs,
+                              col, unit_slots=k, **kw)
+        assert torch.equal(val[..., col].view(torch.int32),
+                           sv.view(torch.int32))
+        assert torch.equal(hc[..., col], sh)
 
 
 @pytest.mark.parametrize("nq,width,padded", [
@@ -508,6 +538,38 @@ def test_combine_mq_kernel_on_cuda(cuda_device, mode, nq):
         torch.testing.assert_close(val, rval, rtol=1e-5, atol=1e-6)
     for col in range(nq):
         sv, sh = _solo_column(csr_spmv.block_csr_combine, args, col, **kw)
+        assert torch.equal(val[..., col].view(torch.int32),
+                           sv.view(torch.int32)), col
+        assert torch.equal(hc[..., col], sh), col
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq", [8, 16])
+@pytest.mark.parametrize("kind", ["hub", "edges", "single", "empty"])
+@pytest.mark.parametrize("mode", ["add", "min"])
+def test_combine_mq_kernel_uneven_rows(cuda_device, mode, kind, nq):
+    """The CUDA panel kernel on rows the split must balance (a hub row per
+    destination beside empty runs; rows of K - 1, K and K + 1 tiles; one
+    tile; none) against its plain version, and each column bit-equal to a
+    solo CUDA launch on that column."""
+    k = csr_spmv._library().block_csr_combine_unit_slots()
+    cnt = row_lengths(kind, k, n_dest=3, n_rows=96, seed=13)
+    args, ident = combine_layout(cnt, mode, nq=nq, seed=14)
+    targs = tuple(None if a is None else torch.from_numpy(a).to(cuda_device)
+                  for a in args)
+    kw = dict(mode=mode, tile=8, identity=ident)
+    before = csr_spmv.block_csr_combine_mq.launches
+    val, hc = csr_spmv.block_csr_combine_mq(*targs, **kw)
+    torch.cuda.synchronize()
+    assert csr_spmv.block_csr_combine_mq.launches == before + 1
+    rval, rhc = csr_spmv.block_csr_combine_mq_ref(*targs, **kw)
+    assert torch.equal(hc, rhc)
+    if mode == "min":
+        assert torch.equal(val.view(torch.int32), rval.view(torch.int32))
+    else:
+        torch.testing.assert_close(val, rval, rtol=1e-5, atol=1e-6)
+    for col in range(nq):
+        sv, sh = _solo_column(csr_spmv.block_csr_combine, targs, col, **kw)
         assert torch.equal(val[..., col].view(torch.int32),
                            sv.view(torch.int32)), col
         assert torch.equal(hc[..., col], sh), col

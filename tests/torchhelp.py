@@ -50,3 +50,183 @@ def assert_same_fields(ref: dict, port: dict):
             assert np.array_equal(port[k], v), k
         else:
             assert port[k] == v, (k, port[k], v)
+
+
+# ---------------------------------------------------------------------------
+# Combine layouts with chosen row lengths, and the kernel's unit split
+# emulated in plain torch
+# ---------------------------------------------------------------------------
+
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def row_lengths(kind, unit_slots, n_dest=2, n_rows=48, seed=0):
+    """Live tiles per row [n_dest, n_rows] of a named layout:
+    ``hub`` — one row per destination holds a quarter of its tiles, the
+    other tiles spread over runs of rows between runs of empty rows;
+    ``edges`` — rows of K - 1, K, K + 1, 1 and 0 tiles (K = unit_slots)
+    and a row spanning several units; ``single`` — one tile in the whole
+    call; ``empty`` — no live tile; ``random`` — lengths 0..3K with many
+    zeros."""
+    rng = np.random.default_rng(seed)
+    k = unit_slots
+    if kind == "hub":
+        cnt = np.zeros((n_dest, n_rows), np.int64)
+        run = max(1, n_rows // 8)
+        full = (np.arange(n_rows) // run) % 2 == 0      # alternate runs
+        for q in range(n_dest):
+            cnt[q, full] = rng.integers(1, 2 * k, full.sum())
+            hub = rng.integers(0, n_rows)
+            cnt[q, hub] = cnt[q].sum() // 3             # a quarter after
+        return cnt.astype(np.int32)
+    if kind == "edges":
+        pattern = [k - 1, k, k + 1, 1, 0, 0, k + 1, k - 1, 3 * k + 2, k]
+        row = np.resize(np.array(pattern), n_rows)
+        return np.stack([np.roll(row, q) for q in range(n_dest)]).astype(
+            np.int32)
+    if kind == "single":
+        cnt = np.zeros((n_dest, n_rows), np.int32)
+        cnt[n_dest - 1, n_rows // 2] = 1
+        return cnt
+    if kind == "empty":
+        return np.zeros((n_dest, n_rows), np.int32)
+    if kind == "random":
+        cnt = rng.integers(0, 3 * k + 1, (n_dest, n_rows))
+        cnt[rng.random((n_dest, n_rows)) < 0.4] = 0
+        return cnt.astype(np.int32)
+    raise ValueError(kind)
+
+
+def combine_layout(row_cnt, mode, *, nq=None, seed=0, n_src_blocks=24,
+                   spare=2):
+    """Inputs of one combine call whose rows hold ``row_cnt`` [Q, R] live
+    tiles, each row followed by ``spare`` dead slots, live tiles scattered
+    over the slot arrays (``tile_idx`` a random permutation), ~10% of
+    tile cells holding an edge.  ``nq`` columns make panel inputs.  Returns
+    (the nine numpy arguments, identity)."""
+    rng = np.random.default_rng(seed)
+    t = 8
+    row_cnt = np.asarray(row_cnt, np.int32)
+    q_cnt, n_rows = row_cnt.shape
+    row_ptr = np.zeros((q_cnt, n_rows + 1), np.int32)
+    row_ptr[:, 1:] = np.cumsum(row_cnt + spare, axis=1)
+    n_slots = int(row_ptr[:, -1].max())
+    tile_idx = np.zeros((q_cnt, n_slots), np.int32)
+    tile_col = np.zeros((q_cnt, n_slots), np.int32)
+    for q in range(q_cnt):
+        pos = np.concatenate([row_ptr[q, r] + np.arange(row_cnt[q, r])
+                              for r in range(n_rows)]).astype(np.int64)
+        tile_idx[q, pos] = rng.permutation(n_slots)[:pos.size]
+        tile_col[q, pos] = rng.integers(0, n_src_blocks, pos.size)
+    shape = (q_cnt, n_slots, t, t)
+    edge = rng.random(shape) < 0.1
+    tc = np.where(edge, rng.integers(1, 3, shape), 0).astype(np.float32)
+    ident = {"min": F32_MAX, "max": -F32_MAX}.get(mode, 0.0)
+    tv = tb = None
+    if mode in ("add", "add_b"):
+        tv = np.where(edge, rng.random(shape), 0).astype(np.float32)
+    if mode != "add":
+        tb = np.where(edge, rng.random(shape), ident).astype(np.float32)
+    vec = (q_cnt, n_src_blocks * t) + (() if nq is None else (nq,))
+    mask = rng.random(vec) < 0.5
+    xv = np.where(mask, rng.standard_normal(vec), ident).astype(np.float32)
+    xc = mask.astype(np.float32)
+    return (row_ptr, tile_idx, tile_col, row_cnt, tv, tb, tc, xv, xc), ident
+
+
+def emulate_units(args, *, mode, tile, identity, unit_slots):
+    """The CUDA kernel's split of a combine call, in plain torch: each unit
+    of :func:`combine_units` folds the slots of each row it touches; rows
+    it covers whole are written, the others leave a head (the row's end)
+    or tail (the row runs on) partial, and the fixup folds each spanning
+    row's tails in unit order, then its head.  Asserts that every row is
+    written exactly once and that the tails of a row come from consecutive
+    units ending just before the head's.  Panels run column by column on
+    the one split.  Returns (val, hascnt) as the wrappers do."""
+    import torch
+    from repro_torch.kernels.csr_spmv import combine_units
+    row_ptr, tile_idx, tile_col, row_cnt, tv, tb, tc, xv, xc = args
+    if xv.dim() == 3:
+        cols = []
+        for j in range(xv.shape[2]):
+            solo = list(args)
+            solo[7], solo[8] = xv[..., j], xc[..., j]
+            cols.append(emulate_units(tuple(solo), mode=mode, tile=tile,
+                                      identity=identity,
+                                      unit_slots=unit_slots))
+        return (torch.stack([v for v, _ in cols], -1),
+                torch.stack([h for _, h in cols], -1))
+    t = tile
+    q_cnt, n_rows = row_cnt.shape
+    n_slots, n_src = tile_idx.shape[1], xv.shape[1]
+    n_flat = q_cnt * n_rows
+    extremum = mode in ("min", "max")
+    row_end, unit_row, unit_slot = (
+        x.long() for x in combine_units(row_cnt, n_slots, unit_slots))
+    counts = row_cnt.reshape(-1).long()
+    row_start = row_end - counts
+    # each live slot's contribution to its row, in path order
+    owner = torch.repeat_interleave(torch.arange(n_flat), counts)
+    q = owner // n_rows
+    pos = (row_ptr[:, :-1].reshape(-1).long()[owner]
+           + torch.arange(owner.numel()) - row_start[owner])
+    tid = q * n_slots + tile_idx.reshape(-1)[q * n_slots + pos].long()
+    col = tile_col.reshape(-1)[q * n_slots + pos].long()
+    xi = (q * n_src + col * t)[:, None] + torch.arange(t)
+    tile_of = lambda x: x.reshape(-1, t, t)[tid].double()
+    xvb, xcb = xv.reshape(-1)[xi], xc.reshape(-1)[xi]
+    cnt_c = torch.bmm(tile_of(tc), xcb.double()[:, :, None])[..., 0]
+    if extremum:
+        red = torch.amin if mode == "min" else torch.amax
+        val_c = red(tb.reshape(-1, t, t)[tid] + xvb[:, None, :], dim=2)
+    else:
+        val_c = torch.bmm(tile_of(tv), xvb.double()[:, :, None])[..., 0]
+        if mode == "add_b":
+            val_c += torch.bmm(tile_of(tb), xcb.double()[:, :, None])[..., 0]
+    start = (torch.full((t,), identity, dtype=torch.float32) if extremum
+             else torch.zeros(t, dtype=torch.float64))
+
+    def fold(a, b):
+        if not extremum:
+            return a + b
+        return torch.minimum(a, b) if mode == "min" else torch.maximum(a, b)
+
+    def segment(lo, hi):
+        v, c = start.clone(), torch.zeros(t, dtype=torch.float64)
+        for s in range(lo, hi):
+            v, c = fold(v, val_c[s]), c + cnt_c[s]
+        return v, c
+
+    val = torch.empty((n_flat, t), dtype=torch.float32)
+    hascnt = torch.empty((n_flat, t), dtype=torch.float32)
+    written = np.zeros(n_flat, np.int64)
+
+    def write(f, v, c):
+        val[f] = v if extremum else (identity + v).float()
+        hascnt[f] = c.float()
+        written[f] += 1
+
+    heads, tails = {}, {}
+    n_units = unit_row.numel() - 1
+    for u in range(n_units):
+        f0, f1 = int(unit_row[u]), int(unit_row[u + 1])
+        s0, s1 = int(unit_slot[u]), int(unit_slot[u + 1])
+        for f in range(f0, min(f1, n_flat - 1) + 1):
+            rs, re = int(row_start[f]), int(row_end[f])
+            part = segment(max(rs, s0), min(re, s1))
+            if f < f1 and rs >= s0:
+                write(f, *part)
+            elif f < f1:
+                heads[u] = (f, part)
+            else:
+                tails[u] = (f, part)
+    for u, (f, (v, c)) in heads.items():
+        mine = [w for w in sorted(tails) if tails[w][0] == f]
+        assert mine == list(range(u - len(mine), u)), (u, f, mine)
+        acc_v, acc_c = start.clone(), torch.zeros(t, dtype=torch.float64)
+        for w in mine:
+            acc_v = fold(acc_v, tails[w][1][0])
+            acc_c = acc_c + tails[w][1][1]
+        write(f, fold(acc_v, v), acc_c + c)
+    assert (written == 1).all(), np.nonzero(written != 1)
+    return (val.reshape(q_cnt, n_rows * t), hascnt.reshape(q_cnt, n_rows * t))
