@@ -104,11 +104,19 @@ computes the same function, that call:
     heads, the 8 KV heads repeated to 16, head dim 256, bf16, 8,192
     positions, causal, q and k at variance 40 so the scores reach the
     softcap): global with softcap 50, local (window 4,096) with softcap
-    50, global without softcap (library: SDPA), within rtol 2e-2 / atol
-    1e-3 of the plain version; float32 global at 1,024 positions and
-    local at 8,192 within 1e-5; each call also shows that the plain
-    version without its causal mask, window or softcap falls outside the
-    tolerance, so the check would catch a kernel that dropped one;
+    50 (library for both: ``torch.compile`` of ``flex_attention`` with a
+    tanh ``score_mod`` and a causal / window ``block_mask``, its compile
+    outside the timed window), global without softcap (library: SDPA),
+    within rtol 2e-2 / atol 1e-3 of the plain version; float32 global at
+    1,024 positions and local at 8,192 within 1e-5 (library: the same
+    flex call); and at Yi-6B widths (32 query heads, the 4 KV heads
+    repeated to 32, head dim 128, bf16, 4,096 positions, global, no
+    softcap; library SDPA) within rtol 2e-2 / atol 1e-3.  Each call also
+    shows that the plain version without its causal mask, window or
+    softcap falls outside the tolerance, so the check would catch a
+    kernel that dropped one.  The bf16 calls take the tensor-core route,
+    whose SASS must hold ``HGMMA`` and ``UTMALDG`` (checked after the
+    build); the library calls' differences are reported, not checked;
   * ``ops.gla`` (``gla_chunked``, chunk 128, batch 8 x 4,096 steps, bf16
     q / k / v) at RWKV6-1.6B widths (32 heads of 64, bonus u) and
     Zamba2-1.2B's Mamba2 (64 heads, state 64, include_current, a per-head
@@ -165,16 +173,23 @@ BF16_FLOPS = 989e12            # H100 SXM, dense bf16 on the tensor cores
 SPMV_TILE = 8
 # kernel_ops widths: Gemma2-9B attention (src/repro/configs/gemma2_9b.py:
 # 16 query heads, 8 KV heads, head dim 256, softcap 50, local window 4,096;
-# 8,192 positions, Gemma 2's context), RWKV6-1.6B time mix
+# 8,192 positions, Gemma 2's context), Yi-6B attention
+# (configs/yi_6b.py: 32 query heads, 4 KV heads, head dim 128, global, no
+# softcap; 4,096 positions, its context), RWKV6-1.6B time mix
 # (configs/rwkv6_1_6b.py: 32 heads of 64, chunk 128) and Zamba2-1.2B's
 # Mamba2 (configs/zamba2_1_2b.py: 64 heads = 2 x 2048 / 64, state 64,
 # chunk 128), batch 8 x 4,096 steps for both GLA models
-GEMMA_HEADS, GEMMA_KV_HEADS, GEMMA_HEAD_DIM = 16, 8, 256
+ATTN_MODELS = {   # name -> (query heads, KV heads, head dim)
+    "gemma2-9b": (16, 8, 256),
+    "yi-6b": (32, 4, 128),
+}
 GEMMA_SEQ, GEMMA_WINDOW, GEMMA_SOFTCAP = 8192, 4096, 50.0
-# q and k are drawn with variance 40, so the scaled scores q.k / 16 have a
-# standard deviation of 40 and reach the softcap as trained Gemma logits
-# do; at variance 1, tanh(s/50)*50 differs from s by ~1e-4
-GEMMA_SCORE_STD = 40.0
+YI_SEQ = 4096
+# q and k are drawn with variance 40, so the scaled scores q.k / sqrt(D)
+# have a standard deviation of 40 at any D and reach Gemma's softcap as
+# trained Gemma logits do (at variance 1, tanh(s/50)*50 differs from s by
+# ~1e-4)
+SCORE_VAR = 40.0
 GLA_SUB = 16     # sub-chunk of the least-work GLA count (gla_ops_ms)
 GLA_BATCH, GLA_STEPS, GLA_CHUNK = 8, 4096, 128
 GLA_MODELS = {   # name -> (heads, Dk, Dv, include_current, bonus)
@@ -805,9 +820,22 @@ def main(argv=None) -> int:
     for src_name in SOURCES:
         log = build.library_path(src_name).with_suffix(".log")
         ptxas[src_name] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln]
+                           if "registers" in ln or "spill" in ln
+                           or "Performance Loss" in ln]
+    # the tensor-core attention route must compile to wgmma fed by TMA
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+         "-sass", str(build.library_path("flash_attention.cu"))],
+        capture_output=True, text=True, check=True,
+        timeout=300).stdout.splitlines()
+    attention_sass = {op: sum(op in ln for ln in sass)
+                      for op in ("HGMMA", "UTMALDG")}
+    if not all(attention_sass.values()):
+        raise AssertionError(f"flash_attention.cu: no wgmma or TMA load in "
+                             f"its SASS ({attention_sass})")
     emit(phase="kernel_build", seconds=time.perf_counter() - t0,
-         sources=list(SOURCES), ptxas=ptxas)
+         sources=list(SOURCES), ptxas=ptxas,
+         flash_attention_sass=attention_sass)
 
     # -- 2b. the combine on balanced and unbalanced synthetic rows --------
     run_combine_balance(max(0, 21 - opts.scale))
@@ -1427,6 +1455,32 @@ def check_close(name, out, want, rtol, atol):
     return err
 
 
+def flex_softcap(q, k, v, s, window, softcap):
+    """One PyTorch call for the softcapped calls' function, timed beside
+    the kernel and used nowhere in the port: ``torch.compile`` of
+    ``flex_attention`` with a tanh ``score_mod`` (on the scaled scores)
+    and a causal (and window) ``block_mask``.  Returns a closure over
+    [1, H, S, D] views."""
+    import torch
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention,
+    )
+
+    def cap(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / softcap) * softcap
+
+    def keep(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx
+        if window:
+            ok = ok & (kv_idx > q_idx - window)
+        return ok
+
+    mask = create_block_mask(keep, None, None, s, s, device=q.device)
+    flex = torch.compile(flex_attention)
+    return lambda: flex(q[None], k[None], v[None], score_mod=cap,
+                        block_mask=mask)
+
+
 def run_kernel_ops(scale):
     """Phase 10 of :func:`main`: ``ops.spmv``, ``ops.attention`` and
     ``ops.gla`` at full width, each call with its kernel's launch count set
@@ -1523,42 +1577,48 @@ def run_kernel_ops(scale):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10b. flash_attention at Gemma2-9B widths ---------------------------
+    # -- 10b. flash_attention at Gemma2-9B and Yi-6B widths ----------------
     seq = max(128, GEMMA_SEQ >> cut)
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
 
-    def gemma_inputs(s, dtype):
-        qk_scale = math.sqrt(GEMMA_SCORE_STD)
-        q = (qk_scale * torch.randn((GEMMA_HEADS, s, GEMMA_HEAD_DIM),
-                                    generator=gen, device=dev)).to(dtype)
-        # 8 KV heads, each serving 2 query heads (the kernel has no GQA)
-        k, v = (scale * torch.randn((GEMMA_KV_HEADS, s, GEMMA_HEAD_DIM),
-                                    generator=gen, device=dev)
+    def attention_inputs(model, s, dtype):
+        heads, kv_heads, d = ATTN_MODELS[model]
+        qk_scale = math.sqrt(SCORE_VAR)
+        q = (qk_scale * torch.randn((heads, s, d), generator=gen,
+                                    device=dev)).to(dtype)
+        # each KV head serves heads / kv_heads query heads (the kernel has
+        # no GQA)
+        k, v = (scale * torch.randn((kv_heads, s, d), generator=gen,
+                                    device=dev)
                 for scale in (qk_scale, 1.0))
         return (q,) + tuple(a.to(dtype).repeat_interleave(
-            GEMMA_HEADS // GEMMA_KV_HEADS, dim=0) for a in (k, v))
+            heads // kv_heads, dim=0) for a in (k, v))
 
     local = min(GEMMA_WINDOW, seq // 2)
-    calls = (   # label, dtype, positions, window, softcap, rtol, atol
-        ("global, softcap 50", bf, seq, 0, GEMMA_SOFTCAP, 2e-2, 1e-3),
-        ("local window %d, softcap 50" % local, bf, seq, local,
+    yi_seq = max(128, YI_SEQ >> cut)
+    calls = (   # model, label, dtype, positions, window, softcap, rtol, atol
+        ("gemma2-9b", "global, softcap 50", bf, seq, 0, GEMMA_SOFTCAP, 2e-2,
+         1e-3),
+        ("gemma2-9b", "local window %d, softcap 50" % local, bf, seq, local,
          GEMMA_SOFTCAP, 2e-2, 1e-3),
-        ("global, no softcap", bf, seq, 0, 0.0, 2e-2, 1e-3),
-        ("global, softcap 50, float32", torch.float32, min(1024, seq), 0,
-         GEMMA_SOFTCAP, 1e-5, 1e-5),
-        ("local window %d, softcap 50, float32" % local, torch.float32,
-         seq, local, GEMMA_SOFTCAP, 1e-5, 1e-5),
+        ("gemma2-9b", "global, no softcap", bf, seq, 0, 0.0, 2e-2, 1e-3),
+        ("gemma2-9b", "global, softcap 50, float32", torch.float32,
+         min(1024, seq), 0, GEMMA_SOFTCAP, 1e-5, 1e-5),
+        ("gemma2-9b", "local window %d, softcap 50, float32" % local,
+         torch.float32, seq, local, GEMMA_SOFTCAP, 1e-5, 1e-5),
+        ("yi-6b", "global, no softcap", bf, yi_seq, 0, 0.0, 2e-2, 1e-3),
     )
-    for label, dtype, s, window, softcap, rtol, atol in calls:
-        q, k, v = gemma_inputs(s, dtype)
+    for model, label, dtype, s, window, softcap, rtol, atol in calls:
+        heads, kv_heads, head_dim = ATTN_MODELS[model]
+        q, k, v = attention_inputs(model, s, dtype)
         kw = dict(causal=True, window=window, softcap=softcap)
         o, n_launch = launched(flash_attention.flash_attention,
                                lambda: ops.attention(q, k, v, **kw))
         plain = lambda **over: flash_attention.flash_attention_ref(
             q, k, v, **dict(kw, **over))
         want = plain()
-        err = check_close(f"attention {label}", o, want, rtol, atol)
+        err = check_close(f"attention {model} {label}", o, want, rtol, atol)
         # the check must tell each masking feature apart at these inputs:
         # the plain version without it falls outside the tolerance
         without = dict(causal=dict(causal=False))
@@ -1571,42 +1631,54 @@ def run_kernel_ops(scale):
             ok, feature_diff[feature] = within(plain(**over), want, rtol,
                                                atol)
             if ok:
-                raise AssertionError(f"attention {label}: the check cannot "
-                                     f"see the {feature} at these inputs")
+                raise AssertionError(f"attention {model} {label}: the check "
+                                     f"cannot see the {feature} at these "
+                                     "inputs")
         bf16 = dtype == bf
         ms = cuda_ms(lambda: ops.attention(q, k, v, **kw), 5 if bf16 else 3)
         plain_ms = cuda_ms(plain, 2)
-        library_ms = lib_err = None
+        compile_s = None
         if not softcap:
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            library = ("torch.nn.functional.scaled_dot_product_attention("
+                       "is_causal=True)")
+            lib_call = lambda: torch.nn.functional.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=True)
-            lib_err = float((sdpa()[0].float() - o.float()).abs().max())
-            library_ms = cuda_ms(sdpa, 5)
+        else:
+            library = (f"torch.compile(flex_attention), score_mod tanh(s / "
+                       f"{softcap:g}) * {softcap:g}, causal"
+                       + (f" & window {window}" if window else "")
+                       + " block_mask")
+            t0 = time.perf_counter()
+            lib_call = flex_softcap(q, k, v, s, window, softcap)
+            lib_call()
+            torch.cuda.synchronize()
+            compile_s = time.perf_counter() - t0
+        # reported, not checked: in bf16 both library calls round P to bf16
+        lib_err = float((lib_call()[0].float() - o.float()).abs().max())
+        library_ms = cuda_ms(lib_call, 5 if bf16 else 2)
         pairs = kept_pairs(s, s, True, window)
-        flops = 4 * pairs * GEMMA_HEAD_DIM * GEMMA_HEADS
+        flops = 4 * pairs * head_dim * heads
         bytes_ = 4 * q.numel() * q.element_size()
         bound_ms, bound_by = bound(
             bytes_, flops / (BF16_FLOPS if bf16 else F32_FLOPS) * 1e3)
-        emit(phase="kernel_ops", call="ops.attention", label=label,
-             heads=GEMMA_HEADS, kv_heads=GEMMA_KV_HEADS,
-             head_dim=GEMMA_HEAD_DIM, seq=s, dtype=str(dtype),
-             score_std=GEMMA_SCORE_STD, **kw, launches=n_launch,
-             max_abs_err=err, rtol=rtol, atol=atol,
+        emit(phase="kernel_ops", call="ops.attention", model=model,
+             label=label, route=flash_attention.route(dtype, head_dim),
+             heads=heads, kv_heads=kv_heads, head_dim=head_dim, seq=s,
+             dtype=str(dtype), score_var=SCORE_VAR, **kw,
+             launches=n_launch, max_abs_err=err, rtol=rtol, atol=atol,
              out_mean_abs=float(want.float().abs().mean()),
              max_abs_diff_without=feature_diff, kernel_ms=ms,
-             plain_ms=plain_ms, library_ms=library_ms,
-             library=("torch.nn.functional.scaled_dot_product_attention("
-                      "is_causal=True)" if not softcap else
-                      "none: no single PyTorch call applies a tanh softcap"),
-             library_max_abs_diff=lib_err, kept_pairs_per_head=pairs,
-             flops=flops, bytes=bytes_, bound_ms=bound_ms,
-             bound_by=bound_by, tflops=flops / ms / 1e9)
+             plain_ms=plain_ms, library_ms=library_ms, library=library,
+             library_compile_s=compile_s, library_max_abs_diff=lib_err,
+             kept_pairs_per_head=pairs, flops=flops, bytes=bytes_,
+             bound_ms=bound_ms, bound_by=bound_by, tflops=flops / ms / 1e9)
         rows.append(kernel_row(
-            f"flash_attention ops.attention gemma2-9b {label} S={s}",
+            f"flash_attention[{flash_attention.route(dtype, head_dim)}] "
+            f"ops.attention {model} {label} S={s}",
             "flash_attention.cu", TPU_FLASH, n_launch, dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)))
-        del q, k, v, o, want, plain
+        del q, k, v, o, want, plain, lib_call
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -10,11 +10,20 @@ PyTorch version of the same function.
 
 Source note.  The kernel replaces the Pallas TPU kernel
 ``flash_attention`` of ``src/repro/kernels/flash_attention.py``.  It is
-bound by operations (~2,000 flops per byte at Gemma 2's widths); this
-first version does its products on the CUDA cores in float32, one block
-per 64 query rows streaming 64-key blocks of K and V through shared
-memory with an online softmax, and skips key blocks that the mask hides
-from every row of a query block.  The design is set out in the source.
+bound by operations (~2,000 flops per byte at Gemma 2's widths).  Two
+routes, picked by :func:`route` from the input type and the head dim:
+
+* ``"tensor_core"`` — bf16 at D = 64, 128, 256 (the head dims of every
+  full-width config): both products on the tensor cores through
+  ``wgmma``, K and V brought in by TMA through a ring of shared-memory
+  stages by a producer warp, P split into two bf16 terms for P·V so the
+  result passes the bf16 check (``flash_attention_tc_launch``);
+* ``"cuda_core"`` — float32 inputs (their 1e-5 check rules out TF32) and
+  bf16 at D = 8, 16, 32: float32 FMAs on the CUDA cores, one block per 64
+  query rows (``flash_attention_launch``).
+
+Both skip key blocks that the mask hides from every row of a query block.
+The designs are set out in the source.
 
 The semantics follow the reference exactly: q is scaled before the
 product, the softcap acts on the scaled scores, masked scores are the
@@ -32,6 +41,7 @@ import torch
 from repro_torch.kernels.ref import softcap_and_mask
 
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)   # head dims the kernel takes
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)         # bf16 head dims on wgmma
 _SOURCE = "flash_attention.cu"
 _DTYPES = (torch.float32, torch.bfloat16)      # the kernel's input types
 _REF_BLOCK = 128                               # query rows per plain step
@@ -71,6 +81,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 
 
+def route(dtype, d: int) -> str:
+    """The CUDA route for inputs of ``dtype`` and head dim ``d``:
+    ``"tensor_core"`` for bf16 at :data:`TENSOR_CORE_HEAD_DIMS`, else
+    ``"cuda_core"``."""
+    return ("tensor_core" if dtype == torch.bfloat16
+            and d in TENSOR_CORE_HEAD_DIMS else "cuda_core")
+
+
 def _library():
     from repro_torch.kernels.build import load_library
     lib = load_library(_SOURCE)
@@ -79,6 +97,9 @@ def _library():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [ci] * 7 + [cf, cf] + [vp] * 5
         fn.restype = ci
+        tc = lib.flash_attention_tc_launch
+        tc.argtypes = [ci] * 6 + [cf, cf] + [vp] * 5
+        tc.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -107,10 +128,13 @@ def _launch(q, k, v, *, causal, window, softcap):
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.flash_attention_launch(
-            _DTYPES.index(work), d, bh, sq, skv, int(bool(causal)),
-            int(window), float(softcap), float(d ** -0.5), qw.data_ptr(),
-            kw.data_ptr(), vw.data_ptr(), out.data_ptr(), stream)
+        args = (d, bh, sq, skv, int(bool(causal)), int(window),
+                float(softcap), float(d ** -0.5), qw.data_ptr(),
+                kw.data_ptr(), vw.data_ptr(), out.data_ptr(), stream)
+        if route(work, d) == "tensor_core":
+            code = lib.flash_attention_tc_launch(*args)
+        else:
+            code = lib.flash_attention_launch(_DTYPES.index(work), *args)
     if code != 0:
         msg = lib.flash_attention_error_string(code).decode()
         raise RuntimeError(f"flash_attention launch failed: {msg} "

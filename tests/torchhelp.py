@@ -230,3 +230,38 @@ def emulate_units(args, *, mode, tile, identity, unit_slots):
         write(f, fold(acc_v, v), acc_c + c)
     assert (written == 1).all(), np.nonzero(written != 1)
     return (val.reshape(q_cnt, n_rows * t), hascnt.reshape(q_cnt, n_rows * t))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core attention kernel's roundings, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+def emulate_attention_roundings(q, k, v, *, causal, window, softcap, pv,
+                                tanh="exact"):
+    """Attention as the plain version computes it (float32 scores of the
+    scaled q, softcap, -1e30 mask, float32 softmax), except for the
+    roundings a tensor-core kernel may make: ``pv="split"`` multiplies V by
+    P as two bf16 terms, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, the
+    kernel's scheme; ``pv="bf16"`` by P rounded to bf16 once.  ``tanh=
+    "exp_form"`` takes the softcap's tanh as ``1 - 2 / (2^(2y log2 e) + 1)``
+    in float32, the kernel's form.  bf16 q, k, v [BH, S, D]; returns bf16."""
+    import torch
+    from repro_torch.kernels.ref import softcap_and_mask
+    d = q.shape[-1]
+    s = torch.bmm(q.float() * d ** -0.5, k.float().transpose(1, 2))
+    if softcap and tanh == "exp_form":
+        e = torch.exp2(s * (2 * 1.4426950408889634 / softcap))
+        s = softcap * (1 - 2 / (e + 1))
+        s = softcap_and_mask(s, 0, causal=causal, window=window, softcap=0.0)
+    else:
+        s = softcap_and_mask(s, 0, causal=causal, window=window,
+                             softcap=softcap)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    vf = v.float()
+    hi = p.bfloat16().float()
+    o = torch.bmm(hi, vf)
+    if pv == "split":
+        o = o + torch.bmm((p - hi).bfloat16().float(), vf)
+    elif pv != "bf16":
+        raise ValueError(f"pv is 'split' or 'bf16', not {pv!r}")
+    return (o / p.sum(-1, keepdim=True)).bfloat16()
