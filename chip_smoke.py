@@ -49,7 +49,11 @@ on the card).  It
   * holds the varint stencil and both scan modes against their plain
     versions (bit-equal) on the largest chunk's streams and on one long
     stream (partition 1's whole dst-residue section), and times them
-    beside the library calls and the byte bound;
+    beside the library calls and the byte bound, per call and on the
+    card alone (``torch.profiler``: device time and operations per call);
+    then sweeps both scan modes over 2^10, 2^16, 2^20 and 2^24 seeded
+    elements (bit-equal, add also to ``torch.cumsum``), timed the same
+    way beside ``torch.cumsum`` / ``torch.cummax``;
   * runs the four algorithms with the launch counts of all three kernels
     set to 0 just before each and read just after (each must have run),
     and requires every chunk read to have been decoded on the card, the
@@ -98,8 +102,12 @@ plain version, and is timed beside its bound and, where one PyTorch call
 computes the same function, that call:
   * ``ops.spmv`` (``block_csr_spmv``, T = 8) on ``uniform_graph(2**21,
     2**25, seed=0, weighted=True)`` through ``ops.build_block_csr``'s
-    padded layout (~12 GB of tiles): within rtol/atol 1e-5 of the plain
-    version and of the float64 edge oracle; library ``torch.sparse.mm``;
+    padded layout (~12 GB of tiles), which its first call packs into the
+    occupied cells of the live tiles (~0.56 GB, kept in the structure's
+    dict; packed exactly once, and a second pack timed alone must equal
+    it): within rtol/atol 1e-5 of the packed plain version, the dense
+    plain version and the float64 edge oracle; library
+    ``torch.sparse.mm``;
   * ``ops.attention`` (``flash_attention``) at Gemma2-9B widths (16 query
     heads, the 8 KV heads repeated to 16, head dim 256, bf16, 8,192
     positions, causal, q and k at variance 40 so the scores reach the
@@ -219,6 +227,28 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=20):
+    """(mean device milliseconds per call of ``fn``, device operations per
+    call): the summed durations of the kernels and memsets the profiler
+    records on the card over ``reps`` calls.  Where a call's host path
+    takes longer than its device work, :func:`cuda_ms` measures the host;
+    this measures the card alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        raise AssertionError("the profiler recorded no device operation")
+    return (sum(e.time_range.elapsed_us() for e in ops) / reps / 1e3,
+            len(ops) / reps)
 
 
 def bound(bytes_, ops_ms):
@@ -728,7 +758,9 @@ def varint_inputs(store, largest, device):
 def check_varint_kernel(vk, name, x):
     """Kernel vs plain version (bit-equal) on ``x``; times the kernel, the
     plain version and the library call, beside the byte bound (scan: 8 B
-    per element, stencil: 9 B per byte, at the card's memory rate)."""
+    per element, stencil: 9 B per byte, at the card's memory rate), and
+    the kernel's and the library's device time alone (:func:`device_ms`,
+    with the device operations per call)."""
     import torch
     if name == "stencil":
         kern = lambda: vk.byte_stencil(x)
@@ -755,14 +787,56 @@ def check_varint_kernel(vk, name, x):
     ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(plain, 5)
     library_ms = None if library is None else cuda_ms(library, 20)
+    dev_ms, dev_ops = device_ms(kern)
+    lib_dev_ms = None if library is None else device_ms(library)[0]
     bytes_ = x.numel() * per_elem
     bound_ms, bound_by = bound(bytes_, 0.0)
     return dict(elements=x.numel(), max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
+                device_ms=dev_ms, device_ops_per_call=dev_ops,
+                library_device_ms=lib_dev_ms,
                 library=LIBRARY_CALLS[name] or "none: no single PyTorch "
                 "call decodes LEB128",
                 bound_ms=bound_ms, bound_by=bound_by,
                 bytes=bytes_, gb_per_s=bytes_ / ms / 1e6)
+
+
+SCAN_SWEEP = (2**10, 2**16, 2**20, 2**24)
+
+
+def scan_sweep(vk, device):
+    """Both scan modes at each length of ``SCAN_SWEEP`` on seeded int32
+    inputs whose sums wrap: bit-equal to the plain version (add also to
+    ``torch.cumsum``), timed beside ``torch.cumsum`` / ``torch.cummax`` and
+    the byte bound (8 B per element), per call and on the card alone
+    (:func:`device_ms`).  One JSON line per length and mode."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(0)
+    for n in SCAN_SWEEP:
+        x = torch.randint(-50, 2**30, (n,), generator=gen, device=device,
+                          dtype=torch.int32)
+        for mode in ("add", "max"):
+            out = vk.blocked_scan(x, mode=mode)
+            if not torch.equal(out, vk.blocked_scan_ref(x, mode=mode)):
+                raise AssertionError(f"scan sweep {mode} n={n}: the kernel "
+                                     "is not bit-equal to its plain version")
+            library = ((lambda: torch.cumsum(x, 0, dtype=torch.int32))
+                       if mode == "add" else (lambda: torch.cummax(x, 0)))
+            if mode == "add" and not torch.equal(library(), out):
+                raise AssertionError(f"scan sweep add n={n}: differs from "
+                                     "torch.cumsum")
+            kern = lambda: vk.blocked_scan(x, mode=mode)
+            ms = cuda_ms(kern, 20)
+            library_ms = cuda_ms(library, 20)
+            dev_ms, dev_ops = device_ms(kern)
+            bound_ms, bound_by = bound(8 * n, 0.0)
+            emit(phase="scan_sweep", mode=mode, elements=n,
+                 tiles=-(-n // vk._SCAN_TILE), ms=ms, library_ms=library_ms,
+                 device_ms=dev_ms, device_ops_per_call=dev_ops,
+                 library_device_ms=device_ms(library)[0],
+                 library=LIBRARY_CALLS[mode], bound_ms=bound_ms,
+                 bound_by=bound_by, gb_per_s=8 * n / ms / 1e6)
+        del x, out
 
 
 def main(argv=None) -> int:
@@ -1063,6 +1137,7 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
             if stream == "largest_chunk":
                 kernel_rows[key] = row
     del inputs
+    scan_sweep(varint, dev)
     varint.reset_launches()
 
     # -- 8. the OOC path, one algorithm at a time ----------------------------
@@ -1527,21 +1602,56 @@ def run_kernel_ops(scale):
         dev_blocks["n_cols"] * t, dtype=np.float32)).to(dev)
     args = (dev_blocks["tiles"], dev_blocks["tile_col"],
             dev_blocks["row_ptr"], x)
+    # the first call packs the structure (kept in the dict), then launches
+    packs = csr_spmv.pack_block_csr.calls
+    t0 = time.perf_counter()
     y, n_launch = launched(csr_spmv.block_csr_spmv,
                            lambda: ops.spmv(dev_blocks, x, tile=t))
+    first_call_s = time.perf_counter() - t0
+    packed = dev_blocks[ops.PACKED_KEY]
+    if csr_spmv.pack_block_csr.calls != packs + 1:
+        raise AssertionError("ops.spmv did not pack its structure once")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = csr_spmv.pack_block_csr(*args[:3], tile=t)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    for key in csr_spmv.PACKED_ARRAYS:
+        if not torch.equal(again[key], packed[key]):
+            raise AssertionError(f"pack_block_csr: {key} differs between "
+                                 "two packs of one structure")
+    del again
+    y_packed_plain = csr_spmv.block_csr_spmv_packed_ref(packed, x)
+    err = check_close("spmv vs the packed plain version", y, y_packed_plain,
+                      1e-5, 1e-5)
     y_plain = csr_spmv.block_csr_spmv_ref(*args, tile=t)
-    err = check_close("spmv vs plain", y, y_plain, 1e-5, 1e-5)
+    err_dense = check_close("spmv vs the dense plain version", y, y_plain,
+                            1e-5, 1e-5)
     y_edges = torch.from_numpy(ref.ref_spmv_from_edges(
         g.src, g.dst, g.data, x.cpu().numpy(), n)).to(dev)
     err_edges = check_close("spmv vs the float64 edge oracle", y[:n],
                             y_edges, 1e-5, 1e-5)
-    check_close("spmv plain vs the edge oracle", y_plain[:n], y_edges, 1e-5,
-                1e-5)
+    check_close("spmv dense plain vs the edge oracle", y_plain[:n], y_edges,
+                1e-5, 1e-5)
+    check_close("spmv packed plain vs the edge oracle", y_packed_plain[:n],
+                y_edges, 1e-5, 1e-5)
+    del y_plain, y_packed_plain
+    launches_before = csr_spmv.block_csr_spmv.launches
     ms = cuda_ms(lambda: ops.spmv(dev_blocks, x, tile=t), 10)
-    plain_ms = cuda_ms(lambda: csr_spmv.block_csr_spmv_ref(*args, tile=t), 2)
+    if (csr_spmv.pack_block_csr.calls != packs + 2
+            or csr_spmv.block_csr_spmv.launches != launches_before + 11):
+        raise AssertionError("ops.spmv packed again or skipped its kernel")
+    plain_ms = cuda_ms(
+        lambda: csr_spmv.block_csr_spmv_packed_ref(packed, x), 2)
+    dense_plain_ms = cuda_ms(
+        lambda: csr_spmv.block_csr_spmv_ref(*args, tile=t), 2)
     src_d, dst_d = (torch.from_numpy(a).to(dev) for a in (g.src, g.dst))
     live = int(torch.unique(dst_d // t * dev_blocks["n_cols"]
                             + src_d // t).numel())
+    n_live, nnz = packed["pcol"].numel(), packed["pval"].numel()
+    if live != n_live:
+        raise AssertionError(f"pack_block_csr kept {n_live} live tiles; the "
+                             f"edges occupy {live}")
     csr = torch.sparse_coo_tensor(
         torch.stack([dst_d, src_d]), torch.from_numpy(g.data).to(dev),
         (n, n), check_invariants=False).coalesce().to_sparse_csr()
@@ -1552,28 +1662,34 @@ def run_kernel_ops(scale):
     library_ms = cuda_ms(library, 10)
     n_rows, n_slots = dev_blocks["n_rows"], dev_blocks["tile_col"].numel()
     out_b = n_rows * t * 4
-    bytes_ = sum(a.numel() * a.element_size() for a in args) + out_b
-    live_b = live * (t * t * 4 + 4) + (n_rows + 1) * 4 + x.numel() * 4 + out_b
-    flops = 2 * n_slots * t * t
-    bound_ms, bound_by = bound(bytes_, flops / F32_FLOPS * 1e3)
+    bytes_ = (sum(packed[k].numel() * packed[k].element_size()
+                  for k in csr_spmv.PACKED_ARRAYS)
+              + x.numel() * 4 + out_b)
+    bound_ms, bound_by = bound(bytes_, 2 * nnz / F32_FLOPS * 1e3)
+    dense_b = sum(a.numel() * a.element_size() for a in args) + out_b
+    dense_bound_ms, _ = bound(dense_b, 2 * n_slots * t * t / F32_FLOPS * 1e3)
     emit(phase="kernel_ops", call="ops.spmv", graph=dict(
         generator="uniform_graph", vertices=n, edges=n_edges, seed=0,
         weighted=True), tile=t, row_blocks=n_rows, padded_slots=n_slots,
-        live_tiles=live, max_tiles_per_row=dev_blocks["max_tiles_per_row"],
-        host_build_s=build_s, copy_to_card_s=copy_s, launches=n_launch,
-        max_abs_err=err, max_abs_err_vs_edges=err_edges,
+        live_tiles=n_live, occupied_cells=nnz,
+        max_tiles_per_row=dev_blocks["max_tiles_per_row"],
+        host_build_s=build_s, copy_to_card_s=copy_s, pack_s=pack_s,
+        first_call_s=first_call_s, launches=n_launch,
+        max_abs_err=err, max_abs_err_vs_dense_plain=err_dense,
+        max_abs_err_vs_edges=err_edges,
         library_max_abs_err_vs_edges=lib_err, kernel_ms=ms,
-        plain_ms=plain_ms, library_ms=library_ms,
+        plain_ms=plain_ms, dense_plain_ms=dense_plain_ms,
+        library_ms=library_ms,
         library="torch.sparse.mm (coalesced f32 CSR of the edges)",
         bytes=bytes_, bound_ms=bound_ms, bound_by=bound_by,
-        live_bytes=live_b, live_bound_ms=live_b / HBM_BYTES_PER_S * 1e3,
+        dense_bytes=dense_b, dense_bound_ms=dense_bound_ms,
         gb_per_s=bytes_ / ms / 1e6)
     rows.append(kernel_row(
         "block_csr_spmv ops.spmv uniform 2^%d T=%d" % (scale, t),
         "block_csr_spmv.cu", TPU_SPMV, n_launch, dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms)))
-    del g, blocks, dev_blocks, args, x, y, y_plain, y_edges, csr, library
+            max_abs_err=max(err, err_dense), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)))
+    del g, blocks, dev_blocks, packed, args, x, y, y_edges, csr, library
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -44,12 +44,18 @@ presence) and runs more than 16 columns in groups of 16.  Its plain
 version :func:`block_csr_combine_mq_ref` is the solo plain version
 column by column.
 
-:func:`block_csr_spmv` is the standalone SpMV over the padded layout of
-:func:`build_block_csr` (it replaces the Pallas kernel ``block_csr_spmv``
-of the same reference file, body ``_kernel``), reached through
-:func:`repro_torch.kernels.ops.spmv`.  Its CUDA kernel lives in its own
-source, ``csrc/block_csr_spmv.cu``, so the combine's library does not
-change with it; its plain version is :func:`block_csr_spmv_ref`.
+:func:`block_csr_spmv` is the standalone SpMV over a block-CSR
+structure such as :func:`build_block_csr`'s padded layout (it replaces the
+Pallas kernel ``block_csr_spmv`` of the same reference file, body
+``_kernel``), reached through :func:`repro_torch.kernels.ops.spmv`.  The
+padded layout is mostly zeros (padding slots, and ~1 edge in a tile's 64
+cells on a sparse graph), so the kernel reads a packed form of the same
+matrix, :func:`pack_block_csr`: only the live tiles and only their
+occupied cells.  :func:`block_csr_spmv_packed` is the kernel's wrapper;
+its CUDA kernel lives in its own source, ``csrc/block_csr_spmv.cu``, so
+the combine's library does not change with it; its plain version is
+:func:`block_csr_spmv_packed_ref`, and :func:`block_csr_spmv_ref` keeps
+the dense definition as the tests' oracle.
 
 The structure builders (:func:`build_tile_struct`, in torch on whatever
 device its inputs lie; :func:`compact_live_tiles` and
@@ -75,7 +81,9 @@ _REF_CHUNK = 1 << 22             # live tiles per step of the plain version
 
 SPMV_MAX_TILE = 32               # largest tile the SpMV kernel takes
 _SPMV_SOURCE = "block_csr_spmv.cu"
-_SPMV_REF_CELLS = 1 << 26        # tile cells per step of the plain version
+_SPMV_REF_CELLS = 1 << 26        # tile cells per step of the plain versions
+_PACK_CELLS = 1 << 26            # dense tile cells per step of the pack
+_BYTE_BITS = 1 << torch.arange(8, dtype=torch.uint8)
 
 
 def block_csr_spmv(tiles, tile_col, row_ptr, x, *, tile: int):
@@ -87,23 +95,121 @@ def block_csr_spmv(tiles, tile_col, row_ptr, x, *, tile: int):
     [R+1] i32; x [C*T] f32 with every tile_col < C.  On
     :func:`build_block_csr`'s padded layout each row holds
     ``max_tiles_per_row`` slots, zero tiles included, so this is the JAX
-    kernel's grid.  Returns out [R*T] f32.  CPU tensors run
-    :func:`block_csr_spmv_ref`; CUDA tensors launch the kernel (counted in
-    ``block_csr_spmv.launches``) or raise."""
-    if tile < 1:
-        raise ValueError(f"tile must be positive, got {tile}")
-    if x.dim() != 1 or x.numel() % tile:
-        raise ValueError(f"x must be a vector of whole tiles of {tile}, got "
-                         f"shape {tuple(x.shape)}")
-    kind = x.device.type
-    if kind == "cpu":
-        return block_csr_spmv_ref(tiles, tile_col, row_ptr, x, tile=tile)
-    if kind != "cuda":
-        raise ValueError(f"block_csr_spmv runs on cpu or cuda, not {kind}")
-    return _launch_spmv(tiles, tile_col, row_ptr, x, tile=tile)
+    kernel's grid.  Returns out [R*T] f32.  Every call packs the
+    structure (:func:`pack_block_csr`, one pack per call, on the inputs'
+    device) and runs :func:`block_csr_spmv_packed` on the packed form: CPU
+    tensors its plain version, CUDA tensors the kernel (counted in
+    ``block_csr_spmv.launches``) or raise.  A caller that multiplies by
+    one structure more than once packs it once and calls
+    :func:`block_csr_spmv_packed`, as :func:`repro_torch.kernels.ops.spmv`
+    does."""
+    return block_csr_spmv_packed(
+        pack_block_csr(tiles, tile_col, row_ptr, tile=tile), x)
 
 
 block_csr_spmv.launches = 0
+
+
+def pack_block_csr(tiles, tile_col, row_ptr, *, tile: int) -> dict:
+    """The packed form of a block-CSR structure, on the device its inputs
+    lie on: only the live tiles, in row order, and only their occupied
+    cells.  A cell is occupied when the dense tile holds a nonzero there;
+    a tile is live when any of its cells is.  Returns a dict of
+
+    * ``prow`` [R+1] int64: each row block's first live tile;
+    * ``pcol`` [L] int32: each live tile's source block;
+    * ``pmask`` [L, W] int64: occupancy bits, W = ceil(T*T / 64); cell
+      ``i*T + j`` is bit ``(i*T+j) % 64`` of word ``(i*T+j) // 64`` (bit
+      63 makes the int64 negative; the kernel reads it unsigned);
+    * ``pvoff`` [R+1] int64: each row block's first value;
+    * ``pval`` [nnz] float32: the occupied cells' values, in (tile, cell)
+      order;
+    * ``tile``, ``n_rows``, and ``x_len``, the least length of x (the
+      largest source block read, plus one, times T).
+
+    With finite x the SpMV over the packed form is the same function.  One
+    difference: a zero weight no longer meets x, so an explicit zero
+    against an inf or NaN in x gives 0 where the dense product gives NaN.
+    The dense tiles are read in steps of ``_PACK_CELLS`` cells, so the
+    pack's temporaries stay a fraction of the packed form (a few hundred
+    MB at 2^25 edges), whatever the dense structure's size."""
+    t = tile
+    if t < 1:
+        raise ValueError(f"tile must be positive, got {tile}")
+    cells = t * t
+    words = -(-cells // 64)
+    dev = tiles.device
+    n_rows = row_ptr.shape[0] - 1
+    rp = row_ptr.to(dev, torch.int64)
+    rp_host = rp.cpu()
+    flat = tiles.reshape(-1, cells)
+    lo, hi = int(rp_host[0]), int(rp_host[-1])
+    prow = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    pvoff = torch.zeros_like(prow)
+    n_live = torch.zeros((), dtype=torch.int64, device=dev)
+    n_val = torch.zeros_like(n_live)
+    cols, masks, vals = [], [], []
+    step = max(1, _PACK_CELLS // cells)
+    for s0 in range(lo, hi, step):
+        s1 = min(hi, s0 + step)
+        blk = flat[s0:s1]
+        nz = blk != 0
+        cnt = nz.sum(1)
+        live = cnt > 0
+        vals.append(blk[nz])
+        cols.append(tile_col[s0:s1].to(dev, torch.int32)[live])
+        nz = nz[live]
+        bits = torch.zeros((nz.shape[0], words * 64), dtype=torch.uint8,
+                           device=dev)
+        bits[:, :cells] = nz
+        live = live.long()
+        masks.append((bits.view(-1, words * 8, 8) * _BYTE_BITS.to(dev)).sum(
+            -1, dtype=torch.uint8).view(torch.int64))
+        # the row boundaries in [s0, s1): the counts before them
+        a = int(torch.searchsorted(rp_host, s0))
+        b = int(torch.searchsorted(rp_host, s1))
+        at = rp[a:b] - s0
+        prow[a:b] = n_live + (torch.cumsum(live, 0) - live)[at]
+        pvoff[a:b] = n_val + (torch.cumsum(cnt, 0) - cnt)[at]
+        n_live = n_live + live.sum()
+        n_val = n_val + cnt.sum()
+    b = int(torch.searchsorted(rp_host, hi))    # boundaries at the end
+    prow[b:] = n_live
+    pvoff[b:] = n_val
+    pcol = (torch.cat(cols) if cols
+            else torch.zeros(0, dtype=torch.int32, device=dev))
+    pmask = (torch.cat(masks) if masks
+             else torch.zeros((0, words), dtype=torch.int64, device=dev))
+    pval = (torch.cat(vals).to(torch.float32) if vals
+            else torch.zeros(0, dtype=torch.float32, device=dev))
+    pack_block_csr.calls += 1
+    return dict(prow=prow, pcol=pcol, pmask=pmask, pvoff=pvoff, pval=pval,
+                tile=t, n_rows=n_rows,
+                x_len=(int(pcol.max()) + 1) * t if pcol.numel() else 0)
+
+
+pack_block_csr.calls = 0
+PACKED_ARRAYS = ("prow", "pcol", "pmask", "pvoff", "pval")
+
+
+def block_csr_spmv_packed(packed: dict, x):
+    """:func:`block_csr_spmv` over :func:`pack_block_csr`'s packed form.
+    CPU tensors run :func:`block_csr_spmv_packed_ref`; CUDA tensors launch
+    the kernel (counted in ``block_csr_spmv.launches``) or raise.  Returns
+    out [R*T] f32."""
+    tile = packed["tile"]
+    if x.dim() != 1 or x.numel() % tile:
+        raise ValueError(f"x must be a vector of whole tiles of {tile}, got "
+                         f"shape {tuple(x.shape)}")
+    if x.numel() < packed["x_len"]:
+        raise ValueError(f"x holds {x.numel()} values; the structure reads "
+                         f"{packed['x_len']}")
+    kind = x.device.type
+    if kind == "cpu":
+        return block_csr_spmv_packed_ref(packed, x)
+    if kind != "cuda":
+        raise ValueError(f"block_csr_spmv runs on cpu or cuda, not {kind}")
+    return _launch_spmv(packed, x)
 
 
 def _spmv_library():
@@ -112,25 +218,29 @@ def _spmv_library():
     fn = lib.block_csr_spmv_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ci, ci] + [vp] * 6
+        fn.argtypes = [ci, ci] + [vp] * 8
         fn.restype = ci
         lib.block_csr_spmv_error_string.argtypes = [ci]
         lib.block_csr_spmv_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_spmv(tiles, tile_col, row_ptr, x, *, tile):
+def _launch_spmv(packed, x):
+    tile, n_rows = packed["tile"], packed["n_rows"]
     if tile > SPMV_MAX_TILE:
         raise ValueError(f"the CUDA SpMV kernel takes tiles up to "
                          f"{SPMV_MAX_TILE}, not {tile}")
-    n_slots = tile_col.shape[0] if tile_col.dim() == 1 else -1
-    n_rows = row_ptr.shape[0] - 1 if row_ptr.dim() == 1 else -1
+    n_live = packed["pcol"].shape[0]
+    words = -(-tile * tile // 64)
     dev = x.device
-    shapes = {"tiles": (tiles, torch.float32, (n_slots, tile, tile)),
-              "tile_col": (tile_col, torch.int32, (n_slots,)),
-              "row_ptr": (row_ptr, torch.int32, (n_rows + 1,)),
-              "x": (x, torch.float32, tuple(x.shape))}
-    for name, (a, dtype, shape) in shapes.items():
+    shapes = {"prow": (torch.int64, (n_rows + 1,)),
+              "pcol": (torch.int32, (n_live,)),
+              "pmask": (torch.int64, (n_live, words)),
+              "pvoff": (torch.int64, (n_rows + 1,)),
+              "pval": (torch.float32, tuple(packed["pval"].shape)),
+              "x": (torch.float32, tuple(x.shape))}
+    for name, (dtype, shape) in shapes.items():
+        a = x if name == "x" else packed[name]
         if a.device != dev or a.dtype != dtype or tuple(a.shape) != shape:
             raise ValueError(
                 f"{name}: expected {dtype} {shape} on {dev}, got "
@@ -145,8 +255,8 @@ def _launch_spmv(tiles, tile_col, row_ptr, x, *, tile):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.block_csr_spmv_launch(
-            tile, n_rows, tiles.data_ptr(), tile_col.data_ptr(),
-            row_ptr.data_ptr(), x.data_ptr(), out.data_ptr(), stream)
+            tile, n_rows, *(packed[k].data_ptr() for k in PACKED_ARRAYS),
+            x.data_ptr(), out.data_ptr(), stream)
     if code != 0:
         msg = lib.block_csr_spmv_error_string(code).decode()
         raise RuntimeError(f"block_csr_spmv launch failed: {msg} "
@@ -155,13 +265,44 @@ def _launch_spmv(tiles, tile_col, row_ptr, x, *, tile):
     return out
 
 
+def block_csr_spmv_packed_ref(packed: dict, x):
+    """Plain PyTorch version of :func:`block_csr_spmv_packed` (any tile
+    size, any device): every occupied cell's product ``pval * x[pcol*T +
+    j]`` taken in float64 and folded into its output row with
+    ``index_add_``, as many live tiles at a time as hold
+    ``_SPMV_REF_CELLS`` cells; the float64 sum is rounded to float32
+    once."""
+    t, n_rows = packed["tile"], packed["n_rows"]
+    prow, pcol, pmask, pval = (packed[k] for k in
+                               ("prow", "pcol", "pmask", "pval"))
+    dev = x.device
+    cells = t * t
+    owner = torch.repeat_interleave(torch.arange(n_rows, device=dev),
+                                    (prow[1:] - prow[:-1]))
+    out = torch.zeros(n_rows * t, dtype=torch.float64, device=dev)
+    byte_bits = _BYTE_BITS.to(dev)
+    step = max(1, _SPMV_REF_CELLS // cells)
+    v0 = 0
+    for lo in range(0, pcol.numel(), step):
+        m = pmask[lo:lo + step]
+        bits = (m.view(torch.uint8)[..., None] & byte_bits) != 0
+        tile_i, cell = bits.reshape(m.shape[0], -1)[:, :cells].nonzero(
+            as_tuple=True)
+        vals = pval[v0:v0 + cell.numel()].double()
+        v0 += cell.numel()
+        xv = x[pcol[lo:lo + step].long()[tile_i] * t + cell % t].double()
+        out.index_add_(0, owner[lo:lo + step][tile_i] * t + cell // t,
+                       vals * xv)
+    return out.to(torch.float32)
+
+
 def block_csr_spmv_ref(tiles, tile_col, row_ptr, x, *, tile: int):
-    """Plain PyTorch version of :func:`block_csr_spmv` (same arguments,
-    same result, any tile size, any device): every row's slots expanded
-    into one flat list, their tile-vector products taken in float64 and
-    folded into the rows with ``index_add_``, as many slots at a time as
-    hold ``_SPMV_REF_CELLS`` tile cells; the float64 sum is rounded to
-    float32 once, as the kernel does."""
+    """The dense definition of :func:`block_csr_spmv` (same arguments,
+    same result, any tile size, any device), the tests' oracle: every
+    row's slots expanded into one flat list, their tile-vector products
+    taken in float64 and folded into the rows with ``index_add_``, as many
+    slots at a time as hold ``_SPMV_REF_CELLS`` tile cells; the float64
+    sum is rounded to float32 once, as the kernel does."""
     t = tile
     dev = x.device
     n_rows = row_ptr.shape[0] - 1

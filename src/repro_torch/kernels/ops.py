@@ -7,14 +7,15 @@ they lie on: CUDA tensors reach the hand-written kernels
 ``csrc/gla_chunk.cu``), CPU tensors their plain PyTorch versions, so a
 caller asks for the CPU by passing CPU tensors.  Arrays that are not
 tensors (numpy, as the JAX wrappers accept) go to the GPU
-(:func:`repro_torch.utils.resolve_device`); ``spmv``'s structure goes
-wherever its vector lies.
+(:func:`repro_torch.utils.resolve_device`); ``spmv``'s structure is
+packed once and its packed form goes wherever its vector lies.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import csr_spmv
 from repro_torch.kernels.csr_spmv import (  # noqa: F401
     block_csr_combine, block_csr_spmv, build_block_csr, build_tile_struct,
 )
@@ -32,15 +33,32 @@ def _tensor(a, device=None):
         resolve_device(device))
 
 
+PACKED_KEY = "packed"             # where spmv keeps a structure's packed form
+
+
 def spmv(graph_blocks: dict, x, *, tile: int) -> torch.Tensor:
     """Block-CSR SpMV over a prebuilt ``build_block_csr`` structure (its
-    arrays numpy or tensors); they go to x's device."""
+    arrays numpy or tensors), on x's device.  The first call packs the
+    structure (:func:`csr_spmv.pack_block_csr`: numpy arrays on the CPU,
+    tensors where they lie) and keeps the packed form in
+    ``graph_blocks[PACKED_KEY]``, moved to x's device; later calls read
+    only the packed form, so the structure must not change after the
+    first call.  CUDA vectors launch the packed kernel, CPU vectors run
+    its plain version."""
     x = _tensor(x).to(torch.float32)
-    to = lambda a, dtype: _tensor(a, x.device).to(x.device, dtype)
-    return block_csr_spmv(
-        to(graph_blocks["tiles"], torch.float32),
-        to(graph_blocks["tile_col"], torch.int32),
-        to(graph_blocks["row_ptr"], torch.int32), x, tile=tile)
+    packed = graph_blocks.get(PACKED_KEY)
+    if packed is None:
+        t = lambda k: _tensor(graph_blocks[k], "cpu")
+        packed = csr_spmv.pack_block_csr(t("tiles"), t("tile_col"),
+                                         t("row_ptr"), tile=tile)
+    elif packed["tile"] != tile:
+        raise ValueError(f"the structure was packed for tile "
+                         f"{packed['tile']}, not {tile}")
+    if packed["pval"].device != x.device:
+        packed = {k: v.to(x.device) if k in csr_spmv.PACKED_ARRAYS else v
+                  for k, v in packed.items()}
+    graph_blocks[PACKED_KEY] = packed
+    return csr_spmv.block_csr_spmv_packed(packed, x)
 
 
 def attention(q, k, v, *, causal=True, window=0, softcap=0.0):

@@ -17,7 +17,9 @@ Two hand-written CUDA kernels carry the per-element work
 * :func:`byte_stencil` — per byte, the LEB128 terminator flag and the value
   of the varint ending there (replaces the Pallas ``_byte_stencil``);
 * :func:`blocked_scan` — inclusive int32 scan, ``add`` (wrapping) or
-  running ``max`` seeded with 0 (replaces the Pallas ``blocked_scan``).
+  running ``max`` seeded with 0 (replaces the Pallas ``blocked_scan``):
+  one pass with decoupled look-back, so a call is one memset of its
+  status words and one kernel, or the kernel alone within one tile.
 
 Each wrapper launches its kernel on a CUDA tensor (and counts the launch
 in ``.launches``) or raises; on a CPU tensor it runs the plain PyTorch
@@ -43,13 +45,15 @@ wraps.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 SCAN_MODES = ("add", "max")
 _SOURCE = "varint.cu"
-_SCAN_TILE = 2048                 # elements per block of the scan kernel
+_SCAN_TILE = 4096                 # elements per block of the scan kernel
+_I64 = torch.int64
 _I32 = torch.int32
 
 
@@ -67,6 +71,8 @@ def _library():
         lib.byte_stencil_launch.argtypes = [ll, vp, vp, vp, vp]
         lib.byte_stencil_launch.restype = ci
         lib.scan_tile_size.restype = ci
+        lib.scan_scratch_words.argtypes = [ll]
+        lib.scan_scratch_words.restype = ll
         lib.varint_error_string.argtypes = [ci]
         lib.varint_error_string.restype = ctypes.c_char_p
         if lib.scan_tile_size() != _SCAN_TILE:
@@ -81,6 +87,17 @@ def _check_launch(lib, code, name):
         raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
 
 
+def _on_device(device):
+    """The CUDA device context for ``device``, entered only when it is not
+    the current device already.  The scan runs tens of thousands of times
+    per OOC run at a few microseconds of device time each, so its host
+    path is what a call costs: it skips the context where it can and
+    takes the raw stream handle rather than building a Stream object."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def _check_1d(x, dtype, name):
     if x.dim() != 1 or x.dtype != dtype:
         raise ValueError(f"{name}: expected a 1-d {dtype} tensor, got "
@@ -92,15 +109,11 @@ def _check_1d(x, dtype, name):
 # ---------------------------------------------------------------------------
 
 def scan_scratch_len(n: int) -> int:
-    """int32 scratch the scan kernel needs for ``n`` elements: the tile
-    aggregates of every level of the recursion."""
-    total, m = 0, n
-    while True:
-        nb = -(-m // _SCAN_TILE)
-        if nb <= 1:
-            return total
-        total += nb
-        m = nb
+    """64-bit scratch words the scan kernel needs for ``n`` elements: the
+    tile counter and one status word per tile of the one level, or none
+    when ``n`` fits in one tile (the library's ``scan_scratch_words``)."""
+    tiles = -(-n // _SCAN_TILE)
+    return tiles + 1 if tiles > 1 else 0
 
 
 def blocked_scan(x: torch.Tensor, *, mode: str = "add") -> torch.Tensor:
@@ -109,8 +122,8 @@ def blocked_scan(x: torch.Tensor, *, mode: str = "add") -> torch.Tensor:
     mode "add": cumulative sum, wrapping in int32; mode "max": running
     maximum seeded with 0 (so ``max(0, x[0..i])``).  A CUDA tensor
     launches the kernel (counted in ``blocked_scan.launches`` and
-    ``blocked_scan.launches_by_mode``); a CPU tensor runs
-    :func:`blocked_scan_ref`."""
+    ``blocked_scan.launches_by_mode``), after zeroing its status words on
+    the same stream; a CPU tensor runs :func:`blocked_scan_ref`."""
     if mode not in SCAN_MODES:
         raise ValueError(f"unknown scan mode {mode!r}")
     _check_1d(x, _I32, "blocked_scan")
@@ -124,14 +137,15 @@ def blocked_scan(x: torch.Tensor, *, mode: str = "add") -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0:
         return out
-    scratch = torch.empty(max(1, scan_scratch_len(n)), dtype=_I32,
-                          device=x.device)
+    words = scan_scratch_len(n)
+    scratch = (torch.empty(words, dtype=_I64, device=x.device) if words
+               else None)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.blocked_scan_launch(SCAN_MODES.index(mode), n,
-                                       x.data_ptr(), out.data_ptr(),
-                                       scratch.data_ptr(), stream)
+    with _on_device(x.device):
+        code = lib.blocked_scan_launch(
+            SCAN_MODES.index(mode), n, x.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(x.device.index))
     _check_launch(lib, code, "blocked_scan")
     blocked_scan.launches += 1
     blocked_scan.launches_by_mode[mode] += 1

@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.core import codec
 from repro_torch.kernels import varint as vk
+from torchhelp import emulate_lookback_scan
 
 INT32_MAX = 2**31 - 1
 
@@ -127,6 +128,30 @@ def test_blocked_scan_rejects_bad_input():
     assert vk.blocked_scan(torch.zeros(0, dtype=torch.int32)).numel() == 0
 
 
+@pytest.mark.parametrize("n,words", [(1, 0), (4096, 0), (4097, 3),
+                                     (989_695, 243), (2**24 + 3, 4098)])
+def test_scan_scratch_len_is_the_one_levels_status_words(n, words):
+    """One 64-bit status word per tile of 4,096 elements plus the tile
+    counter, and none when the input fits in one tile (the kernel then
+    runs alone, without look-back)."""
+    assert vk._SCAN_TILE == 4096
+    assert vk.scan_scratch_len(n) == words
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mode", ["add", "max"])
+def test_lookback_emulation_matches_plain_version(mode, seed):
+    """The kernel's look-back (32 predecessors a window, folded up to the
+    nearest inclusive prefix) with the blocks' progress interleaved at
+    random, on tiles of 4 so that windows chain; sums wrap in int32."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-50, 2**30, 1500).astype(np.int32)
+    out, windows = emulate_lookback_scan(x, mode=mode, tile=4, seed=seed)
+    np.testing.assert_array_equal(
+        out, vk.blocked_scan_ref(torch.from_numpy(x), mode=mode).numpy())
+    assert windows > 1
+
+
 # ---------------------------------------------------------------------------
 # The restores vs the JAX functions and the codec
 # ---------------------------------------------------------------------------
@@ -230,12 +255,16 @@ def cuda_device():
     return torch.device("cuda")
 
 
+SCAN_SIZES = [1, 31, 2047, 2048, 2049, 4095, 4096, 4097, 989_695,
+              5_000_000, 2**24 + 3]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2047, 2048, 2049, 5_000_000])
+@pytest.mark.parametrize("n", SCAN_SIZES)
 @pytest.mark.parametrize("mode", ["add", "max"])
 def test_cuda_scan_matches_plain_version(cuda_device, n, mode):
-    """Sizes across the tile edge and deep enough for three levels of the
-    aggregate recursion; values that wrap the int32 sum."""
+    """Sizes across the tile edge and up to 4,097 tiles of look-back;
+    values that wrap the int32 sum.  Add mode also equals torch.cumsum."""
     rng = np.random.default_rng(n)
     x = torch.from_numpy(rng.integers(-50, 2**30, n).astype(np.int32))
     before = vk.blocked_scan.launches
@@ -243,6 +272,73 @@ def test_cuda_scan_matches_plain_version(cuda_device, n, mode):
     torch.cuda.synchronize()
     assert vk.blocked_scan.launches == before + 1
     assert torch.equal(out.cpu(), vk.blocked_scan_ref(x, mode=mode))
+    if mode == "add":
+        assert torch.equal(out, torch.cumsum(x.to(cuda_device), 0,
+                                             dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", [1, 3])
+@pytest.mark.parametrize("mode", ["add", "max"])
+def test_cuda_scan_on_unaligned_views(cuda_device, start, mode):
+    """Views that start 4 or 12 bytes into their storage take the kernel's
+    element-wise path instead of its 16-byte staged one."""
+    rng = np.random.default_rng(start)
+    x = torch.from_numpy(rng.integers(-50, 2**30, 2**20 + 5).astype(np.int32))
+    view = x.to(cuda_device)[start:]
+    assert view.data_ptr() % 16
+    out = vk.blocked_scan(view, mode=mode)
+    assert torch.equal(out.cpu(), vk.blocked_scan_ref(x[start:], mode=mode))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_scratch_matches_the_library(cuda_device):
+    lib = vk._library()
+    for n in SCAN_SIZES + [4096, 4097, 2**31]:
+        assert lib.scan_scratch_words(n) == vk.scan_scratch_len(n), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["add", "max"])
+def test_cuda_scan_back_to_back_on_two_streams(cuda_device, mode):
+    """Calls queued back to back, without a sync between them, on the
+    default stream and on a side stream: each call zeroes its own status
+    words, so nothing of the call before leaks into the next (the inputs
+    differ in sign and size, so a stale prefix would show)."""
+    rng = np.random.default_rng(11)
+    xs = [torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32))
+          for lo, hi, n in ((0, 2**30, 989_695), (-2**30, 0, 989_695),
+                            (-50, 2**30, 70_000), (0, 9, 2**21 + 5))]
+    side = torch.cuda.Stream(cuda_device)
+    for stream in (torch.cuda.current_stream(cuda_device), side):
+        with torch.cuda.stream(stream):
+            dev = [x.to(cuda_device) for x in xs]
+            outs = [vk.blocked_scan(d, mode=mode) for d in dev for _ in
+                    range(2)]
+        stream.synchronize()
+        for i, out in enumerate(outs):
+            assert torch.equal(out.cpu(),
+                               vk.blocked_scan_ref(xs[i // 2], mode=mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 989_695])
+def test_cuda_scan_is_one_kernel_and_one_memset(cuda_device, n):
+    """The profiler's device events of one call: one scan kernel, and one
+    memset exactly when the input spans more than one tile."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones(n, dtype=torch.int32, device=cuda_device)
+    vk.blocked_scan(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vk.blocked_scan(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [m for m in names if "scan_kernel" in m]
+    memsets = [m for m in names if "emset" in m]
+    assert len(kernels) == 1, names
+    assert len(memsets) == (0 if n <= vk._SCAN_TILE else 1), names
 
 
 @pytest.mark.cuda

@@ -265,3 +265,98 @@ def emulate_attention_roundings(q, k, v, *, causal, window, softcap, pv,
     elif pv != "bf16":
         raise ValueError(f"pv is 'split' or 'bf16', not {pv!r}")
     return (o / p.sum(-1, keepdim=True)).bfloat16()
+
+
+def emulate_spmv_packed(packed, x):
+    """``csrc/block_csr_spmv.cu``'s walk over the packed form, lane by lane
+    in plain Python: per row block, its live tiles 32 at a time (one per
+    lane), each lane's first value from ``pvoff[r]`` plus the exclusive
+    scan of the lanes' popcounts, its set bits in cell order, and the
+    products summed in float64 per (lane, tile row), then over the lanes
+    and rounded once.  Returns out [R*T] float32 (numpy), so a test can
+    hold the kernel's offset arithmetic against the plain version."""
+    t, n_rows = packed["tile"], packed["n_rows"]
+    prow, pcol, pvoff = (packed[k].tolist() for k in ("prow", "pcol",
+                                                      "pvoff"))
+    masks = [[w & (2**64 - 1) for w in row]
+             for row in packed["pmask"].tolist()]
+    pval = packed["pval"].double().tolist()
+    xs = np.asarray(x, np.float64)
+    out = np.zeros(n_rows * t, np.float32)
+    for r in range(n_rows):
+        acc = np.zeros((32, t))
+        voff = pvoff[r]
+        for base in range(prow[r], prow[r + 1], 32):
+            lanes = range(base, min(base + 32, prow[r + 1]))
+            cnt = [sum(bin(w).count("1") for w in masks[i]) for i in lanes]
+            first = np.cumsum([0] + cnt[:-1])
+            for lane, i in enumerate(lanes):
+                v = voff + int(first[lane])
+                for k, word in enumerate(masks[i]):
+                    for b in range(64):
+                        if word >> b & 1:
+                            c = 64 * k + b
+                            acc[lane, c // t] += pval[v] * xs[
+                                pcol[i] * t + c % t]
+                            v += 1
+            voff += sum(cnt)
+        out[r * t:(r + 1) * t] = acc.sum(0)
+    return out
+
+
+def emulate_lookback_scan(x, *, mode, tile, seed):
+    """``csrc/varint.cu``'s single-pass scan in plain Python, with the
+    blocks' progress interleaved at random: tiles take their index in
+    order, in bursts, and publish their aggregate; a published tile (the
+    newest or a random one) then looks back 32 predecessors at a time
+    (each already published, some with only an aggregate), folds them up
+    to the nearest inclusive prefix and publishes its own.  Returns the inclusive scan (int32 numpy) and the
+    largest number of windows one look-back read."""
+    rng = np.random.default_rng(seed)
+    comb = ((lambda a, b: (a + b + 2**31) % 2**32 - 2**31) if mode == "add"
+            else max)
+    x = np.asarray(x, np.int64)
+    n_tiles = -(-x.size // tile)
+    agg, flag, value, prefix = [], [], [], [0] * n_tiles
+    for s in range(n_tiles):
+        a = 0
+        for v in x[s * tile:(s + 1) * tile]:
+            a = comb(a, int(v))
+        agg.append(a)
+    pending, started, windows = [], 0, 0
+    while started < n_tiles or pending:
+        # a burst of up to 80 tiles starts, then some published tiles
+        # finish, newest first half the time, so runs of unfinished
+        # predecessors build up
+        for _ in range(min(n_tiles - started, int(rng.integers(0, 80)))):
+            flag.append("P" if started == 0 else "A")
+            value.append(agg[started])
+            if started:
+                pending.append(started)
+            started += 1
+        if not pending:
+            continue
+        s = pending.pop(-1 if rng.random() < 0.5
+                        else rng.integers(len(pending)))
+        exclusive, pred, reads = 0, s - 1, 0
+        while True:
+            reads += 1
+            window = [(flag[p], value[p]) if p >= 0 else ("P", 0)
+                      for p in range(pred, pred - 32, -1)]
+            stop = next((i for i, (f, _) in enumerate(window) if f == "P"),
+                        31)
+            for _, v in window[:stop + 1]:
+                exclusive = comb(exclusive, v)
+            if window[stop][0] == "P":
+                break
+            pred -= 32
+        windows = max(windows, reads)
+        prefix[s] = exclusive
+        flag[s], value[s] = "P", comb(exclusive, agg[s])
+    out = np.empty(x.size, np.int64)
+    for s in range(n_tiles):
+        acc = prefix[s]
+        for i in range(s * tile, min((s + 1) * tile, x.size)):
+            acc = comb(acc, int(x[i]))
+            out[i] = acc
+    return out.astype(np.int32), windows
