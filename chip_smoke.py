@@ -44,8 +44,9 @@ OOC (fully out of core: ``executor="ooc"``, ``block_csr``, chunks decoded
 on the card).  It
   * builds the forward and reversed chunk stores of the same graph in a
     temporary directory under ``.smoke_tmp/`` (removed at exit);
-  * decodes every chunk of the forward store in every representation it
-    stores on the card and with the host codec, and requires bit-equality;
+  * decodes every chunk of both stores in every representation it stores
+    on the card through the fused decode (``chunk_decode``, one chunk an
+    item) and with the host codec, and requires bit-equality;
   * holds the varint stencil and both scan modes against their plain
     versions (bit-equal) on the largest chunk's streams and on one long
     stream (partition 1's whole dst-residue section), and times them
@@ -54,9 +55,11 @@ on the card).  It
     then sweeps both scan modes over 2^10, 2^16, 2^20 and 2^24 seeded
     elements (bit-equal, add also to ``torch.cumsum``), timed the same
     way beside ``torch.cumsum`` / ``torch.cummax``;
-  * runs the four algorithms with the launch counts of all three kernels
-    set to 0 just before each and read just after (each must have run),
-    and requires every chunk read to have been decoded on the card, the
+  * runs the four algorithms with the launch counts of the combine, the
+    fused decode, the stencil and the scans set to 0 just before each and
+    read just after (the combine and the fused decode must have run, at
+    most two decode launches per item, the stencil and the scans not at
+    all), and requires every chunk read to have been decoded on the card, the
     measured I/O to equal the model, the values to equal LOCAL's (BFS,
     SSSP, WCC bit for bit, PageRank within 1e-5) and the oracles', every
     modeled counter to equal LOCAL's (rtol 1e-5: LOCAL sums its counters
@@ -65,6 +68,11 @@ on the card).  It
     of the run — one streamed batch of the all-active first iteration,
     its ragged rows and value tiles built on the card — against its plain
     version with LOCAL's tolerances, and times it as on LOCAL;
+  * replays the largest streamed item of each algorithm's run through the
+    fused decode and its plain version on the card (bit-equal), and times
+    it: the call (CUDA events around the copy from page-locked memory and
+    the decode), the two kernels alone (``torch.profiler``) and the plain
+    version, beside the byte bound (staged bytes in, 16 B per edge out);
   * runs BFS once more with the host decode: values and counters
     bit-identical except the device-decoded chunk count, which is 0.
 
@@ -129,8 +137,12 @@ computes the same function, that call:
     q / k / v) at RWKV6-1.6B widths (32 heads of 64, bonus u) and
     Zamba2-1.2B's Mamba2 (64 heads, state 64, include_current, a per-head
     decay): y within 2e-2 and the float32 state within 1e-4 of the plain
-    version; bound: the bytes, which bind over the least work counted
-    (``gla_ops_ms``; the kernel's own chunked form is printed beside it).
+    version, through the tensor-core route (sub-chunks of 16, three
+    kernels, whose SASS must hold ``HMMA``); and float32 q / k / v at
+    RWKV6-1.6B widths through the CUDA-core route, y and state within
+    1e-4.  Bound: the larger of the bytes and the lesser work of the
+    chunked and the sub-chunked form (``gla_ops_ms``, products at the
+    inputs' rate; both printed).
 ``--scale`` below 21 shrinks the spmv graph with the main one, and the
 sequences and the GLA batch by the same factor (heads and widths stay).
 
@@ -161,13 +173,14 @@ KERNEL_SOURCE = "block_csr_combine.cu"
 TPU_KERNEL = "src/repro/kernels/csr_spmv.py:203"
 TPU_KERNEL_MQ = "src/repro/kernels/csr_spmv.py:354"
 VARINT_SOURCE = "varint.cu"
+DECODE_SOURCE = "chunk_decode.cu"
 TPU_SCAN = "src/repro/kernels/varint.py:88"
 TPU_STENCIL = "src/repro/kernels/varint.py:159"
 CSRC = "src/repro_torch/kernels/csrc/"
 TPU_SPMV = "src/repro/kernels/csr_spmv.py:79"
 TPU_FLASH = "src/repro/kernels/flash_attention.py:75"
 TPU_GLA = "src/repro/kernels/gla_chunk.py:76"
-SOURCES = (KERNEL_SOURCE, VARINT_SOURCE, "block_csr_spmv.cu",
+SOURCES = (KERNEL_SOURCE, VARINT_SOURCE, DECODE_SOURCE, "block_csr_spmv.cu",
            "flash_attention.cu", "gla_chunk.cu")
 DEVICE = "cuda"
 LIBRARY_CALLS = {
@@ -229,12 +242,15 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20):
+def device_ms(fn, reps=20, split=()):
     """(mean device milliseconds per call of ``fn``, device operations per
-    call): the summed durations of the kernels and memsets the profiler
-    records on the card over ``reps`` calls.  Where a call's host path
-    takes longer than its device work, :func:`cuda_ms` measures the host;
-    this measures the card alone."""
+    call, {name: (milliseconds, operations) per call}) from one profiler
+    session over ``reps`` calls: the summed durations of the kernels,
+    copies and memsets it records on the card, and the same for the events
+    whose name holds each name of ``split`` ((None, 0) for a name it
+    recorded no event of).  Where a call's host path takes longer than its
+    device work, :func:`cuda_ms` measures the host; this measures the card
+    alone."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -247,8 +263,13 @@ def device_ms(fn, reps=20):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ops:
         raise AssertionError("the profiler recorded no device operation")
-    return (sum(e.time_range.elapsed_us() for e in ops) / reps / 1e3,
-            len(ops) / reps)
+    per_call = lambda evs: (sum(e.time_range.elapsed_us() for e in evs)
+                            / reps / 1e3, len(evs) / reps)
+    by_name = {}
+    for name in split:
+        evs = [e for e in ops if name in e.name]
+        by_name[name] = per_call(evs) if evs else (None, 0)
+    return (*per_call(ops), by_name)
 
 
 def bound(bytes_, ops_ms):
@@ -689,9 +710,14 @@ def store_stats(store):
 
 def decode_check(store, device):
     """Every chunk, every representation it stores: the decode on the card
-    bit-equal to the host codec.  Returns the number of decodes checked."""
+    (the fused decode, one chunk an item) bit-equal to the host codec.
+    Returns the number of decodes checked and the fused decode's
+    launches."""
     import torch
     from repro_torch.core import REP_CSR, REP_DCSR, REP_DCSR_DELTA
+    from repro_torch.kernels import chunk_decode, varint
+    chunk_decode.reset_launches()
+    varint.reset_launches()
     checked = 0
     for q, p, k in store.nonempty_chunks():
         lay = store._layout_of(q)
@@ -711,7 +737,90 @@ def decode_check(store, device):
             checked += 1
     torch.cuda.synchronize()
     store.reset_io_counters()
-    return checked
+    launches = chunk_decode.decode_item.launches
+    if not 0 < launches <= 2 * checked or varint.byte_stencil.launches \
+            or varint.blocked_scan.launches:
+        raise AssertionError(f"decode check: {launches} fused decode "
+                             f"launches for {checked} chunks, or the "
+                             "per-chunk chain ran")
+    return checked, launches
+
+
+@contextlib.contextmanager
+def recorded_decode(device):
+    """Record the largest item (most edges) the fused decode takes inside
+    the block: its staged bytes in page-locked host memory and its plan,
+    for a replay at the main path's shapes."""
+    import torch
+    from repro_torch.kernels import chunk_decode
+    real = chunk_decode.decode_item
+    seen = {}
+
+    def recording(staged, plan):
+        if not seen or plan.n_edges > seen["plan"].n_edges:
+            host = torch.empty(plan.nbytes, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(staged[:plan.nbytes])   # zero status: not yet run
+            seen.update(host=host, plan=plan)
+        return real(staged, plan)
+
+    # decode_item counts through its module's global name, which is the
+    # recording wrapper inside the block: the counts go there and back
+    for attr in ("launches", "calls"):
+        setattr(recording, attr, getattr(real, attr))
+    chunk_decode.decode_item = recording
+    try:
+        yield seen
+    finally:
+        chunk_decode.decode_item = real
+        for attr in ("launches", "calls"):
+            setattr(real, attr, getattr(recording, attr))
+
+
+def check_decode_item(host, plan, device, reps=20):
+    """The fused decode on one recorded item against its plain version on
+    the card (bit-equal), and its times: the call (CUDA events around the
+    copy from page-locked memory and the two launches), the kernels alone
+    and the whole call on the card (``torch.profiler``), the plain
+    version; beside the byte bound (the staged bytes read once, 16 B per
+    edge written once)."""
+    import torch
+    from repro_torch.kernels import chunk_decode
+    staged = torch.empty(plan.nbytes, dtype=torch.uint8, device=device)
+
+    def call():
+        staged.copy_(host, non_blocking=True)
+        return chunk_decode.decode_item(staged, plan)
+
+    out = call()
+    ref = chunk_decode.decode_item_ref(host.to(device), plan)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("src", "part", "dst", "data"), out, ref):
+        if o.dtype != r.dtype or not torch.equal(o, r):
+            raise AssertionError(f"fused decode: {name} differs from the "
+                                 "plain version")
+    del out, ref
+    ms = cuda_ms(call, reps)
+    card_ms, card_ops, split = device_ms(
+        call, reps, split=("sections_kernel", "edges_kernel"))
+    by_kernel = {name: ms for name, (ms, _) in split.items()}
+    kernel_ms = sum(ms for ms, _ in split.values() if ms is not None)
+    kernels = sum(n for _, n in split.values())
+    if not kernels:
+        raise AssertionError("fused decode: the profiler recorded neither "
+                             "kernel")
+    plain_ms = cuda_ms(lambda: chunk_decode.decode_item_ref(staged, plan), 3)
+    bytes_ = plan.nbytes + 16 * plan.n_edges
+    bound_ms, bound_by = bound(bytes_, 0.0)
+    return dict(edges=plan.n_edges, chunks=plan.n_chunks,
+                tiles=plan.n_tiles, staged_bytes=plan.nbytes,
+                max_abs_err=0.0, ms=ms, device_ms=kernel_ms,
+                kernels_per_call=kernels, device_ms_by_kernel=by_kernel,
+                card_ms=card_ms,
+                card_ops_per_call=card_ops, plain_ms=plain_ms,
+                library_ms=None, library="none: no single PyTorch call "
+                "decodes LEB128", bound_ms=bound_ms, bound_by=bound_by,
+                bytes=bytes_)
 
 
 def varint_inputs(store, largest, device):
@@ -787,7 +896,7 @@ def check_varint_kernel(vk, name, x):
     ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(plain, 5)
     library_ms = None if library is None else cuda_ms(library, 20)
-    dev_ms, dev_ops = device_ms(kern)
+    dev_ms, dev_ops, _ = device_ms(kern)
     lib_dev_ms = None if library is None else device_ms(library)[0]
     bytes_ = x.numel() * per_elem
     bound_ms, bound_by = bound(bytes_, 0.0)
@@ -828,7 +937,7 @@ def scan_sweep(vk, device):
             kern = lambda: vk.blocked_scan(x, mode=mode)
             ms = cuda_ms(kern, 20)
             library_ms = cuda_ms(library, 20)
-            dev_ms, dev_ops = device_ms(kern)
+            dev_ms, dev_ops, _ = device_ms(kern)
             bound_ms, bound_by = bound(8 * n, 0.0)
             emit(phase="scan_sweep", mode=mode, elements=n,
                  tiles=-(-n // vk._SCAN_TILE), ms=ms, library_ms=library_ms,
@@ -863,7 +972,7 @@ def main(argv=None) -> int:
     from repro_torch.core import algorithms as alg
     from repro_torch.data.graphs import rmat_graph
     from repro_torch.kernels import (
-        build, csr_spmv, flash_attention, gla_chunk, varint,
+        build, chunk_decode, csr_spmv, flash_attention, gla_chunk, varint,
     )
 
     t_start = time.perf_counter()
@@ -888,6 +997,7 @@ def main(argv=None) -> int:
     csr_spmv._library()
     csr_spmv._spmv_library()
     varint._library()
+    chunk_decode._library()
     flash_attention._library()
     gla_chunk._library()
     ptxas = {}
@@ -896,20 +1006,25 @@ def main(argv=None) -> int:
         ptxas[src_name] = [ln.strip() for ln in log.read_text().splitlines()
                            if "registers" in ln or "spill" in ln
                            or "Performance Loss" in ln]
-    # the tensor-core attention route must compile to wgmma fed by TMA
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
-         "-sass", str(build.library_path("flash_attention.cu"))],
-        capture_output=True, text=True, check=True,
-        timeout=300).stdout.splitlines()
-    attention_sass = {op: sum(op in ln for ln in sass)
-                      for op in ("HGMMA", "UTMALDG")}
-    if not all(attention_sass.values()):
-        raise AssertionError(f"flash_attention.cu: no wgmma or TMA load in "
-                             f"its SASS ({attention_sass})")
+    def sass_counts(source, ops):
+        sass = subprocess.run(
+            [os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump"),
+             "-sass", str(build.library_path(source))],
+            capture_output=True, text=True, check=True,
+            timeout=300).stdout.splitlines()
+        counts = {op: sum(op in ln for ln in sass) for op in ops}
+        if not all(counts.values()):
+            raise AssertionError(f"{source}: its SASS lacks tensor-core or "
+                                 f"TMA instructions ({counts})")
+        return counts
+
+    # the tensor-core attention route must compile to wgmma fed by TMA, the
+    # GLA route to mma.sync
+    attention_sass = sass_counts("flash_attention.cu", ("HGMMA", "UTMALDG"))
+    gla_sass = sass_counts("gla_chunk.cu", ("HMMA",))
     emit(phase="kernel_build", seconds=time.perf_counter() - t0,
          sources=list(SOURCES), ptxas=ptxas,
-         flash_attention_sass=attention_sass)
+         flash_attention_sass=attention_sass, gla_chunk_sass=gla_sass)
 
     # -- 2b. the combine on balanced and unbalanced synthetic rows --------
     run_combine_balance(max(0, 21 - opts.scale))
@@ -1087,6 +1202,12 @@ def main(argv=None) -> int:
             name, VARINT_SOURCE, source_line,
             sum(v[key] for v in ooc["launches"].values()),
             ooc["kernel_rows"][key]))
+    # the fused decode: the largest item of the four OOC runs
+    biggest = max(ooc["decode_rows"].values(), key=lambda r: r["edges"])
+    table.append(kernel_row(
+        f"chunk_decode OOC largest item ({biggest['edges']} edges)",
+        DECODE_SOURCE, TPU_STENCIL,
+        sum(v["decode"] for v in ooc["launches"].values()), biggest))
     table.extend(ops_rows)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
@@ -1106,8 +1227,9 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
     import numpy as np
     import torch
     from repro_torch.core import ChunkStore, Engine, EngineConfig, executor
+    from repro_torch.core.chunkstore import StagingRing
     from repro_torch.core.engine import COUNTER_KEYS, MEASURED_PAIRS
-    from repro_torch.kernels import csr_spmv, varint
+    from repro_torch.kernels import chunk_decode, csr_spmv, varint
     dev = torch.device(DEVICE)
 
     # -- 5. the stores -------------------------------------------------------
@@ -1122,10 +1244,12 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
             largest = st["largest_chunk"]
 
     # -- 6. every chunk decoded on the card == the host codec ---------------
-    t0 = time.perf_counter()
-    checked = decode_check(stores["fwd"], dev)
-    emit(phase="decode_check", store="fwd", decodes_checked=checked,
-         seconds=time.perf_counter() - t0)
+    for name, store in stores.items():
+        t0 = time.perf_counter()
+        checked, decode_launches = decode_check(store, dev)
+        emit(phase="decode_check", store=name, decodes_checked=checked,
+             fused_decode_launches=decode_launches,
+             seconds=time.perf_counter() - t0)
 
     # -- 7. the varint kernels against their plain versions ------------------
     kernel_rows = {}
@@ -1142,7 +1266,7 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
 
     # -- 8. the OOC path, one algorithm at a time ----------------------------
     cfg = EngineConfig(executor="ooc", compute_backend="block_csr")
-    results, launches, combine_rows = {}, {}, {}
+    results, launches, combine_rows, decode_rows = {}, {}, {}, {}
     for name in ("pagerank", "bfs", "sssp", "wcc"):
         engines = [Engine(dg, fm, cfg, store=stores["fwd"])]
         if name == "wcc":
@@ -1154,21 +1278,19 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         arg = tuple(engines) if name == "wcc" else engines[0]
         torch.cuda.reset_peak_memory_stats()
         varint.reset_launches()
+        chunk_decode.reset_launches()
         csr_spmv.block_csr_combine.launches = 0
+        copies = StagingRing.copies
         t0 = time.perf_counter()
-        with recorded_combine(executor, largest=True) as largest_call:
+        with recorded_combine(executor, largest=True) as largest_call, \
+                recorded_decode(dev) as largest_item:
             vals, stats = drives[name](arg)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        counts = dict(combine=csr_spmv.block_csr_combine.launches,
-                      stencil=varint.byte_stencil.launches,
-                      add=varint.blocked_scan.launches_by_mode["add"],
-                      max=varint.blocked_scan.launches_by_mode["max"])
+        counts = decode_counts(combine=csr_spmv.block_csr_combine.launches)
+        counts["pinned_copies"] = StagingRing.copies - copies
         launches[name] = counts
-        for kname, cnt in counts.items():
-            if cnt < 1:
-                raise AssertionError(f"ooc {name}: kernel {kname} was "
-                                     "never launched")
+        check_decode_counts(counts, f"ooc {name}", "combine")
         peak = torch.cuda.max_memory_allocated()
         c = stats.counters
         if c["measured_chunks_device_decoded"] != c["measured_chunks_read"]:
@@ -1201,6 +1323,11 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
             combine_rows[mode] = check_kernel(
                 csr_spmv, largest_call["args"], largest_call["kw"], "ooc")
         del largest_call
+        decode_rows[name] = check_decode_item(largest_item["host"],
+                                              largest_item["plan"], dev)
+        emit(phase="kernel_vs_plain", kernel="chunk_decode",
+             input=f"ooc {name} largest item", **decode_rows[name])
+        del largest_item
         # warm: the same run again; its host wall split per iteration
         for e in engines:
             e.ooc_wall = dict.fromkeys(e.ooc_wall, 0.0)
@@ -1234,6 +1361,7 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
                                       device_decode=False),
                  store=stores["fwd"])
     varint.reset_launches()
+    chunk_decode.reset_launches()
     t0 = time.perf_counter()
     hv, hs = drives["bfs"](eng)
     host_s = time.perf_counter() - t0
@@ -1245,7 +1373,8 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         if hs.counters[k] != want:
             raise AssertionError(f"ooc bfs host decode: counter {k} = "
                                  f"{hs.counters[k]}, expected {want}")
-    if varint.byte_stencil.launches or varint.blocked_scan.launches:
+    if varint.byte_stencil.launches or varint.blocked_scan.launches or \
+            chunk_decode.decode_item.launches:
         raise AssertionError("the host decode launched decode kernels")
     emit(phase="ooc_host_decode", algorithm="bfs", seconds=host_s,
          iterations=hs.iterations, bit_identical=True)
@@ -1256,7 +1385,34 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
     serving = run_serving(stores["fwd"], g=g, source=source, dg=dg, fm=fm,
                           bfs_oracle=checks["bfs"])
     return dict(launches=launches, kernel_rows=kernel_rows,
-                combine_rows=combine_rows, serving=serving)
+                combine_rows=combine_rows, decode_rows=decode_rows,
+                serving=serving)
+
+
+def decode_counts(**extra):
+    """The decode's launch counts since they were last set to 0: the fused
+    decode's launches and calls (items), the stencil's and the scans'."""
+    from repro_torch.kernels import chunk_decode, varint
+    return dict(extra, decode=chunk_decode.decode_item.launches,
+                decode_items=chunk_decode.decode_item.calls,
+                stencil=varint.byte_stencil.launches,
+                add=varint.blocked_scan.launches_by_mode["add"],
+                max=varint.blocked_scan.launches_by_mode["max"])
+
+
+def check_decode_counts(counts, path, combine):
+    """The path's combine and fused decode ran, at most two decode
+    launches an item, and the per-chunk chain (stencil, scans) not at
+    all."""
+    if counts[combine] < 1 or counts["decode"] < 1:
+        raise AssertionError(f"{path}: the combine or the fused decode was "
+                             f"never launched ({counts})")
+    if counts["decode"] > 2 * counts["decode_items"]:
+        raise AssertionError(f"{path}: more than two decode launches an "
+                             f"item ({counts})")
+    if counts["stencil"] or counts["add"] or counts["max"]:
+        raise AssertionError(f"{path}: the per-chunk decode chain ran "
+                             f"({counts})")
 
 
 def run_serving(store, *, g, source, dg, fm, bfs_oracle):
@@ -1272,7 +1428,7 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
     )
     from repro_torch.core import algorithms as alg
     from repro_torch.core.engine import COUNTER_KEYS, MEASURED_PAIRS
-    from repro_torch.kernels import csr_spmv, varint
+    from repro_torch.kernels import chunk_decode, csr_spmv, varint
     n = g.num_vertices
     f32_max = np.float32(np.finfo(np.float32).max)
     sources = [int(v) for v in np.argsort(-g.out_degrees(),
@@ -1338,19 +1494,15 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
 
     def reset():
         varint.reset_launches()
+        chunk_decode.reset_launches()
         csr_spmv.block_csr_combine_mq.launches = 0
         eng.ooc_wall = dict.fromkeys(eng.ooc_wall, 0.0)
         torch.cuda.reset_peak_memory_stats()
 
     def read_counts(path):
-        counts = dict(combine_mq=csr_spmv.block_csr_combine_mq.launches,
-                      stencil=varint.byte_stencil.launches,
-                      add=varint.blocked_scan.launches_by_mode["add"],
-                      max=varint.blocked_scan.launches_by_mode["max"])
-        for kname, cnt in counts.items():
-            if cnt < 1:
-                raise AssertionError(f"serving {path}: kernel {kname} was "
-                                     "never launched")
+        counts = decode_counts(
+            combine_mq=csr_spmv.block_csr_combine_mq.launches)
+        check_decode_counts(counts, f"serving {path}", "combine_mq")
         return counts
 
     def check_io(c, path):
@@ -1484,20 +1636,22 @@ def kept_pairs(sq, skv, causal, window):
     return total
 
 
-def gla_ops_ms(bh, t, chunk, dk, dv, include_current, bonus, sub):
+def gla_ops_ms(bh, t, chunk, dk, dv, include_current, bonus, sub,
+               product_flops=BF16_FLOPS):
     """Time for the operations of a chunked GLA that forms the per-channel
     decays exp(lq_td - lc_sd) only for pairs (t, s) of one ``sub``-step
     sub-chunk and takes every other pair of the chunk as a matrix product.
-    ``sub = chunk`` counts this kernel's own chunked form
+    ``sub = chunk`` counts the CUDA-core route's chunked form
     (gla_chunk.py:43-67); ``sub = 16`` the sub-chunked form of
-    flash-linear-attention, whose work is the least the smoke counts.  Per
+    flash-linear-attention, the lesser work at the bf16 rate.  Per
     kept pair in a sub-chunk and channel a difference, an exponential, two
     products and a sum, and per step and channel the exponentials and
     scalings of q * exp(lq) and k * exp(l_last - lc) and the bonus
     diagonal (float32, 67 TFLOP/s); the matrix products (q * exp(lq)) S,
-    (k * ...)^T v, q k^T over the pairs across sub-chunks and A v (bf16
-    inputs, 989 TFLOP/s).  The two kinds of unit run side by side, so the
-    time is the larger of the two."""
+    (k * ...)^T v, q k^T over the pairs across sub-chunks and A v at
+    ``product_flops`` (bf16 inputs: 989 TFLOP/s; float32 inputs: 67).  The
+    two kinds of unit run side by side, so the time is the larger of the
+    two."""
     causal = chunk * (chunk + 1) // 2
     diag = (chunk // sub) * (sub * (sub + 1) // 2 if include_current
                              else sub * (sub - 1) // 2)
@@ -1506,7 +1660,7 @@ def gla_ops_ms(bh, t, chunk, dk, dv, include_current, bonus, sub):
     elementwise = n * (5 * diag * dk + 5 * chunk * dk + dk
                        + (3 * chunk * dk if bonus else 0))
     products = n * (4 * chunk * dk * dv + 2 * cross * dk + 2 * causal * dv)
-    return max(elementwise / F32_FLOPS, products / BF16_FLOPS) * 1e3
+    return max(elementwise / F32_FLOPS, products / product_flops) * 1e3
 
 
 def within(out, want, rtol, atol):
@@ -1556,6 +1710,20 @@ def flex_softcap(q, k, v, s, window, softcap):
                         block_mask=mask)
 
 
+def launched(counter_owner, fn):
+    """(fn(), launches): ``counter_owner.launches`` set to 0 just before
+    ``fn`` and read just after; raises unless it grew."""
+    import torch
+    counter_owner.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n_launch = counter_owner.launches
+    if n_launch < 1:
+        raise AssertionError(f"kernel_ops: {counter_owner.__name__} was "
+                             "never launched")
+    return out, n_launch
+
+
 def run_kernel_ops(scale):
     """Phase 10 of :func:`main`: ``ops.spmv``, ``ops.attention`` and
     ``ops.gla`` at full width, each call with its kernel's launch count set
@@ -1567,21 +1735,11 @@ def run_kernel_ops(scale):
     import numpy as np
     import torch
     from repro_torch.data.graphs import uniform_graph
-    from repro_torch.kernels import csr_spmv, flash_attention, gla_chunk
+    from repro_torch.kernels import csr_spmv, flash_attention
     from repro_torch.kernels import ops, ref
     dev = torch.device(DEVICE)
     cut = max(0, 21 - scale)
     rows = []
-
-    def launched(counter_owner, fn):
-        counter_owner.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        n_launch = counter_owner.launches
-        if n_launch < 1:
-            raise AssertionError(f"kernel_ops: {counter_owner.__name__} was "
-                                 "never launched")
-        return out, n_launch
 
     # -- 10a. block_csr_spmv: uniform graph, the main graph's size --------
     t0 = time.perf_counter()
@@ -1799,12 +1957,34 @@ def run_kernel_ops(scale):
         torch.cuda.empty_cache()
 
     # -- 10c. gla_chunked at RWKV6-1.6B and Zamba2-1.2B (Mamba2) widths ----
+    rows.extend(run_gla(cut, dev))
+    return rows
+
+
+def run_gla(cut, dev):
+    """The ``ops.gla`` calls of :func:`run_kernel_ops`: bf16 at RWKV6-1.6B
+    and Zamba2-1.2B (Mamba2) widths (the tensor-core route), and float32 at
+    RWKV6-1.6B widths (the CUDA-core route), each with its launch count set
+    to 0 just before it, its route checked, held against the plain
+    version, and timed.  Returns the kernel table's rows."""
+    import torch
+    from repro_torch.kernels import gla_chunk, ops
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
     batch = max(1, GLA_BATCH >> cut)
     steps = max(GLA_CHUNK, GLA_STEPS >> cut)
-    for model, (heads, dk, dv, include_current, bonus) in GLA_MODELS.items():
+    calls = (   # model, input dtype, the route it must take, y tolerance
+        ("rwkv6_1_6b", bf, "tensor_core", 2e-2),
+        ("zamba2_1_2b_mamba2", bf, "tensor_core", 2e-2),
+        ("rwkv6_1_6b", torch.float32, "cuda_core", 1e-4),
+    )
+    for model, dtype, want_route, ytol in calls:
+        heads, dk, dv, include_current, bonus = GLA_MODELS[model]
         bh = batch * heads
         rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-        q, k = (rand(bh, steps, dk).to(bf) for _ in range(2))
+        q, k = (rand(bh, steps, dk).to(dtype) for _ in range(2))
         v = rand(bh, steps, dv)
         if include_current:
             # Mamba2 (models/mamba2.py:95-107): w = -exp(A_log) * dt, one
@@ -1827,38 +2007,47 @@ def run_kernel_ops(scale):
             # RWKV6 (models/rwkv6.py:116-120): w = -exp(.), per channel
             w = -torch.exp(rand(bh, steps, dk))
             u = 0.3 * rand(bh, dk) if bonus else None
-        v = v.to(bf)
+        v = v.to(dtype)
+        gla_route = gla_chunk.route(dtype, GLA_CHUNK)
+        if gla_route != want_route:
+            raise AssertionError(f"gla {model} {dtype}: takes the "
+                                 f"{gla_route} route, not {want_route}")
         kw = dict(chunk=GLA_CHUNK, include_current=include_current)
         (y, state), n_launch = launched(
             gla_chunk.gla_chunked, lambda: ops.gla(q, k, v, w, u, **kw))
         plain = lambda: gla_chunk.gla_chunked_ref(q, k, v, w, u, **kw)
         yp, sp = plain()
-        err_y = check_close(f"gla {model} y", y, yp, 2e-2, 2e-2)
-        err_s = check_close(f"gla {model} state", state, sp, 1e-4, 1e-4)
+        label = f"{model} {str(dtype).removeprefix('torch.')}"
+        err_y = check_close(f"gla {label} y", y, yp, ytol, ytol)
+        err_s = check_close(f"gla {label} state", state, sp, 1e-4, 1e-4)
         del yp, sp
         ms = cuda_ms(lambda: ops.gla(q, k, v, w, u, **kw), 5)
         plain_ms = cuda_ms(plain, 1)
         bytes_ = (sum(a.numel() * a.element_size() for a in (q, k, v, w))
                   + (0 if u is None else u.numel() * 4)
                   + y.numel() * y.element_size() + state.numel() * 4)
-        chunked_ms, least_ms = (gla_ops_ms(
-            bh, steps, GLA_CHUNK, dk, dv, include_current, bonus, sub)
-            for sub in (GLA_CHUNK, GLA_SUB))
+        product_flops = BF16_FLOPS if dtype == bf else F32_FLOPS
+        chunked_ms, sub_ms = (gla_ops_ms(
+            bh, steps, GLA_CHUNK, dk, dv, include_current, bonus, sub,
+            product_flops) for sub in (GLA_CHUNK, GLA_SUB))
+        # at the float32 rate the chunked form is the lesser work
+        least_ms = min(chunked_ms, sub_ms)
         bound_ms, bound_by = bound(bytes_, least_ms)
         emit(phase="kernel_ops", call="ops.gla", model=model, batch=batch,
-             heads=heads, steps=steps, dk=dk, dv=dv, **kw,
-             bonus=u is not None, launches=n_launch,
+             dtype=str(dtype), route=gla_route, heads=heads, steps=steps,
+             dk=dk, dv=dv, **kw, bonus=u is not None, launches=n_launch,
              max_abs_err=err_y, y_max_abs=float(y.float().abs().max()),
-             y_tolerance=2e-2, state_max_abs_err=err_s,
+             y_tolerance=ytol, state_max_abs_err=err_s,
              state_tolerance=1e-4, kernel_ms=ms, plain_ms=plain_ms,
              library_ms=None, library="none: no single PyTorch call "
              "computes gated linear attention", bytes=bytes_,
              bound_ms=bound_ms, bound_by=bound_by,
              bytes_bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3,
-             least_ops_ms=least_ms, chunked_form_ops_ms=chunked_ms)
+             least_ops_ms=least_ms, chunked_form_ops_ms=chunked_ms,
+             subchunked_form_ops_ms=sub_ms)
         rows.append(kernel_row(
-            f"gla_chunked ops.gla {model} B={batch} T={steps}",
-            "gla_chunk.cu", TPU_GLA, n_launch, dict(
+            f"gla_chunked[{gla_route}] ops.gla {label} B={batch} "
+            f"T={steps}", "gla_chunk.cu", TPU_GLA, n_launch, dict(
                 max_abs_err=max(err_y, err_s), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)))
         del q, k, v, w, u, y, state, plain

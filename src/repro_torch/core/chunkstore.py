@@ -14,13 +14,16 @@ byte: a store or spill written by either package is read by the other.
   ``[pairs | idx | (dst, data) payload]`` with ``compression=False``), with
   the format decision baked into an atomically written JSON manifest
   (version 4: per-section CRC32s and a manifest self-checksum).
-* :class:`DeviceChunkDecoder` — the decode of a compressed chunk on the
-  engine's device through :mod:`repro_torch.kernels.varint`; the decoded
-  triple stays there for the combine.
+* :class:`DeviceChunkDecoder` — the decode of a prefetch item's
+  compressed chunks on the engine's device, staged in one page-locked
+  buffer (:class:`StagingRing`) and decoded by the two launches of
+  :mod:`repro_torch.kernels.chunk_decode`; the columns stay there for the
+  combine.
 * :class:`VertexSpill` — per-batch disk residence for the vertex state
   arrays plus the active bitmap, with per-batch CRC32 sidecars.
 * :class:`ChunkPrefetcher` — a thread that reads (and decodes) the chunks
-  of dst-batch *i+1* while the executor combines dst-batch *i*.
+  of dst-batch *i+1* while the executor combines dst-batch *i*, its
+  copies and kernels on a CUDA stream of its own.
 
 The ChunkSource contract (DESIGN.md §6): :class:`HBMChunkSource` serves the
 LOCAL executor from device tensors, :class:`DiskChunkSource` the OOC
@@ -535,10 +538,10 @@ class ChunkStore:
     def decode_chunk_device(self, q: int, p: int, k: int, rep: int,
                             index: bytes, payload: bytes, device=None):
         """Twin of :meth:`decode_chunk` on ``device`` (CUDA unless given;
-        compressed stores only): the varint expansion, pair-delta cumsums
-        and run restores run through :mod:`repro_torch.kernels.varint`, and
-        the (src, dst, data) triple is returned as tensors on that device —
-        bit-identical to the host decode."""
+        compressed stores only): the chunk goes through the fused decode
+        (:mod:`repro_torch.kernels.chunk_decode`) as an item of one, on the
+        current stream, and the (src, dst, data) triple is returned as
+        tensors on that device — bit-identical to the host decode."""
         dev = resolve_device(device)
         dec = self._device_decoders.get(dev)
         if dec is None:
@@ -590,66 +593,128 @@ class ChunkStore:
         return damage
 
 
-def _to_device(raw: bytes, dtype, device) -> torch.Tensor:
-    return torch.from_numpy(np.frombuffer(raw, dtype).copy()).to(device)
+class StagingRing:
+    """Reused host buffers for the copies of the prefetch path to the
+    card, page-locked when the device is CUDA, so that each copy runs
+    asynchronously on its stream.  A buffer is written again only after
+    the copy that read it has completed (its event); it grows to the
+    largest item staged.  ``copies`` counts the copies to the card, every
+    one of them from page-locked memory."""
+
+    copies = 0
+    SLOTS = 2     # one item being staged while the one before is copied
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._pinned = self.device.type == "cuda"
+        self._bufs = [None] * self.SLOTS
+        self._events = [None] * self.SLOTS
+        self._next = 0
+
+    def take(self, nbytes: int):
+        """(slot, uint8 host tensor of at least ``nbytes``) to fill."""
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+            self._events[i] = None
+        buf = self._bufs[i]
+        if buf is None or buf.numel() < nbytes:
+            size = max(nbytes, 2 * (0 if buf is None else buf.numel()),
+                       1 << 20)
+            buf = torch.empty(size, dtype=torch.uint8,
+                              pin_memory=self._pinned)
+            self._bufs[i] = buf
+        return i, buf
+
+    def to_device(self, slot: int, nbytes: int, stream) -> torch.Tensor:
+        """The first ``nbytes`` of the slot's buffer on the device: one
+        asynchronous copy on ``stream`` (CUDA), or the host buffer itself
+        (CPU: it is read before the slot comes round again)."""
+        host = self._bufs[slot][:nbytes]
+        if not self._pinned:
+            return host
+        if not host.is_pinned():
+            raise RuntimeError("the staging buffer is not page-locked")
+        with torch.cuda.stream(stream):
+            out = torch.empty(nbytes, dtype=torch.uint8, device=self.device)
+            out.copy_(host, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(stream)
+        self._events[slot] = ev
+        StagingRing.copies += 1
+        return out
 
 
 class DeviceChunkDecoder:
     """The decode of one compressed store's chunks on a torch device
-    (DESIGN.md §10).
+    (DESIGN.md §10), an item at a time through
+    :mod:`repro_torch.kernels.chunk_decode`.
 
-    Per call, the raw section bytes are copied to the device and the
-    varint / delta / run-expand steps of :mod:`repro_torch.kernels.varint`
-    run there; the exact-length (src, dst, data) triple stays on the
-    device for the combine — bit-identical to
-    :meth:`ChunkStore.decode_chunk`.  Every buffer is sized by its own
-    chunk.  (The reference padded each to the store's largest chunk so one
-    compiled program served all of them; at R-MAT scale 21 that chunk
-    holds 989,695 edges against a mean of ~44k.)
+    :meth:`decode_item` gathers an item's chunks — index and payload bytes
+    and their descriptor table — into one reused staging buffer
+    (page-locked on CUDA), copies it to the device in one asynchronous copy
+    on ``stream`` and launches the decode there (at most two kernels), and
+    returns the (src, part, dst, data) columns with an event recorded after
+    them: bit-identical to :meth:`ChunkStore.decode_chunk`, chunk after
+    chunk.  ``stream`` None means the caller's current stream.  On a CPU
+    device the same staged bytes go through the plain version.
     """
 
-    def __init__(self, store: ChunkStore, device):
+    def __init__(self, store: ChunkStore, device, *, stream=None):
         if not store.compression:
             raise ValueError(
                 f"device decode requires a compressed store; the store at "
                 f"{store.root} was built with compression=False")
-        from repro_torch.kernels import varint as vk
-        self._vk = vk
+        from repro_torch.kernels import chunk_decode
+        self._cd = chunk_decode
         self.store = store
         self.device = torch.device(device)
+        self.stream = stream
+        self._ring = StagingRing(self.device)
+
+    def chunk_bytes(self, q: int, p: int, k: int, rep: int, index: bytes,
+                    payload: bytes):
+        """The :class:`chunk_decode.ChunkBytes` of one chunk read."""
+        store = self.store
+        lay = store._layout_of(q)
+        vnb = int(lay.dstv_nb[p, k])
+        if rep not in (REP_CSR, REP_DCSR, REP_DCSR_DELTA):
+            raise ValueError(f"unknown chunk representation {rep!r}")
+        return self._cd.ChunkBytes(
+            rep=rep, part=p, n_e=int(lay.edges[p, k]),
+            nnz=int(lay.nnz[p, k]), v_src=int(store.part_sizes[p]),
+            base=k * store.batch_size, index=index,
+            residues=payload[:vnb],
+            data=None if store.values_elided else payload[vnb:])
+
+    def decode_item(self, q: int, k: int, reads):
+        """``reads``: [(p, rep, index, payload), ...] of one schedule item.
+        Returns (src, part, dst, data, ready): the columns on the device and
+        the CUDA event after their decode (None off CUDA)."""
+        cd = self._cd
+        chunks = [self.chunk_bytes(q, p, k, rep, index, payload)
+                  for p, rep, index, payload in reads]
+        plan = cd.plan_item(chunks)
+        slot, host = self._ring.take(plan.nbytes)
+        cd.write_item(plan, chunks, host.numpy())
+        if self.device.type != "cuda":
+            staged = self._ring.to_device(slot, plan.nbytes, None)
+            return (*cd.decode_item(staged, plan), None)
+        stream = self.stream or torch.cuda.current_stream(self.device)
+        staged = self._ring.to_device(slot, plan.nbytes, stream)
+        with torch.cuda.stream(stream):
+            cols = cd.decode_item(staged, plan)
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        return (*cols, ready)
 
     def decode(self, q: int, p: int, k: int, rep: int,
                index: bytes, payload: bytes):
-        vk = self._vk
-        store = self.store
-        dev = self.device
-        lay = store._layout_of(q)
-        n_e = int(lay.edges[p, k])
-        nnz = int(lay.nnz[p, k])
-        v_src = int(store.part_sizes[p])
-        vnb = int(lay.dstv_nb[p, k])
-        if rep == REP_CSR:
-            src, smask = vk.expand_csr_index(
-                _to_device(index, "<i4", dev), v_src, n_e, out_len=n_e)
-        elif rep in (REP_DCSR_DELTA, REP_DCSR):
-            if rep == REP_DCSR_DELTA:
-                pv = vk.varint_decode(_to_device(index, np.uint8, dev),
-                                      len(index), count=2 * nnz)
-                srcs, starts = vk.pair_delta_restore(pv)
-            else:
-                pairs = _to_device(index, "<i4", dev).reshape(-1, 2)
-                srcs, starts = pairs[:, 0], pairs[:, 1]
-            src, smask = vk.expand_dcsr_index(srcs, starts, nnz, n_e,
-                                              out_len=n_e)
-        else:
-            raise ValueError(f"unknown chunk representation {rep!r}")
-        res = vk.varint_decode(_to_device(payload[:vnb], np.uint8, dev), vnb,
-                               count=n_e)
-        dst = vk.dst_delta_restore(res, smask, k * store.batch_size, n_e)
-        if store.values_elided:
-            data = torch.ones(n_e, dtype=torch.float32, device=dev)
-        else:
-            data = _to_device(payload[vnb:], "<f4", dev)
+        """One chunk as an item of one: (src, dst, data) on the device,
+        ready on the current stream when ``stream`` is None."""
+        src, _, dst, data, _ = self.decode_item(
+            q, k, [(p, rep, index, payload)])
         return src, dst, data
 
 
@@ -1001,28 +1066,11 @@ class BatchWork:
     n_chunks: int
     n_device_chunks: int = 0   # chunks decoded on the device
     read_s: float = 0.0        # host wall seconds reading the chunk bytes
-    decode_s: float = 0.0      # host wall seconds decoding them
+    decode_s: float = 0.0      # host wall seconds staging and decoding them
+    ready: object = None       # CUDA event after the columns' last write
 
-
-def _assemble(q: int, k: int, decoded, on_device: bool,
-              device) -> BatchWork:
-    """Concatenate the per-chunk (src, dst, data) triples of one schedule
-    item — tensors from the device decode, or numpy arrays from the host
-    codec — into one :class:`BatchWork` of tensors on ``device``."""
-    parts = [p for p, _, _ in decoded]
-    cols = list(zip(*(t for _, t, _ in decoded)))      # srcs, dsts, datas
-    if on_device:
-        src, dst, data = (torch.cat(c) for c in cols)
-    else:
-        src, dst, data = (torch.from_numpy(np.concatenate(c)).to(device)
-                          for c in cols)
-    part = torch.repeat_interleave(
-        torch.tensor(parts, dtype=torch.int32),
-        torch.tensor([len(s) for s in cols[0]])).to(device)
-    return BatchWork(q=q, k=k, src=src, part=part, dst=dst, data=data,
-                     nbytes=sum(nb for _, _, nb in decoded),
-                     n_chunks=len(decoded),
-                     n_device_chunks=len(decoded) if on_device else 0)
+    def columns(self):
+        return self.src, self.part, self.dst, self.data
 
 
 class ChunkPrefetcher:
@@ -1039,9 +1087,19 @@ class ChunkPrefetcher:
     the pipeline shuts down, normally or early.  Worker exceptions
     re-raise in the consumer.
 
+    On a CUDA device the thread's copies and kernels run on a stream of
+    the prefetcher's own, each item staged in page-locked memory
+    (:class:`StagingRing`) and copied in one asynchronous copy; before an
+    item is yielded, the consumer's current stream waits on the item's
+    event and the columns are marked as used there (``record_stream``), so
+    the consumer's work on them orders after their decode and the caching
+    allocator does not hand their memory out early.
+
     ``compute_lock`` is an optional shared compute token held for each
-    host decode burst (never across a queue put/get).  ``device_decode`` decodes each chunk on ``device`` through
-    :class:`DeviceChunkDecoder`, outside the token; either way the work
+    host decode burst (never across a queue put/get).  ``device_decode``
+    decodes each item on ``device`` through :class:`DeviceChunkDecoder`
+    (the fused decode), outside the token; the host decode packs the
+    codec's columns into the staging buffer instead.  Either way the work
     items hold tensors on ``device``.
     """
 
@@ -1054,6 +1112,13 @@ class ChunkPrefetcher:
         self._schedule = schedule
         self._device_decode = bool(device_decode)
         self._device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self._device)
+                        if self._device.type == "cuda" else None)
+        if self._device_decode:
+            self._decoder = DeviceChunkDecoder(source.store, self._device,
+                                               stream=self._stream)
+        else:
+            self._ring = StagingRing(self._device)
         self._lock_ctx = token_ctx(compute_lock)
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
@@ -1075,28 +1140,54 @@ class ChunkPrefetcher:
     def _load(self, q: int, k: int, chunks) -> BatchWork:
         """Read and decode one schedule item.  The bytes are fetched
         first, outside the compute token; the host decode takes the token,
-        the device decode does not (it is a chain of kernel launches, not
-        a host-CPU burst)."""
+        the device decode does not (it stages the bytes and launches two
+        kernels, not a host-CPU burst)."""
         src = self._source
         t0 = time.perf_counter()
-        raw = [(p, rep, src.read_chunk_bytes(q, p, k, rep))
+        raw = [(p, rep, *src.read_chunk_bytes(q, p, k, rep))
                for p, rep in chunks]
         t1 = time.perf_counter()
+        nbytes = sum(r[4] for r in raw)
         if self._device_decode:
-            decoded = [(p, src.decode_chunk_device(q, p, k, rep, index,
-                                                   payload,
-                                                   device=self._device), nb)
-                       for p, rep, (index, payload, nb) in raw]
-            work = _assemble(q, k, decoded, True, self._device)
+            *cols, ready = self._decoder.decode_item(
+                q, k, [r[:4] for r in raw])
+            n_dev = len(raw)
         else:
             with self._lock_ctx:
                 decoded = [(p, src.decode_chunk(q, p, k, rep, index,
-                                                payload), nb)
-                           for p, rep, (index, payload, nb) in raw]
-                work = _assemble(q, k, decoded, False, self._device)
+                                                payload))
+                           for p, rep, index, payload, _ in raw]
+                cols, ready = self._stage_host(decoded)
+            n_dev = 0
+        work = BatchWork(q, k, *cols, nbytes=nbytes, n_chunks=len(raw),
+                         n_device_chunks=n_dev, ready=ready)
         work.read_s = t1 - t0
         work.decode_s = time.perf_counter() - t1
         return work
+
+    def _stage_host(self, decoded):
+        """The host codec's per-chunk (src, dst, data) arrays as one
+        [src | part | dst | data] int32 block: staged, copied to the device
+        in one copy, and split into the four columns."""
+        n = sum(len(t[0]) for _, t in decoded)
+        slot, host = self._ring.take(16 * n)
+        block = host[:16 * n].numpy().view(np.int32).reshape(4, n)
+        off = 0
+        for p, (s, d, w) in decoded:
+            e = off + len(s)
+            block[0, off:e], block[1, off:e] = s, p
+            block[2, off:e], block[3, off:e] = d, w.view(np.int32)
+            off = e
+        staged = self._ring.to_device(slot, 16 * n, self._stream)
+        cols = staged.view(torch.int32).view(4, n)
+        if self._stream is None:
+            cols = cols.clone()       # the host slot is written again
+            ready = None
+        else:
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return (cols[0], cols[1], cols[2],
+                cols[3].view(torch.float32)), ready
 
     def _run(self):
         try:
@@ -1135,6 +1226,11 @@ class ChunkPrefetcher:
                     return
                 if isinstance(item, BaseException):
                     raise item
+                if getattr(item, "ready", None) is not None:
+                    stream = torch.cuda.current_stream(self._device)
+                    stream.wait_event(item.ready)
+                    for col in item.columns():
+                        col.record_stream(stream)
                 yield item
         finally:
             self.close()

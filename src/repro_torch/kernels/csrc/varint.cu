@@ -47,8 +47,9 @@
 // 4 B per element (plus 8 B of status per tile).  Both are far below the
 // ridge point, so the design keeps accesses coalesced and, at the decode's
 // chunk sizes (a few thousand to a million elements), the launch count
-// low: a scan is one memset and one kernel.  Fusing a chunk's whole decode
-// into one or two launches is later work.
+// low: a scan is one memset and one kernel.  The OOC and serving paths no
+// longer call these kernels: they decode a whole prefetch item in two
+// launches of chunk_decode.cu.
 #include <cuda_runtime.h>
 
 namespace {

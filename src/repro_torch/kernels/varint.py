@@ -24,6 +24,12 @@ Two hand-written CUDA kernels carry the per-element work
 Each wrapper launches its kernel on a CUDA tensor (and counts the launch
 in ``.launches``) or raises; on a CPU tensor it runs the plain PyTorch
 version beside it (:func:`byte_stencil_ref`, :func:`blocked_scan_ref`).
+
+The OOC and serving paths decode a whole prefetch item in two launches of
+:mod:`repro_torch.kernels.chunk_decode` instead of this per-chunk chain;
+the functions here stay for a single stream's decode (the wire's gap
+decode of a later slice) and as the reference the fused decode is held
+against.
 The rest — value placement, the pair-delta cumsums and the run restores —
 is torch code around the scan, as in the reference.  The reference's
 ``.at[tgt].set/max(..., mode="drop")`` becomes a scatter into one extra

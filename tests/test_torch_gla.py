@@ -184,3 +184,129 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype, bh, t, dk,
     ytol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(y.float(), yp.float(), rtol=ytol, atol=ytol)
     torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core route's sub-chunked factorisation, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(bh, t, dk, dv, seed, **kw):
+    """_inputs with q, k and v rounded to bf16 (kept as float32 numpy), the
+    values the tensor-core route reads."""
+    q, k, v, w, u = _inputs(bh, t, dk, dv, seed, **kw)
+    r = lambda a: torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+    return r(q), r(k), r(v), w, u
+
+
+@pytest.mark.parametrize("bh,t,dk,dv,chunk", [
+    (2, 64, 16, 16, 32), (1, 128, 32, 64, 64), (2, 96, 64, 32, 48),
+])
+@pytest.mark.parametrize("mode", ["mamba", "rwkv", "mamba_bonus",
+                                  "rwkv_nobonus"])
+def test_subchunk_factorisation_matches_jax(bh, t, dk, dv, chunk, mode):
+    """torchhelp.emulate_gla_subchunks (sub-chunks of 16, hi + lo
+    roundings) against JAX gla_chunked (Pallas, interpret mode) and
+    ref_gla on the same bf16-valued inputs, within tests/test_kernels.py's
+    2e-4, and against the port's plain version; both include_current
+    forms, with and without u (ref_gla adds u only without
+    include_current, so its y is not compared where both are set)."""
+    import jax.numpy as jnp
+    from repro.kernels import gla_chunk as jgla
+    from repro.kernels import ref as jref
+    from torchhelp import emulate_gla_subchunks
+    arrays = _bf16_inputs(bh, t, dk, dv, t + dk + len(mode))
+    inc = mode.startswith("mamba")
+    bonus = mode in ("rwkv", "mamba_bonus")
+    q, k, v, w, u = (torch.from_numpy(a) for a in arrays)
+    jq, jk, jv, jw, ju = (jnp.asarray(a) for a in arrays)
+    y, s = emulate_gla_subchunks(q, k, v, w, u if bonus else None,
+                                 chunk=chunk, include_current=inc)
+    yj, sj = jgla.gla_chunked(jq, jk, jv, jw, ju if bonus else None,
+                              chunk=chunk, include_current=inc,
+                              interpret=True)
+    _close(y, yj)
+    _close(s, sj)
+    yr, sr = jref.ref_gla(jq, jk, jv, jw, ju if bonus else None,
+                          include_current=inc)
+    if not (inc and bonus):
+        _close(y, yr)
+    _close(s, sr)
+    yp, sp = gla_chunk.gla_chunked_ref(q, k, v, w, u if bonus else None,
+                                       chunk=chunk, include_current=inc)
+    _close(y, yp)
+    _close(s, sp)
+
+
+@pytest.mark.parametrize("inc", [True, False])
+def test_subchunks_stay_finite_where_decays_pass_88(inc):
+    """Chunk 128 at RWKV6's decays w = -exp(N(0, 1)): the cumulative decay
+    passes -88 within a chunk, so one reference point per chunk would
+    overflow; each factor of the sub-chunked product stays at most 1 and
+    the result matches the recurrence within 2e-4."""
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from torchhelp import emulate_gla_subchunks
+    arrays = _bf16_inputs(2, 256, 64, 64, 21)
+    lc = np.cumsum(arrays[3][:, :128], 1)
+    assert float(lc.min()) < -88.0
+    q, k, v, w, u = (torch.from_numpy(a) for a in arrays)
+    y, s = emulate_gla_subchunks(q, k, v, w, None if inc else u, chunk=128,
+                                 include_current=inc)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    yr, sr = jref.ref_gla(*(jnp.asarray(a) for a in arrays[:4]),
+                          None if inc else jnp.asarray(arrays[4]),
+                          include_current=inc)
+    _close(y, yr)
+    _close(s, sr)
+
+
+def test_split_operands_pass_the_state_check_and_bf16_operands_do_not():
+    """Why the route splits its float32 operands: with hi + lo the state
+    holds the smoke's 1e-4 against the plain version; with bf16 operands
+    alone it does not."""
+    from torchhelp import emulate_gla_subchunks
+    q, k, v, w, u = (torch.from_numpy(a)
+                     for a in _bf16_inputs(4, 256, 64, 64, 5))
+    kw = dict(chunk=128, include_current=False)
+    _, sp = gla_chunk.gla_chunked_ref(q, k, v, w, u, **kw)
+    _, s = emulate_gla_subchunks(q, k, v, w, u, **kw)
+    _, s1 = emulate_gla_subchunks(q, k, v, w, u, split=False, **kw)
+    assert torch.allclose(s, sp, rtol=1e-4, atol=1e-4)
+    assert not torch.allclose(s1, sp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,chunk,want", [
+    (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 16, "tensor_core"),
+    (torch.bfloat16, 12, "cuda_core"), (torch.float32, 128, "cuda_core"),
+])
+def test_route(dtype, chunk, want):
+    assert gla_chunk.route(dtype, chunk) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inc,bonus", [(True, False), (False, True),
+                                       (True, True), (False, False)])
+def test_cuda_tensor_core_route_at_model_widths(cuda_device, inc, bonus):
+    """The tensor-core route at chunk 128, Dk = Dv = 64, RWKV6-like decays,
+    4 chunks: y within 2e-2 and the state within 1e-4 of the plain
+    version (the smoke's tolerances), and as close to the emulated
+    factorisation as float32 sums in another order allow."""
+    from torchhelp import emulate_gla_subchunks
+    arrays = _bf16_inputs(8, 512, 64, 64, 3)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in arrays[:3])
+    w, u = (torch.from_numpy(a).to(cuda_device) for a in arrays[3:])
+    u = u if bonus else None
+    assert gla_chunk.route(q.dtype, 128) == "tensor_core"
+    y, s = ops.gla(q, k, v, w, u, chunk=128, include_current=inc)
+    yp, sp = gla_chunk.gla_chunked_ref(q, k, v, w, u, chunk=128,
+                                       include_current=inc)
+    torch.testing.assert_close(y.float(), yp.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(s, sp, rtol=1e-4, atol=1e-4)
+    ye, se = emulate_gla_subchunks(*(a.cpu() for a in (q, k, v, w)),
+                                   None if u is None else u.cpu(),
+                                   chunk=128, include_current=inc)
+    torch.testing.assert_close(y.float().cpu(),
+                               ye.to(torch.bfloat16).float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(s.cpu(), se, rtol=1e-4, atol=1e-4)

@@ -211,10 +211,11 @@ def cuda_device():
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_ooc_on_cuda_matches_oracles(cuda_device, backend, tmp_path):
     """The whole OOC path on the card at a small size: device decode on by
-    default, every chunk decoded there, the kernels launched, values
-    against the numpy oracles."""
+    default, every chunk decoded there by the fused decode (at most two
+    launches per item; the stencil and the scans not at all), the combine
+    launched, values against the numpy oracles."""
     from repro_torch.core import build_dist_graph, build_formats, make_spec
-    from repro_torch.kernels import csr_spmv, varint
+    from repro_torch.kernels import chunk_decode, csr_spmv, varint
     g = rmat_graph(8, 8, seed=1, weighted=True)
     spec = make_spec(g, num_partitions=4, batch_size=16)
     n, src = g.num_vertices, int(np.argmax(g.out_degrees()))
@@ -228,10 +229,12 @@ def test_ooc_on_cuda_matches_oracles(cuda_device, backend, tmp_path):
     eng = engines[0]
     assert eng.device.type == "cuda" and eng.device_decode
     varint.reset_launches()
+    chunk_decode.reset_launches()
     before = csr_spmv.block_csr_combine.launches
     pr, st = alg.pagerank(eng, 5)
-    assert varint.byte_stencil.launches > 0
-    assert varint.blocked_scan.launches_by_mode["max"] > 0
+    assert 0 < chunk_decode.decode_item.launches <= \
+        2 * chunk_decode.decode_item.calls
+    assert varint.byte_stencil.launches == varint.blocked_scan.launches == 0
     assert (csr_spmv.block_csr_combine.launches > before) == (
         backend == "block_csr")
     assert st.counters["measured_chunks_device_decoded"] == \

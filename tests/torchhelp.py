@@ -5,6 +5,7 @@ structures."""
 import dataclasses
 
 import numpy as np
+import torch
 
 GRAPH = dict(scale=7, edge_factor=8, seed=3, weighted=True)
 SPEC = dict(num_partitions=4, batch_size=16)
@@ -304,59 +305,238 @@ def emulate_spmv_packed(packed, x):
     return out
 
 
-def emulate_lookback_scan(x, *, mode, tile, seed):
-    """``csrc/varint.cu``'s single-pass scan in plain Python, with the
-    blocks' progress interleaved at random: tiles take their index in
-    order, in bursts, and publish their aggregate; a published tile (the
-    newest or a random one) then looks back 32 predecessors at a time
-    (each already published, some with only an aggregate), folds them up
-    to the nearest inclusive prefix and publishes its own.  Returns the inclusive scan (int32 numpy) and the
-    largest number of windows one look-back read."""
-    rng = np.random.default_rng(seed)
-    comb = ((lambda a, b: (a + b + 2**31) % 2**32 - 2**31) if mode == "add"
-            else max)
-    x = np.asarray(x, np.int64)
-    n_tiles = -(-x.size // tile)
-    agg, flag, value, prefix = [], [], [], [0] * n_tiles
-    for s in range(n_tiles):
-        a = 0
-        for v in x[s * tile:(s + 1) * tile]:
-            a = comb(a, int(v))
-        agg.append(a)
+def _lookback_prefixes(aggs, *, comb, first_of, rng):
+    """The single-pass look-back of ``csrc/varint.cu`` and
+    ``csrc/chunk_decode.cu`` in plain Python, with the blocks' progress
+    interleaved at random: tiles take their index in order, in bursts, and
+    publish their aggregate; a published tile (the newest or a random one)
+    then looks back 32 predecessors at a time (each already published,
+    some with only an aggregate; one before ``first_of[s]``, its segment's
+    first tile, counts as an empty prefix), folds each window in order,
+    older on the left, up to the nearest inclusive prefix, and publishes
+    its own.  ``comb(a, b)`` is the carry of a then b, ``None`` the empty
+    carry.  Returns each tile's exclusive prefix (None for a segment's
+    first) and the largest number of windows one look-back read."""
+    def fold(a, b):
+        return b if a is None else a if b is None else comb(a, b)
+
+    n_tiles = len(aggs)
+    flag, value, prefix = [], [], [None] * n_tiles
     pending, started, windows = [], 0, 0
     while started < n_tiles or pending:
         # a burst of up to 80 tiles starts, then some published tiles
         # finish, newest first half the time, so runs of unfinished
         # predecessors build up
         for _ in range(min(n_tiles - started, int(rng.integers(0, 80)))):
-            flag.append("P" if started == 0 else "A")
-            value.append(agg[started])
-            if started:
+            first = started == first_of[started]
+            flag.append("P" if first else "A")
+            value.append(aggs[started])
+            if not first:
                 pending.append(started)
             started += 1
         if not pending:
             continue
         s = pending.pop(-1 if rng.random() < 0.5
                         else rng.integers(len(pending)))
-        exclusive, pred, reads = 0, s - 1, 0
+        exclusive, pred, reads = None, s - 1, 0
         while True:
             reads += 1
-            window = [(flag[p], value[p]) if p >= 0 else ("P", 0)
+            window = [(flag[p], value[p]) if p >= first_of[s] else ("P", None)
                       for p in range(pred, pred - 32, -1)]
             stop = next((i for i, (f, _) in enumerate(window) if f == "P"),
                         31)
+            w = None
             for _, v in window[:stop + 1]:
-                exclusive = comb(exclusive, v)
+                w = fold(v, w)
+            exclusive = fold(w, exclusive)
             if window[stop][0] == "P":
                 break
             pred -= 32
         windows = max(windows, reads)
         prefix[s] = exclusive
-        flag[s], value[s] = "P", comb(exclusive, agg[s])
+        flag[s], value[s] = "P", fold(exclusive, aggs[s])
+    return prefix, windows
+
+
+def _wrap(x):
+    return (x + 2**31) % 2**32 - 2**31
+
+
+def emulate_lookback_scan(x, *, mode, tile, seed):
+    """``csrc/varint.cu``'s single-pass scan (:func:`_lookback_prefixes`
+    over tiles of ``tile`` elements).  Returns the inclusive scan (int32
+    numpy) and the largest number of windows one look-back read."""
+    rng = np.random.default_rng(seed)
+    comb = ((lambda a, b: _wrap(a + b)) if mode == "add" else max)
+    x = np.asarray(x, np.int64)
+    n_tiles = -(-x.size // tile)
+    aggs = []
+    for s in range(n_tiles):
+        a = 0
+        for v in x[s * tile:(s + 1) * tile]:
+            a = comb(a, int(v))
+        aggs.append(a)
+    prefix, windows = _lookback_prefixes(aggs, comb=comb,
+                                         first_of=[0] * n_tiles, rng=rng)
     out = np.empty(x.size, np.int64)
     for s in range(n_tiles):
-        acc = prefix[s]
+        acc = prefix[s] or 0
         for i in range(s * tile, min((s + 1) * tile, x.size)):
             acc = comb(acc, int(x[i]))
             out[i] = acc
     return out.astype(np.int32), windows
+
+
+def _varint_ending_at(b, j):
+    """The stencil's 5-tap select at byte ``j`` of section ``b``: the value
+    of the varint ending there (bytes before the section are terminators),
+    in uint32 arithmetic."""
+    gpos = 4
+    for d in range(4):
+        if j - 1 - d < 0 or b[j - 1 - d] < 0x80:
+            gpos = d
+            break
+    v = 0
+    for d in range(gpos + 1):
+        v += int(b[j - d] & 0x7F) << (7 * (gpos - d))
+    return v & 0xFFFFFFFF
+
+
+def emulate_segmented_decode(sections, *, tile, seed):
+    """The first launch of ``csrc/chunk_decode.cu`` in plain Python.
+    ``sections``: [(uint8 bytes, pairs flag)], laid one after another as
+    the kernel's tiles are; each cut into tiles of ``tile`` bytes.  A tile
+    decodes the varints ending in it (the 5-tap select reads back across
+    its tile edge, never before its section) into a carry (varints, sum of
+    the even-index values, sum of the odd-index values — one sum on a
+    residue section), with the operator of the kernel: a carry after an
+    odd count swaps where the later sums land.  The tiles' exclusive
+    prefixes come from :func:`_lookback_prefixes`, segmented at each
+    section's first tile.  Returns, per section, what its varints write:
+    (srcs, starts) on a pair section, csum on a residue section (int32
+    numpy), and the largest number of windows one look-back read."""
+    rng = np.random.default_rng(seed)
+    tiles, first_of = [], []
+    for si, (b, _) in enumerate(sections):
+        first = len(tiles)
+        for lo in range(0, len(b), tile):
+            tiles.append((si, lo, min(lo + tile, len(b))))
+            first_of.append(first)
+
+    def carries(si, lo, hi):
+        b, pairs = sections[si]
+        return [_varint_ending_at(b, j) for j in range(lo, hi)
+                if b[j] < 0x80], pairs
+
+    def comb_for(pairs):
+        def comb(a, c):
+            swap = pairs and a[0] % 2 == 1
+            return (a[0] + c[0], _wrap(a[1] + (c[2] if swap else c[1])),
+                    _wrap(a[2] + (c[1] if swap else c[2])))
+        return comb
+
+    aggs = []
+    for si, lo, hi in tiles:
+        vals, pairs = carries(si, lo, hi)
+        acc = (0, 0, 0)
+        for v in vals:
+            acc = comb_for(pairs)(acc, (1, _wrap(v), 0))
+        aggs.append((acc, pairs))
+    # one operator for all tiles: a segment never mixes kinds
+    comb = (lambda a, c: (comb_for(a[1])(a[0], c[0]), a[1]))
+    prefix, windows = _lookback_prefixes(aggs, comb=comb, first_of=first_of,
+                                         rng=rng)
+    outs = [([], []) if pairs else [] for _, pairs in sections]
+    for t, (si, lo, hi) in enumerate(tiles):
+        vals, pairs = carries(si, lo, hi)
+        c, e, o = prefix[t][0] if prefix[t] is not None else (0, 0, 0)
+        for v in vals:
+            if not pairs:
+                e = _wrap(e + v)
+                outs[si].append(e)
+            elif c % 2 == 0:
+                e = _wrap(e + v)
+                outs[si][0].append(e)
+            else:
+                o = _wrap(o + v)
+                outs[si][1].append(o)
+            c += 1
+    res = [(np.array(o[0], np.int32), np.array(o[1], np.int32)) if p
+           else np.array(o, np.int32) for o, (_, p) in zip(outs, sections)]
+    return res, windows
+
+
+def _bf16_split(x, split):
+    """x as bf16 hi and the bf16 rounding of what is left (0 when
+    ``split`` is off), both back in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, ((x - hi).to(torch.bfloat16).float() if split
+                else torch.zeros_like(x))
+
+
+def _mm_split(a, b, split, b_exact=False):
+    """a @ b as the tensor-core route takes it: float32 operands split into
+    bf16 hi + lo, three products (hi.hi + hi.lo + lo.hi), or two where
+    ``b`` is exact in bf16 (v), float32 sums."""
+    ah, al = _bf16_split(a, split)
+    if b_exact:
+        return ah @ b + al @ b
+    bh, bl = _bf16_split(b, split)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def emulate_gla_subchunks(q, k, v, w, u=None, *, chunk, include_current,
+                          sub=16, split=True):
+    """``csrc/gla_chunk.cu``'s tensor-core route in plain torch (float32 on
+    the CPU; q, k, v hold bf16 values): the chunks' state increments
+    dS_c = (k exp(l_last - lc))^T v, the recurrence S_c = exp(l_last) S_{c-1}
+    + dS_c, and y = (q exp(lq)) S_{c-1} + A v, with A's ``sub`` x ``sub``
+    diagonal blocks from exponentials of differences and every block below
+    them the product of (q_t exp(lq_t - m)) and (k_s exp(m - lc_s)), m the
+    lq of the first row of t's sub-chunk.  Every product rounds its
+    operands as the kernel does (:func:`_mm_split`; ``split=False`` keeps
+    the hi parts only).  Returns (y, final state), float32."""
+    q, k, v, w = (a.float() for a in (q, k, v, w))
+    bh, t, dk = q.shape
+    dv = v.shape[-1]
+    n_c = t // chunk
+    qc, kc, wc = (a.reshape(bh, n_c, chunk, dk) for a in (q, k, w))
+    vc = v.reshape(bh, n_c, chunk, dv)
+    lc = torch.cumsum(wc, dim=2)
+    lq = lc if include_current else torch.nn.functional.pad(
+        lc[:, :, :-1], (0, 0, 1, 0))
+    l_last = lc[:, :, -1:, :]                           # [bh, C, 1, dk]
+    ds = _mm_split((kc * torch.exp(l_last - lc)).transpose(-1, -2), vc,
+                   split, b_exact=True)                 # [bh, C, dk, dv]
+    s = torch.zeros(bh, dk, dv)
+    prev = []
+    for c in range(n_c):
+        prev.append(s)
+        s = torch.exp(l_last[:, c, 0, :])[:, :, None] * s + ds[:, c]
+    y = _mm_split(qc * torch.exp(lq), torch.stack(prev, 1), split)
+    row = torch.arange(sub)
+    keep = (row[:, None] >= row[None, :]) if include_current else \
+        (row[:, None] > row[None, :])
+    for i in range(chunk // sub):
+        ti = slice(sub * i, sub * (i + 1))
+        m = lq[:, :, sub * i:sub * i + 1, :]
+        q_t = qc[:, :, ti] * torch.exp(lq[:, :, ti] - m)
+        blocks = []
+        for j in range(i):
+            sj = slice(sub * j, sub * (j + 1))
+            k_t = kc[:, :, sj] * torch.exp(m - lc[:, :, sj])
+            blocks.append(_mm_split(q_t, k_t.transpose(-1, -2), split))
+        diff = lq[:, :, ti, None, :] - lc[:, :, None, ti, :]
+        diff = torch.where(keep[None, None, :, :, None], diff,
+                           torch.tensor(float("-inf")))
+        a = (qc[:, :, ti, None, :] * kc[:, :, None, ti, :]
+             * torch.exp(diff)).sum(-1)
+        if u is not None:
+            a = a + torch.diag_embed(
+                (qc[:, :, ti] * u.float()[:, None, None, :]
+                 * kc[:, :, ti]).sum(-1))
+        blocks.append(a)
+        y[:, :, ti] += _mm_split(torch.cat(blocks, -1),
+                                 vc[:, :, :sub * (i + 1)], split,
+                                 b_exact=True)
+    return y.reshape(bh, t, dv), s
