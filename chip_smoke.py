@@ -5,9 +5,11 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (one ``nvcc`` per source, all started together), runs the combine_balance
-phase, then drives the port's two graph paths on a Graph500 R-MAT graph (scale 21, edge factor 16, weighted,
-seed 0: 2,097,152 vertices, 33,554,432 edges; P = 8 partitions, 8 x 8
-tiles), through PageRank (5 iterations), BFS, SSSP and WCC.
+phase, then drives the port's three graph paths on a Graph500 R-MAT graph
+(scale 21, edge factor 16, weighted, seed 0: 2,097,152 vertices,
+33,554,432 edges; P = 8 partitions, 8 x 8 tiles): LOCAL and OOC through
+PageRank (5 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
+BFS.
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -55,7 +57,8 @@ on the card).  It
     then sweeps both scan modes over 2^10, 2^16, 2^20 and 2^24 seeded
     elements (bit-equal, add also to ``torch.cumsum``), timed the same
     way beside ``torch.cumsum`` / ``torch.cummax``;
-  * runs the four algorithms with the launch counts of the combine, the
+  * runs the four algorithms (SSSP cold only, the others cold and warm)
+    with the launch counts of the combine, the
     fused decode, the stencil and the scans set to 0 just before each and
     read just after (the combine and the fused decode must have run, at
     most two decode launches per item, the stencil and the scans not at
@@ -102,6 +105,36 @@ source above).  It
     PPR (add) against its plain version (min bit-equal, add within rtol
     1e-5) and against 8 solo ``block_csr_combine`` launches, one per
     column (bit-equal in both modes), and times it as above.
+
+DIST_OOC (``executor="dist_ooc"``, W = 4 workers, ``block_csr``, chunks
+and wire gap streams decoded on the card, ``verify_io``).  It
+  * builds a sharded store of the forward graph (contiguous blocks of 2
+    destination partitions per worker) beside the OOC stores;
+  * runs PageRank (5) and BFS each cold and warm with the workers in
+    sequence, then once more with ``parallel_workers``, with the launch
+    counts of the combine, the fused decode, the stencil and the scans set
+    to 0 just before each run and read just after: the combine and the
+    fused decode must have run (at most two decode launches and one
+    page-locked copy an item), the stencil and the add scan once per wire
+    gap stream decoded on the card (counted around
+    ``exchange._gap_decode``; more than 0 for BFS, whose batches are
+    uniform-value), the max scan never;
+  * requires measured == model for disk and network, every chunk read
+    decoded on the card, the values equal to LOCAL's and OOC's (BFS bit
+    for bit, PageRank within 1e-5) and the oracles', the iteration counts
+    equal, every counter but the two network ones equal to LOCAL's (rtol
+    1e-5) and to OOC's, and the parallel run bit-identical to the
+    sequential one (values as int32 patterns, per-iteration returns,
+    every counter, ``worker_totals``);
+  * replays the largest combine call and the largest streamed item of
+    each algorithm against their plain versions and times them as on
+    OOC, and the wire's largest gap stream through the stencil and the
+    add scan (bit-equal to their plain versions, timed as in phase 7) and
+    through the whole gap decode (copy in, two launches, gaps back)
+    against the host codec, timed on the host clock;
+  * prints cold, warm and parallel seconds, each worker's host seconds
+    per stage, the split per iteration, the wire's bytes and batches per
+    format, and peak device memory.
 
 Kernel entry point (``repro_torch.kernels.ops``, after the graph phases
 have freed the card).  Each call runs with its kernel's launch count set
@@ -242,7 +275,7 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20, split=()):
+def device_ms(fn, reps=20, split=(), strict=True):
     """(mean device milliseconds per call of ``fn``, device operations per
     call, {name: (milliseconds, operations) per call}) from one profiler
     session over ``reps`` calls: the summed durations of the kernels,
@@ -250,7 +283,8 @@ def device_ms(fn, reps=20, split=()):
     whose name holds each name of ``split`` ((None, 0) for a name it
     recorded no event of).  Where a call's host path takes longer than its
     device work, :func:`cuda_ms` measures the host; this measures the card
-    alone."""
+    alone.  A session that records no device operation raises, or with
+    ``strict`` off returns (None, 0, {}): not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -262,6 +296,8 @@ def device_ms(fn, reps=20, split=()):
     ops = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ops:
+        if not strict:
+            return None, 0, {}
         raise AssertionError("the profiler recorded no device operation")
     per_call = lambda evs: (sum(e.time_range.elapsed_us() for e in evs)
                             / reps / 1e3, len(evs) / reps)
@@ -864,12 +900,12 @@ def varint_inputs(store, largest, device):
     }
 
 
-def check_varint_kernel(vk, name, x):
+def check_varint_kernel(vk, name, x, strict=True):
     """Kernel vs plain version (bit-equal) on ``x``; times the kernel, the
     plain version and the library call, beside the byte bound (scan: 8 B
     per element, stencil: 9 B per byte, at the card's memory rate), and
     the kernel's and the library's device time alone (:func:`device_ms`,
-    with the device operations per call)."""
+    with the device operations per call; ``strict`` as there)."""
     import torch
     if name == "stencil":
         kern = lambda: vk.byte_stencil(x)
@@ -896,8 +932,9 @@ def check_varint_kernel(vk, name, x):
     ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(plain, 5)
     library_ms = None if library is None else cuda_ms(library, 20)
-    dev_ms, dev_ops, _ = device_ms(kern)
-    lib_dev_ms = None if library is None else device_ms(library)[0]
+    dev_ms, dev_ops, _ = device_ms(kern, strict=strict)
+    lib_dev_ms = (None if library is None
+                  else device_ms(library, strict=strict)[0])
     bytes_ = x.numel() * per_elem
     bound_ms, bound_by = bound(bytes_, 0.0)
     return dict(elements=x.numel(), max_abs_err=0.0, ms=ms,
@@ -1166,6 +1203,9 @@ def main(argv=None) -> int:
         ooc = run_ooc(tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
                       fm_rev=fm_rev, checks=checks, drives=drives,
                       local_results=local_results)
+        dist = run_dist_ooc(tmp, dg=dg, fm=fm, source=source, checks=checks,
+                            drives=drives, local_results=local_results,
+                            ooc_results=ooc.pop("results"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1182,12 +1222,15 @@ def main(argv=None) -> int:
     for path, rows, counts in (
             ("LOCAL", kernel_rows, launches),
             ("OOC", ooc["combine_rows"],
-             {a: v["combine"] for a, v in ooc["launches"].items()})):
+             {a: v["combine"] for a, v in ooc["launches"].items()}),
+            ("DIST_OOC", dist["combine_rows"],
+             {a: v["combine"] for a, v in dist["launches"].items()})):
         for mode, algos in (("add", ("pagerank",)),
                             ("min", ("bfs", "sssp", "wcc"))):
             table.append(kernel_row(
                 f"block_csr_combine[{mode}] {path}", KERNEL_SOURCE,
-                TPU_KERNEL, sum(counts[a] for a in algos), rows[mode]))
+                TPU_KERNEL, sum(counts.get(a, 0) for a in algos),
+                rows[mode]))
     serving = ooc["serving"]
     for mode in ("add", "min"):
         table.append(kernel_row(
@@ -1202,12 +1245,21 @@ def main(argv=None) -> int:
             name, VARINT_SOURCE, source_line,
             sum(v[key] for v in ooc["launches"].values()),
             ooc["kernel_rows"][key]))
-    # the fused decode: the largest item of the four OOC runs
-    biggest = max(ooc["decode_rows"].values(), key=lambda r: r["edges"])
-    table.append(kernel_row(
-        f"chunk_decode OOC largest item ({biggest['edges']} edges)",
-        DECODE_SOURCE, TPU_STENCIL,
-        sum(v["decode"] for v in ooc["launches"].values()), biggest))
+    # the wire's gap streams on DIST_OOC: the stencil and the add scan
+    for name, key, source_line in (
+            ("blocked_scan[add] DIST_OOC wire", "add", TPU_SCAN),
+            ("varint_stencil DIST_OOC wire", "stencil", TPU_STENCIL)):
+        table.append(kernel_row(
+            name, VARINT_SOURCE, source_line,
+            sum(v[key] for v in dist["launches"].values()),
+            dist["wire_rows"][key]))
+    # the fused decode: the largest item of the OOC and of the DIST runs
+    for path, res in (("OOC", ooc), ("DIST_OOC", dist)):
+        biggest = max(res["decode_rows"].values(), key=lambda r: r["edges"])
+        table.append(kernel_row(
+            f"chunk_decode {path} largest item ({biggest['edges']} edges)",
+            DECODE_SOURCE, TPU_STENCIL,
+            sum(v["decode"] for v in res["launches"].values()), biggest))
     table.extend(ops_rows)
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": table}), flush=True)
@@ -1328,13 +1380,17 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         emit(phase="kernel_vs_plain", kernel="chunk_decode",
              input=f"ooc {name} largest item", **decode_rows[name])
         del largest_item
-        # warm: the same run again; its host wall split per iteration
-        for e in engines:
-            e.ooc_wall = dict.fromkeys(e.ooc_wall, 0.0)
-        t0 = time.perf_counter()
-        drives[name](arg)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        # warm: the same run again; its host wall split per iteration.
+        # SSSP runs cold only (the smoke's time limit): its split is the
+        # cold run's.
+        warm_s = None
+        if name != "sssp":
+            for e in engines:
+                e.ooc_wall = dict.fromkeys(e.ooc_wall, 0.0)
+            t0 = time.perf_counter()
+            drives[name](arg)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
         split = {k: sum(e.ooc_wall[k] for e in engines) / stats.iterations
                  for k in engines[0].ooc_wall}
         edges = c["edges_touched"]
@@ -1344,7 +1400,8 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         emit(phase="ooc_path", algorithm=name, iterations=stats.iterations,
              launches=counts, cold_s=cold_s, warm_s=warm_s,
              edges_touched=edges,
-             edges_per_s=edges / warm_s,
+             edges_per_s=None if warm_s is None else edges / warm_s,
+             split_of="cold" if warm_s is None else "warm",
              chunks_read=c["measured_chunks_read"],
              chunks_device_decoded=c["measured_chunks_device_decoded"],
              measured_edge_read_bytes=c["measured_edge_read_bytes"],
@@ -1386,7 +1443,7 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
                           bfs_oracle=checks["bfs"])
     return dict(launches=launches, kernel_rows=kernel_rows,
                 combine_rows=combine_rows, decode_rows=decode_rows,
-                serving=serving)
+                serving=serving, results=results)
 
 
 def decode_counts(**extra):
@@ -1413,6 +1470,290 @@ def check_decode_counts(counts, path, combine):
     if counts["stencil"] or counts["add"] or counts["max"]:
         raise AssertionError(f"{path}: the per-chunk decode chain ran "
                              f"({counts})")
+
+
+# ---------------------------------------------------------------------------
+# DIST_OOC: W workers over a sharded store, the wire's gap streams on the card
+# ---------------------------------------------------------------------------
+
+DIST_WORKERS = 4
+DIST_ALGOS = ("pagerank", "bfs")
+
+
+@contextlib.contextmanager
+def recorded_gap_streams():
+    """Count the wire gap streams decoded on the card inside the block
+    (each one stencil and one add scan launch) and record the largest
+    one's bytes and varint count, for a replay at the wire's shapes."""
+    from repro_torch.core import exchange
+    real = exchange._gap_decode
+    seen = {"streams": 0, "largest": None}
+
+    def recording(stream, count, device=None):
+        if device is not None and count:
+            seen["streams"] += 1
+            if seen["largest"] is None or len(stream) > len(
+                    seen["largest"][0]):
+                seen["largest"] = (stream, count)
+        return real(stream, count, device)
+
+    exchange._gap_decode = recording
+    try:
+        yield seen
+    finally:
+        exchange._gap_decode = real
+
+
+def reset_dist_counts():
+    """Set the DIST path's launch counts to 0; returns the page-locked
+    copy count to measure from."""
+    from repro_torch.core.chunkstore import StagingRing
+    from repro_torch.kernels import chunk_decode, csr_spmv, varint
+    varint.reset_launches()
+    chunk_decode.reset_launches()
+    csr_spmv.block_csr_combine.launches = 0
+    return StagingRing.copies
+
+
+def dist_counts(gaps, copies0):
+    """The DIST path's launch counts since :func:`reset_dist_counts`,
+    beside the number of gap streams the wire decoded on the card."""
+    from repro_torch.core.chunkstore import StagingRing
+    from repro_torch.kernels import csr_spmv
+    counts = decode_counts(combine=csr_spmv.block_csr_combine.launches)
+    counts["pinned_copies"] = StagingRing.copies - copies0
+    counts["gap_streams"] = gaps["streams"]
+    return counts
+
+
+def check_dist_counts(counts, path, wire_streams_expected):
+    """The combine and the fused decode ran (at most two decode launches
+    an item, one page-locked copy an item), the stencil and the add scan
+    once per gap stream decoded on the card, the max scan never."""
+    if counts["combine"] < 1 or counts["decode"] < 1:
+        raise AssertionError(f"{path}: the combine or the fused decode was "
+                             f"never launched ({counts})")
+    if counts["decode"] > 2 * counts["decode_items"] or \
+            counts["pinned_copies"] != counts["decode_items"]:
+        raise AssertionError(f"{path}: decode launches or page-locked "
+                             f"copies do not fit the items ({counts})")
+    if not (counts["stencil"] == counts["add"] == counts["gap_streams"]) \
+            or counts["max"]:
+        raise AssertionError(f"{path}: the wire's stencil / scan launches "
+                             f"do not match its gap streams ({counts})")
+    if wire_streams_expected and counts["gap_streams"] < 1:
+        raise AssertionError(f"{path}: no wire gap stream was decoded on "
+                             f"the card ({counts})")
+
+
+def check_wire_stream(stream, count, device, reps=20):
+    """The wire's largest gap stream: the stencil and the add scan (on the
+    stencil's terminator flags, as ``varint_decode`` runs it) against their
+    plain versions bit for bit, timed (:func:`check_varint_kernel`); and
+    the whole gap decode as the wire runs it — a copy to the card, the two
+    launches, the gaps back — against the host codec, bit for bit, timed
+    on the host clock.  Returns (stencil row, add row, round trip).
+
+    This replay comes late in a long process, in which the profiler has
+    been recording a falling share of the device's operations (2.0 of the
+    fused decode's 2 kernels a call early on, 1.0 in the DIST replays):
+    where it records none, the card-alone time is reported as not
+    measured (None); the CUDA-event times stand."""
+    import numpy as np
+    import torch
+    from repro_torch.core import exchange
+    from repro_torch.kernels import varint
+    buf = torch.from_numpy(np.frombuffer(stream, np.uint8).copy()).to(device)
+    rows = {"stencil": check_varint_kernel(varint, "stencil", buf,
+                                           strict=False)}
+    term, _ = varint.byte_stencil(buf)
+    rows["add"] = check_varint_kernel(varint, "add", term, strict=False)
+    want = exchange._gap_decode(stream, count)
+    got = exchange._gap_decode(stream, count, device)
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError("wire gap decode on the card differs from the "
+                             "host codec")
+
+    def host_ms(fn):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    trip = dict(bytes=len(stream), varints=count,
+                card_round_trip_ms=host_ms(
+                    lambda: exchange._gap_decode(stream, count, device)),
+                host_codec_ms=host_ms(
+                    lambda: exchange._gap_decode(stream, count)))
+    return rows["stencil"], rows["add"], trip
+
+
+def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
+                 ooc_results):
+    """The DIST_OOC phase (9b) of :func:`main`: a W = 4 sharded store of
+    the forward graph under ``tmp``, PageRank and BFS each cold and warm
+    sequential, then once with ``parallel_workers``; held against LOCAL,
+    OOC, the oracles and themselves.  Returns the launch counts, the
+    combine and decode rows and the wire's stencil / scan rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ChunkStore, Engine, EngineConfig, executor
+    from repro_torch.core.engine import COUNTER_KEYS, DIST_MEASURED_PAIRS
+    from repro_torch.kernels import csr_spmv
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    store = ChunkStore.build_sharded(dg, fm, os.path.join(tmp, "dist"),
+                                     DIST_WORKERS)
+    emit(phase="dist_store", workers=DIST_WORKERS,
+         partitions_per_worker=[list(s.partitions) for s in store.shards],
+         build_s=time.perf_counter() - t0,
+         bytes=sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(store.root) for f in fs))
+
+    def engine(parallel):
+        return Engine(dg, fm, EngineConfig(
+            executor="dist_ooc", num_workers=DIST_WORKERS,
+            compute_backend="block_csr", verify_io=True,
+            parallel_workers=parallel), store=store)
+
+    launches, combine_rows, decode_rows, largest_stream = {}, {}, {}, None
+    for name in DIST_ALGOS:
+        eng = engine(False)
+        if not eng.device_decode:
+            raise AssertionError("dist_ooc: device_decode is not on by "
+                                 "default on the card")
+        torch.cuda.reset_peak_memory_stats()
+        copies0 = reset_dist_counts()
+        t0 = time.perf_counter()
+        with recorded_combine(executor, largest=True) as largest_call, \
+                recorded_decode(dev) as largest_item, \
+                recorded_gap_streams() as gaps:
+            vals, stats = drives[name](eng)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        counts = dist_counts(gaps, copies0)
+        launches[name] = counts
+        check_dist_counts(counts, f"dist_ooc {name}", name == "bfs")
+        peak = torch.cuda.max_memory_allocated()
+        totals = [dict(t) for t in eng.worker_totals]
+        c = stats.counters
+        for mk, ak in DIST_MEASURED_PAIRS:
+            if abs(c[mk] - c[ak]) > 0.5:
+                raise AssertionError(f"dist_ooc {name}: {mk} {c[mk]} != "
+                                     f"{ak} {c[ak]}")
+        if c["measured_chunks_device_decoded"] != c["measured_chunks_read"]:
+            raise AssertionError(f"dist_ooc {name}: not every chunk read "
+                                 "was decoded on the card")
+        checks[name](vals)
+        lvals, lstats = local_results[name]
+        ovals, ostats = ooc_results[name]
+        if name == "pagerank":
+            np.testing.assert_allclose(vals, lvals, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(vals, ovals, rtol=1e-5, atol=1e-5)
+        elif not (np.array_equal(vals.view(np.int32), lvals.view(np.int32))
+                  and np.array_equal(vals.view(np.int32),
+                                     ovals.view(np.int32))):
+            raise AssertionError(f"dist_ooc {name}: values differ from "
+                                 "LOCAL's or OOC's")
+        if not stats.iterations == lstats.iterations == ostats.iterations:
+            raise AssertionError(f"dist_ooc {name}: {stats.iterations} "
+                                 f"iterations, LOCAL {lstats.iterations}, "
+                                 f"OOC {ostats.iterations}")
+        # every counter but the wire's (W = 4 workers cross fewer node
+        # boundaries than P = 8 partitions) against LOCAL's (rtol 1e-5:
+        # LOCAL sums its counters in float32) and OOC's (both price on the
+        # host in float64: equal, seek_cost's float32 terms within 1e-9)
+        for k in COUNTER_KEYS:
+            if k in ("net_bytes", "net_bytes_raw"):
+                continue
+            a, b, o = c[k], lstats.counters[k], ostats.counters[k]
+            if abs(a - b) > 1e-3 + 1e-5 * abs(b) or (
+                    a != o and abs(a - o) > 1e-9 * abs(o)):
+                raise AssertionError(f"dist_ooc {name}: counter {k} = {a}, "
+                                     f"LOCAL {b}, OOC {o}")
+        mode = largest_call["kw"]["mode"]
+        if mode != ("add" if name == "pagerank" else "min"):
+            raise AssertionError(f"dist_ooc {name}: ran combine mode {mode}")
+        combine_rows[mode] = check_kernel(
+            csr_spmv, largest_call["args"], largest_call["kw"], "dist_ooc")
+        del largest_call
+        decode_rows[name] = check_decode_item(largest_item["host"],
+                                              largest_item["plan"], dev)
+        emit(phase="kernel_vs_plain", kernel="chunk_decode",
+             input=f"dist_ooc {name} largest item", **decode_rows[name])
+        del largest_item
+        if gaps["largest"] is not None and (
+                largest_stream is None
+                or len(gaps["largest"][0]) > len(largest_stream[0])):
+            largest_stream = gaps["largest"]
+
+        # warm: the same run again, its per-worker host split
+        eng.reset_worker_totals()
+        t0 = time.perf_counter()
+        drives[name](eng)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        times = [dict(t) for t in eng.worker_times]
+        it = stats.iterations
+        split = {k: sum(t[k] for t in times) / it
+                 for k in executor.DIST_WALL_KEYS}
+        del eng
+        gc.collect()
+
+        # parallel workers: bit-identical to the sequential cold run
+        par = engine(True)
+        copies0 = reset_dist_counts()
+        t0 = time.perf_counter()
+        with recorded_gap_streams() as pgaps:
+            pvals, pstats = drives[name](par)
+        torch.cuda.synchronize()
+        par_s = time.perf_counter() - t0
+        pcounts = dist_counts(pgaps, copies0)
+        check_dist_counts(pcounts, f"dist_ooc {name} parallel",
+                          name == "bfs")
+        if not np.array_equal(pvals.view(np.int32), vals.view(np.int32)) \
+                or pstats.iterations != stats.iterations \
+                or pstats.per_iter_return != stats.per_iter_return \
+                or pstats.counters != stats.counters \
+                or par.worker_totals != totals:
+            raise AssertionError(f"dist_ooc {name}: the parallel run is not "
+                                 "bit-identical to the sequential one")
+        par_times = [dict(t) for t in par.worker_times]
+        del par
+        gc.collect()
+        torch.cuda.empty_cache()
+        edges = c["edges_touched"]
+        emit(phase="dist_ooc_path", algorithm=name, workers=DIST_WORKERS,
+             iterations=it, launches=counts, parallel_launches=pcounts,
+             cold_s=cold_s, warm_s=warm_s, parallel_s=par_s,
+             edges_touched=edges, edges_per_s=edges / warm_s,
+             chunks_read=c["measured_chunks_read"],
+             chunks_device_decoded=c["measured_chunks_device_decoded"],
+             measured_disk_bytes=(c["measured_edge_read_bytes"]
+                                  + c["measured_vertex_read_bytes"]
+                                  + c["measured_vertex_write_bytes"]),
+             measured_net_bytes=c["measured_net_bytes"],
+             net_bytes_model=c["net_bytes"],
+             batches={f: c[f"net_{f}_batches"]
+                      for f in ("pair", "vpair", "slab", "uval")},
+             worker_totals=totals, worker_times_warm=times,
+             worker_times_parallel=par_times,
+             split_per_iteration_s=split,
+             wire_s_per_iteration=split["post_s"] + split["take_s"],
+             max_memory_allocated=peak, parallel_bit_identical=True)
+
+    if largest_stream is None:
+        raise AssertionError("dist_ooc: no wire gap stream was recorded")
+    stencil_row, add_row, trip = check_wire_stream(*largest_stream, dev)
+    for key, row in (("stencil", stencil_row), ("add", add_row)):
+        emit(phase="kernel_vs_plain", kernel=key,
+             input="dist_ooc largest wire gap stream", **row)
+    emit(phase="dist_wire_round_trip", **trip)
+    del store
+    return dict(launches=launches, combine_rows=combine_rows,
+                decode_rows=decode_rows,
+                wire_rows={"stencil": stencil_row, "add": add_row})
 
 
 def run_serving(store, *, g, source, dg, fm, bfs_oracle):

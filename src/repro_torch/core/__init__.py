@@ -3,8 +3,9 @@ adaptive CSR/DCSR, filtered push message passing, signal/slot engine.
 
 Layering mirrors ``repro.core``: ``phases`` holds the four ProcessEdges
 phases; ``chunkstore`` the storage tier (on-disk chunk store, vertex spill,
-prefetcher and the ChunkSource contract); ``exchange`` the wire byte model;
-``executor`` composes them into the LOCAL and OOC executors and
+prefetcher, per-worker shards and the ChunkSource contract); ``exchange``
+the inter-worker wire (adaptive encodings, measured bytes, decode-ahead);
+``executor`` composes them into the LOCAL, OOC and DIST_OOC executors and
 ``multiquery`` into their Q-query panel twins; ``engine`` is the public
 signal/slot API on top, and ``serve`` the continuous-query session.
 """
@@ -21,11 +22,11 @@ from repro_torch.core import codec  # noqa: F401
 from repro_torch.core.chunkstore import (  # noqa: F401
     REP_CSR, REP_DCSR, REP_DCSR_DELTA, ChunkPrefetcher, ChunkStore,
     ChunkStoreError, DeviceChunkDecoder, DiskChunkSource, HBMChunkSource,
-    VertexSpill,
+    ShardedChunkStore, VertexSpill,
 )
 from repro_torch.core.exchange import (  # noqa: F401
-    FMT_PAIRS, FMT_SLAB, FMT_UVAL, FMT_VPAIRS, batch_wire_bytes,
-    choose_wire_format,
+    FMT_PAIRS, FMT_SLAB, FMT_UVAL, FMT_VPAIRS, DecodeAhead, Exchange,
+    batch_wire_bytes, choose_wire_format, decode_batch, encode_batch,
 )
 from repro_torch.core.engine import (  # noqa: F401
     ADD, MIN, MAX, Engine, EngineConfig, Monoid, accumulate_counters,

@@ -30,8 +30,11 @@ LOCAL executor from device tensors, :class:`DiskChunkSource` the OOC
 executor from a store.  Dispatch metadata and per-chunk format stats stay
 memory-resident (host numpy) in both — control state, not bulk data.
 
-Worker shards (``build_sharded``) and the spill's recovery hooks come with
-the later slices that use them.
+* :class:`ShardedChunkStore` — W per-worker chunk stores under one root
+  (``ChunkStore.build_sharded``), one contiguous block of destination
+  partitions each, for the distributed out-of-core executor.
+
+The spill's recovery hooks come with the process-mode slice.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from repro_torch.utils import (IntegrityError, atomic_write_json, ceil_div,
 EDGE_DT = np.dtype([("dst", "<i4"), ("data", "<f4")])   # 8 B per edge
 PAIR_DT = np.dtype([("src", "<i4"), ("idx", "<i4")])    # 8 B per DCSR entry
 MANIFEST_NAME = "manifest.json"
+SHARD_MANIFEST_NAME = "shards.json"
 # v4: per-chunk section CRC32s (``chunk_crcs``, aligned row-for-row with
 # ``chunks``) and a manifest self-checksum (``manifest_crc``).  Older
 # versions are rejected with an error naming both versions.
@@ -360,6 +364,34 @@ class ChunkStore:
         return cls(root, manifest)
 
     @classmethod
+    def build_sharded(cls, g, fmts, root: str, num_workers: int,
+                      compression: bool = True) -> "ShardedChunkStore":
+        """Preprocessing for the dist_ooc executor: W worker shards, each a
+        full :class:`ChunkStore` with its own root (``root/w{w}/``) holding
+        the edge chunks of the contiguous block of ``P / W`` destination
+        partitions it owns, plus a top-level ``shards.json`` recording the
+        topology.  ``num_workers`` must divide ``num_partitions`` (raises
+        ValueError otherwise).  Hand the result to ``Engine(...,
+        EngineConfig(executor="dist_ooc", num_workers=W), store=...)``;
+        each worker then reads only its own root, and reading an unowned
+        destination raises :class:`ChunkStoreError`."""
+        p_cnt = g.spec.num_partitions
+        if num_workers < 1 or p_cnt % num_workers != 0:
+            raise ValueError(
+                f"num_workers={num_workers} must divide "
+                f"num_partitions={p_cnt} (contiguous ownership blocks)")
+        per = p_cnt // num_workers
+        shards = [cls.build(g, fmts, os.path.join(root, f"w{w}"),
+                            partitions=range(w * per, (w + 1) * per),
+                            compression=compression)
+                  for w in range(num_workers)]
+        smani = dict(version=MANIFEST_VERSION, num_workers=num_workers,
+                     num_partitions=p_cnt)
+        smani["manifest_crc"] = manifest_self_crc(smani)
+        atomic_write_json(os.path.join(root, SHARD_MANIFEST_NAME), smani)
+        return ShardedChunkStore(root, shards)
+
+    @classmethod
     def open(cls, root: str) -> "ChunkStore":
         path = os.path.join(root, MANIFEST_NAME)
         try:
@@ -591,6 +623,105 @@ class ChunkStore:
                         f"'{_CRC_SECTION_NAMES[sec]}' crc mismatch "
                         f"(stored {want}, read {got})")
         return damage
+
+
+class ShardedChunkStore:
+    """W per-worker :class:`ChunkStore` shards under one root (dist_ooc).
+
+    Worker ``w`` owns the contiguous block of ``P / W`` destination
+    partitions ``[w * P/W, (w+1) * P/W)`` and its shard holds only those
+    partitions' edge files — each worker reads only its own root, the
+    distributed analogue of the paper's per-node storage."""
+
+    def __init__(self, root: str, shards: list[ChunkStore]):
+        self.root = root
+        self.shards = shards
+        self.num_workers = len(shards)
+        self.num_partitions = shards[0].num_partitions
+        self.per_worker = self.num_partitions // self.num_workers
+        # THE partition -> worker ownership map (contiguous blocks)
+        self.worker_of = np.repeat(np.arange(self.num_workers),
+                                   self.per_worker)
+        for w, s in enumerate(shards):
+            expect = tuple(range(w * self.per_worker,
+                                 (w + 1) * self.per_worker))
+            if tuple(s.partitions) != expect:
+                raise ChunkStoreError(
+                    f"shard {s.root} owns partitions {list(s.partitions)}, "
+                    f"expected {list(expect)} for worker {w}")
+
+    @classmethod
+    def open(cls, root: str) -> "ShardedChunkStore":
+        path = os.path.join(root, SHARD_MANIFEST_NAME)
+        try:
+            with open(path) as f:
+                meta = json.load(f)
+        except OSError as exc:
+            raise ChunkStoreError(
+                f"cannot read shard manifest {path}: {exc}") from exc
+        except json.JSONDecodeError as exc:
+            raise ChunkStoreError(
+                f"shard manifest {path} is truncated or corrupt "
+                f"(invalid JSON: {exc})") from exc
+        missing = [k for k in ("version", "num_workers", "num_partitions")
+                   if k not in meta]
+        if missing:
+            raise ChunkStoreError(
+                f"shard manifest {path} is truncated or corrupt "
+                f"(missing keys: {missing})")
+        # the version gate first: a manifest of another version may
+        # predate the manifest_crc field
+        if meta["version"] != MANIFEST_VERSION:
+            raise ChunkStoreError(
+                f"shard manifest {path}: found version {meta['version']!r}, "
+                f"expected {MANIFEST_VERSION} (the chunk layout changed; "
+                f"rebuild with ChunkStore.build_sharded)")
+        if not isinstance(meta["num_workers"], int) \
+                or meta["num_workers"] < 1:
+            raise ChunkStoreError(
+                f"shard manifest {path}: num_workers "
+                f"{meta['num_workers']!r} is not a positive integer")
+        if "manifest_crc" not in meta:
+            raise ChunkStoreError(
+                f"shard manifest {path} is truncated or corrupt "
+                f"(missing keys: ['manifest_crc'])")
+        if manifest_self_crc(meta) != meta["manifest_crc"]:
+            raise IntegrityError(
+                f"shard manifest {path} failed its checksum "
+                f"(stored manifest_crc {meta['manifest_crc']}, "
+                f"computed {manifest_self_crc(meta)})")
+        shards = [ChunkStore.open(os.path.join(root, f"w{w}"))
+                  for w in range(meta["num_workers"])]
+        if shards[0].num_partitions != meta["num_partitions"]:
+            raise ChunkStoreError(
+                f"shard manifest {path}: num_partitions "
+                f"{meta['num_partitions']} does not match the worker "
+                f"shards' manifests ({shards[0].num_partitions})")
+        return cls(root, shards)
+
+    def reset_io_counters(self) -> None:
+        for s in self.shards:
+            s.reset_io_counters()
+
+    def verify(self) -> list[str]:
+        """Scrub every shard; damage strings name shard files."""
+        damage = []
+        for s in self.shards:
+            damage.extend(s.verify())
+        return damage
+
+    def reopen_shard(self, w: int) -> ChunkStore:
+        """Re-open worker ``w``'s shard from disk — fresh manifest
+        validation and new maps — and swap it into the shard list (the
+        adoption path of a process-mode recovery: shards are immutable
+        files under one shared root)."""
+        if not 0 <= w < self.num_workers:
+            raise ChunkStoreError(
+                f"reopen_shard: worker {w} out of range "
+                f"[0, {self.num_workers})")
+        fresh = ChunkStore.open(os.path.join(self.root, f"w{w}"))
+        self.shards[w] = fresh
+        return fresh
 
 
 class StagingRing:
@@ -1096,7 +1227,10 @@ class ChunkPrefetcher:
     allocator does not hand their memory out early.
 
     ``compute_lock`` is an optional shared compute token held for each
-    host decode burst (never across a queue put/get).  ``device_decode``
+    host decode burst (never across a queue put/get).  ``runner`` is an
+    optional long-lived executor that hosts the prefetch loop instead of a
+    thread of its own (the parallel dist_ooc executor reuses one per
+    engine).  ``device_decode``
     decodes each item on ``device`` through :class:`DeviceChunkDecoder`
     (the fused decode), outside the token; the host decode packs the
     codec's columns into the staging buffer instead.  Either way the work
@@ -1107,7 +1241,7 @@ class ChunkPrefetcher:
 
     def __init__(self, source: DiskChunkSource, schedule, depth: int = 2,
                  compute_lock=None, device_decode: bool = False,
-                 device=None):
+                 device=None, runner=None):
         self._source = source
         self._schedule = schedule
         self._device_decode = bool(device_decode)
@@ -1122,8 +1256,12 @@ class ChunkPrefetcher:
         self._lock_ctx = token_ctx(compute_lock)
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
-        self._thread = threading.Thread(target=self._run, daemon=True)
-        self._thread.start()
+        if runner is None:
+            thread = threading.Thread(target=self._run, daemon=True)
+            thread.start()
+            self._join = thread.join
+        else:
+            self._join = runner.submit(self._run).exception
 
     def _put(self, item) -> bool:
         """Blocking put that aborts when the consumer closed the pipeline
@@ -1216,7 +1354,7 @@ class ChunkPrefetcher:
                 self._queue.get_nowait()
             except queue.Empty:
                 break
-        self._thread.join()
+        self._join()
 
     def __iter__(self) -> Iterator[BatchWork]:
         try:

@@ -1,5 +1,6 @@
 """DFOGraph engine: vertex-centric push with signal/slot (paper §3) — the
-LOCAL and OOC subset of ``repro.core.engine``, single- and multi-query.
+LOCAL, OOC and DIST_OOC subset of ``repro.core.engine``, single- and
+multi-query.
 
 ProcessEdges runs the paper's four phases:
   1. generating          — active vertices produce messages (``signal``),
@@ -20,6 +21,12 @@ executors of :mod:`repro_torch.core.executor` realize them:
     in a :class:`~repro_torch.core.chunkstore.VertexSpill`; only the reads
     the selective schedule marks necessary are issued, and measured bytes
     are cross-checked against the analytic model (``verify_io``).
+  * ``DIST_OOC`` (``executor="dist_ooc"``) — W workers, each with its own
+    shard of a :class:`~repro_torch.core.chunkstore.ShardedChunkStore` and
+    its own vertex spill, exchanging need-list-filtered message batches
+    over a measured wire (:mod:`repro_torch.core.exchange`); network bytes
+    are audited against the model too.  ``parallel_workers`` runs the
+    workers on thread pools with bit-identical results.
 
 ``process_edges_multi`` / ``process_vertices_multi`` serve
 ``EngineConfig.num_queries`` concurrent queries through one selective pass
@@ -38,15 +45,20 @@ Phase 4 runs on a configurable compute backend
 partition, destination batch) tiles that zero-skips chunks which received
 no messages (selective computation, §4.1/§4.4, on the compute path).
 
-LOCAL counters are float32 0-d tensors, as in the reference; OOC counters
-are Python floats from the host phases, as in the reference.  Algorithm
-loops accumulate both in Python floats.
+LOCAL counters are float32 0-d tensors, as in the reference; OOC and
+DIST_OOC counters are Python floats from the host phases, as in the
+reference.  Algorithm loops accumulate both in Python floats.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import threading
+import time
 import warnings
+from collections.abc import Mapping
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict
 
 import numpy as np
@@ -55,17 +67,20 @@ import torch
 from repro_torch.core import executor as _executor
 from repro_torch.core import multiquery as _multiquery
 from repro_torch.core.chunkstore import (
-    ChunkStore, DiskChunkSource, VertexSpill,
+    ChunkStore, DiskChunkSource, ShardedChunkStore, VertexSpill,
 )
+from repro_torch.core.exchange import WIRE_MSG_BYTES
 from repro_torch.core.formats import ChunkFormats, _np, build_block_tiles
 from repro_torch.core.partition import DistGraph
-from repro_torch.core.phases import batch_touched, bitmap_model_bytes
-from repro_torch.utils import resolve_device
+from repro_torch.core.phases import (
+    batch_touched, bitmap_model_bytes, reduce_worker_counters,
+)
+from repro_torch.utils import resolve_device, token_ctx
 
 State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
 
 # The slices of the port that bring what this one does not run.
-SLICE_DIST_OOC = "slice 4 (distributed out of core)"
+SLICE_DIST_MQ = "slice 4 item 3 (DIST_OOC multi-query)"
 SLICE_MESH = "slice 5 (the mesh executor)"
 SLICE_PROCESS = "slice 6 (process mode)"
 
@@ -101,9 +116,9 @@ MAX = Monoid("max", float(np.finfo(np.float32).min))
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Tunables mirroring the paper's knobs, with the reference's field
-    names and defaults.  Fields the port does not run yet (the
-    distributed and mesh ones) keep their defaults; anything else raises
-    ``NotImplementedError`` naming the slice that brings it."""
+    names and defaults.  Fields the port does not run yet (the mesh one)
+    keep their defaults; anything else raises ``NotImplementedError``
+    naming the slice that brings it."""
 
     enable_filtering: bool = True
     """Apply the paper's §4.3 need-list message filter in phase 2."""
@@ -147,31 +162,38 @@ class EngineConfig:
 
     executor: str = "auto"
     """``"auto"`` is LOCAL; ``"ooc"`` streams disk-resident chunks on one
-    host (requires ``store=ChunkStore.build(...)``); ``"dist_ooc"`` comes
-    with a later slice."""
+    host (requires ``store=ChunkStore.build(...)``); ``"dist_ooc"`` runs
+    ``num_workers`` workers over a sharded store (requires
+    ``store=ChunkStore.build_sharded(...)``)."""
 
     verify_io: bool = True
-    """For ooc: raise inside every call if any measured counter (disk
-    bytes, chunks) deviates from the analytic model.  The repo's
-    signature invariant; leave it on."""
+    """For ooc / dist_ooc: raise inside every call if any measured counter
+    (disk bytes, chunks; on dist_ooc also the wire's bytes) deviates from
+    the analytic model.  The repo's signature invariant; leave it on."""
 
     ooc_prefetch_depth: int = 2
     """How many decoded dst-batch work items the chunk prefetch thread may
     run ahead of the combine (2 = classic double buffering)."""
 
     num_workers: int = 1
-    """W for ``executor="dist_ooc"`` (later slices)."""
+    """W for ``executor="dist_ooc"``: must equal the sharded store's
+    worker count."""
 
     parallel_workers: bool = False
-    """dist_ooc only (later slices)."""
+    """dist_ooc only: run the W send loops and the W receive pipelines on
+    thread pools (DESIGN.md §8).  Every float a worker produces is reduced
+    in worker order after each phase joins, so results and counters are
+    bit-identical to the sequential run."""
 
     device_decode: bool | None = None
-    """ooc, compressed stores only: decode chunk payloads on the engine's
-    device with the varint/delta kernels (``kernels/varint.py``) instead
-    of the host numpy codec (DESIGN.md §10).  Bytes read, the byte model
-    and the decoded triples are bit-identical either way.  ``None`` (auto)
-    enables it exactly when the engine's device is CUDA and compression is
-    on; uncompressed stores always decode on the host (their payload is a
+    """ooc / dist_ooc, compressed stores only: decode chunk payloads on
+    the engine's device (the fused decode, ``kernels/chunk_decode.py``)
+    instead of the host numpy codec (DESIGN.md §10), and on dist_ooc also
+    the wire's gap streams (the LEB128 stencil and the add scan of
+    ``kernels/varint.py``).  Bytes read, the byte models and the decoded
+    values are bit-identical either way.  ``None`` (auto) enables it
+    exactly when the engine's device is CUDA and compression is on;
+    uncompressed stores always decode on the host (their payload is a
     plain memcpy, nothing to decode)."""
 
     physical_sparse_exchange: bool | None = None
@@ -222,6 +244,44 @@ MEASURED_PAIRS = (
     ("measured_vertex_write_bytes", "vertex_write_bytes"),
 )
 
+# dist_ooc additionally audits the wire: bytes serialized across workers
+# against the analytic network model, plus which encoding each
+# cross-worker batch chose.
+DIST_MEASURED_KEYS = (
+    "measured_net_bytes", "net_pair_batches", "net_vpair_batches",
+    "net_slab_batches", "net_uval_batches",
+)
+
+DIST_MEASURED_PAIRS = MEASURED_PAIRS + (
+    ("measured_net_bytes", "net_bytes"),
+)
+
+
+class _BlockState(Mapping):
+    """Mapping view of the per-worker spill blocks as one [P, V] state.
+
+    Each value concatenates the workers' contiguous partition rows on
+    first access (cached thereafter).  Like the OOC executor's memmap
+    views, the spills are authoritative: values reflect them as of first
+    access, and a state is consumed before the next engine call mutates
+    them (the algorithms' pattern)."""
+
+    def __init__(self, views: list):
+        self._views = views
+        self._cache: dict = {}
+
+    def __getitem__(self, key):
+        if key not in self._cache:
+            self._cache[key] = np.concatenate(
+                [v[key] for v in self._views], axis=0)
+        return self._cache[key]
+
+    def __iter__(self):
+        return iter(self._views[0])
+
+    def __len__(self):
+        return len(self._views[0])
+
 
 def zero_counters(device=None) -> Dict[str, torch.Tensor]:
     return {k: torch.zeros((), dtype=torch.float32, device=device)
@@ -254,9 +314,10 @@ class Engine:
                  *, device=None):
         if config.executor not in ("auto", "ooc", "dist_ooc"):
             raise ValueError(f"unknown executor: {config.executor!r}")
-        if config.executor == "dist_ooc":
+        if config.executor == "dist_ooc" and config.num_queries != 1:
             raise NotImplementedError(
-                f"executor='dist_ooc' comes with {SLICE_DIST_OOC}")
+                f"executor='dist_ooc' with num_queries > 1 comes with "
+                f"{SLICE_DIST_MQ}")
         if mesh is not None or config.physical_sparse_exchange:
             raise NotImplementedError(
                 f"the SHARD_MAP executor comes with {SLICE_MESH}")
@@ -266,7 +327,7 @@ class Engine:
         if config.num_queries < 1:
             raise ValueError(
                 f"num_queries must be >= 1, got {config.num_queries}")
-        if config.parallel_workers:
+        if config.parallel_workers and config.executor != "dist_ooc":
             raise ValueError(
                 "parallel_workers applies only to executor='dist_ooc' (the "
                 "other executors have no per-worker loops to overlap); got "
@@ -286,13 +347,19 @@ class Engine:
                + np.arange(spec.v_max, dtype=np.int32)[None, :])
         self.global_id = torch.from_numpy(gid).to(self.device)   # [P, V]
         self._ooc = config.executor == "ooc"
+        self._dist_ooc = config.executor == "dist_ooc"
         if config.device_decode is None:
-            self.device_decode = (config.compression and self._ooc
+            self.device_decode = (config.compression
+                                  and (self._ooc or self._dist_ooc)
                                   and self.device.type == "cuda")
         else:
             self.device_decode = bool(config.device_decode)
+        self._measured_pairs = (DIST_MEASURED_PAIRS if self._dist_ooc
+                                else MEASURED_PAIRS)
         if self._ooc:
             self._init_ooc(store, fmts)
+        if self._dist_ooc:
+            self._init_dist_ooc(store, fmts)
         # block_csr backend state (built lazily on first use)
         self._block = None
         self._block_host = None
@@ -301,18 +368,27 @@ class Engine:
         self._pe_cache: dict = {}
         self._warned_slot_fallback = False
 
+    def _init_out_of_core(self):
+        """What both out-of-core executors share: the validations of the
+        reference and the slots that recognize returned states."""
+        config = self.config
+        name = config.executor
+        if not config.enable_adaptive_formats:
+            raise ValueError(
+                f"executor={name!r} requires enable_adaptive_formats: the "
+                "non-adaptive model prices DCSR-only chunks at 0 bytes, "
+                "which no physical read can match")
+        if not config.account_io:
+            raise ValueError(f"executor={name!r} requires account_io (the "
+                             "measured/modeled cross-check needs both)")
+        self._ooc_last_state = None
+        self._mq_last_state = None
+
     def _init_ooc(self, store, fmts):
         """OOC executor state (DESIGN.md §6): the validations of the
         reference, the disk chunk source and the vertex spill."""
         config, spec = self.config, self._host_graph.spec
-        if not config.enable_adaptive_formats:
-            raise ValueError(
-                "executor='ooc' requires enable_adaptive_formats: the "
-                "non-adaptive model prices DCSR-only chunks at 0 bytes, "
-                "which no physical read can match")
-        if not config.account_io:
-            raise ValueError("executor='ooc' requires account_io (the "
-                             "measured/modeled cross-check needs both)")
+        self._init_out_of_core()
         if not isinstance(store, ChunkStore):
             raise ValueError("executor='ooc' requires a ChunkStore "
                              "(ChunkStore.build(graph, fmts, root))")
@@ -323,10 +399,67 @@ class Engine:
             os.path.join(store.root, "vertex"), spec.num_partitions,
             spec.num_batches, spec.batch_size, spec.v_max,
             num_queries=config.num_queries)
-        self._ooc_last_state = None
-        self._mq_last_state = None
         # host wall seconds per OOC stage (executor.OOC_WALL_KEYS)
         self.ooc_wall = dict.fromkeys(_executor.OOC_WALL_KEYS, 0.0)
+
+    def _init_dist_ooc(self, store, fmts):
+        """DIST_OOC executor state (DESIGN.md §7, §8): the validations of
+        the reference, one disk chunk source and one vertex spill per
+        worker shard, and (``parallel_workers``) the two long-lived thread
+        pools."""
+        config, spec = self.config, self._host_graph.spec
+        self._init_out_of_core()
+        if not isinstance(store, ShardedChunkStore):
+            raise ValueError(
+                "executor='dist_ooc' requires a ShardedChunkStore "
+                "(ChunkStore.build_sharded(graph, fmts, root, W))")
+        if store.num_workers != config.num_workers:
+            raise ValueError(
+                f"num_workers={config.num_workers} does not match the "
+                f"sharded store's {store.num_workers} worker shards")
+        if config.msg_bytes != WIRE_MSG_BYTES:
+            raise ValueError(
+                f"executor='dist_ooc' serializes float32 message values "
+                f"on the wire; msg_bytes must be {WIRE_MSG_BYTES} so "
+                "measured network bytes can equal the model")
+        for s in store.shards:
+            self.check_store_spec(s.manifest, s.root, fmts)
+        self.counter_keys = COUNTER_KEYS + MEASURED_KEYS + DIST_MEASURED_KEYS
+        self.worker_parts = [tuple(s.partitions) for s in store.shards]
+        self.worker_of = store.worker_of
+        self.dist_sources = [DiskChunkSource(s, self._host_graph, fmts)
+                             for s in store.shards]
+        self.spills = [VertexSpill(
+            os.path.join(s.root, "vertex"), len(parts), spec.num_batches,
+            spec.batch_size, spec.v_max, num_queries=config.num_queries)
+            for s, parts in zip(store.shards, self.worker_parts)]
+        self.reset_worker_totals()
+        # Long-lived pools (parallel_workers): one thread per worker for
+        # the phase barriers, and two per worker for the pipelines (one
+        # prefetcher + one decode-ahead each); idle threads exit when the
+        # engine is collected.
+        self.worker_pool = (
+            ThreadPoolExecutor(max_workers=config.num_workers,
+                               thread_name_prefix="dist-worker")
+            if config.parallel_workers else None)
+        self.pipeline_pool = (
+            ThreadPoolExecutor(max_workers=2 * config.num_workers,
+                               thread_name_prefix="dist-pipeline")
+            if config.parallel_workers else None)
+
+    def reset_worker_totals(self) -> None:
+        """Per-worker measured traffic accumulated across calls
+        (``worker_totals``: disk bytes, wire bytes sent, edges touched),
+        and per-worker host wall seconds per phase and stage
+        (``worker_times``, ``executor.DIST_WALL_KEYS``).  The timings live
+        beside the traffic totals so that those stay bit-identical between
+        sequential and parallel runs."""
+        self.worker_totals = [
+            dict(disk_bytes=0.0, net_bytes=0.0, edges_touched=0.0)
+            for _ in range(self.config.num_workers)]
+        self.worker_times = [
+            dict.fromkeys(_executor.DIST_WALL_KEYS, 0.0)
+            for _ in range(self.config.num_workers)]
 
     def check_store_spec(self, manifest, root, fmts):
         """A store built for a different partitioning or layout must fail
@@ -373,9 +506,25 @@ class Engine:
         if state is self._ooc_last_state:
             return
         self._mq_last_state = None
-        self.spill.load({k: _np(v) for k, v in state.items()})
-        self.spill.write_bitmap(_np(self._host_graph.vertex_valid))
+        arrs = {k: _np(v) for k, v in state.items()}
+        valid = _np(self._host_graph.vertex_valid)
+        if self._dist_ooc:
+            for spill, parts in zip(self.spills, self.worker_parts):
+                lo, hi = parts[0], parts[-1] + 1
+                spill.load({k: v[lo:hi] for k, v in arrs.items()})
+                spill.write_bitmap(valid[lo:hi])
+                spill.reset_io_counters()
+            return
+        self.spill.load(arrs)
+        self.spill.write_bitmap(valid)
         self.spill.reset_io_counters()
+
+    def _dist_state_views(self) -> State:
+        """Lazy [P, V] state over the per-worker spills (contiguous
+        partition blocks, in order): the per-key concatenation waits for a
+        caller that reads it, so intermediate iterations, which only pass
+        the state back by identity, never materialize it."""
+        return _BlockState([sp.state_views() for sp in self.spills])
 
     def _sync_mq_state(self, state: State) -> None:
         """Multi-query twin of :meth:`_sync_ooc_state`: make the spill
@@ -397,11 +546,12 @@ class Engine:
         self.spill.reset_io_counters()
 
     def _check_measured(self, counters: dict) -> None:
-        """Cross-check measured storage traffic against the analytic model
-        (the fully-out-of-core claim, enforced every call)."""
+        """Cross-check measured storage (and, for dist_ooc, network)
+        traffic against the analytic model (the fully-out-of-core claim,
+        enforced every call)."""
         if not self.config.verify_io:
             return
-        for mk, ak in MEASURED_PAIRS:
+        for mk, ak in self._measured_pairs:
             if abs(float(counters[mk]) - float(counters[ak])) > 0.5:
                 raise RuntimeError(
                     f"{self.config.executor} measured/model I/O mismatch: "
@@ -461,6 +611,8 @@ class Engine:
         no active vertex are skipped in the I/O model (paper §4.4)."""
         if self._ooc:
             return self._ooc_process_vertices(state, work_fn, active)
+        if self._dist_ooc:
+            return self._dist_process_vertices(state, work_fn, active)
         g, cfg = self.graph, self.config
         vertex_valid = g.vertex_valid
         amask = vertex_valid if active is None else (active & vertex_valid)
@@ -480,10 +632,11 @@ class Engine:
 
     def _spill_process_vertices(self, spill, amask_rows, gid_rows, work_fn,
                                 counters):
-        """ProcessVertices against one spill: measured bitmap and
-        active-batch reads, ``work_fn`` on the device, measured write-back;
-        accumulates the modeled and measured vertex-I/O counters and
-        returns the total of ``ret``."""
+        """ProcessVertices against one spill (OOC's, or one dist_ooc
+        worker's): measured bitmap and active-batch reads, ``work_fn`` on
+        the device, measured write-back; accumulates the modeled and
+        measured vertex-I/O counters and returns (the total of ``ret``,
+        measured bytes read, measured bytes written)."""
         spec = self.graph.spec
         bs, b_cnt, v_max = spec.batch_size, spec.num_batches, spec.v_max
         sr0, sw0 = spill.bytes_read, spill.bytes_written
@@ -502,9 +655,10 @@ class Engine:
         counters["vertex_read_bytes"] += (touched * arrays_bytes
                                           + float(spill.bitmap_nbytes()))
         counters["vertex_write_bytes"] += touched * arrays_bytes
-        counters["measured_vertex_read_bytes"] += spill.bytes_read - sr0
-        counters["measured_vertex_write_bytes"] += spill.bytes_written - sw0
-        return total
+        dr, dw = spill.bytes_read - sr0, spill.bytes_written - sw0
+        counters["measured_vertex_read_bytes"] += dr
+        counters["measured_vertex_write_bytes"] += dw
+        return total, dr, dw
 
     def _ooc_process_vertices(self, state, work_fn, active):
         """ProcessVertices against the disk-resident vertex spill."""
@@ -513,10 +667,52 @@ class Engine:
         amask = (vertex_valid if active is None
                  else _np(active).astype(bool) & vertex_valid)
         counters = {k: 0.0 for k in self.counter_keys}
-        total = self._spill_process_vertices(
+        total, _, _ = self._spill_process_vertices(
             self.spill, amask, self.global_id, work_fn, counters)
         self._check_measured(counters)
         new_state = self.spill.state_views()
+        self._ooc_last_state = new_state
+        return new_state, total, counters
+
+    def _dist_process_vertices(self, state, work_fn, active):
+        """ProcessVertices with each worker serving only its own spill, on
+        the ProcessEdges phase pool when ``parallel_workers`` is on; each
+        worker accumulates into a private counter dict, reduced in worker
+        order after the join (parallel == sequential, bit for bit)."""
+        self._sync_ooc_state(state)
+        vertex_valid = _np(self._host_graph.vertex_valid)
+        amask = (vertex_valid if active is None
+                 else _np(active).astype(bool) & vertex_valid)
+        counters = {k: 0.0 for k in self.counter_keys}
+        token = threading.Lock() if self.config.parallel_workers else None
+        tok = token_ctx(token)
+
+        def pv_task(w):
+            t0 = time.perf_counter()
+            parts = self.worker_parts[w]
+            lo, hi = parts[0], parts[-1] + 1
+            cw = dict.fromkeys(
+                ("vertex_read_bytes", "vertex_write_bytes",
+                 "measured_vertex_read_bytes",
+                 "measured_vertex_write_bytes"), 0.0)
+            with tok:
+                t, dr, dw = self._spill_process_vertices(
+                    self.spills[w], amask[lo:hi], self.global_id[lo:hi],
+                    work_fn, cw)
+            self.worker_totals[w]["disk_bytes"] += dr + dw
+            return cw, t, time.perf_counter() - t0
+
+        out = _executor.run_worker_pool(
+            [functools.partial(pv_task, w)
+             for w in range(self.config.num_workers)],
+            self.config.parallel_workers, pool=self.worker_pool)
+        reduce_worker_counters(counters, [cw for cw, _, _ in out])
+        total = 0.0
+        for w, (_, t, dt) in enumerate(out):
+            total += t
+            self.worker_times[w]["pv_s"] += dt
+        self._check_measured(counters)
+        new_state = self._dist_state_views()
         self._ooc_last_state = new_state
         return new_state, total, counters
 
@@ -540,7 +736,7 @@ class Engine:
         backend = self.config.compute_backend
         if backend not in ("segment", "block_csr"):
             raise ValueError(f"unknown compute_backend: {backend!r}")
-        if self._ooc:
+        if self._ooc or self._dist_ooc:
             return self._ooc_process_edges(state, signal_fn, slot_fn,
                                            monoid, apply_fn, active, backend)
         mode_meta, vals = None, None
@@ -572,9 +768,10 @@ class Engine:
 
     def _ooc_process_edges(self, state, signal_fn, slot_fn, monoid,
                            apply_fn, active, backend):
-        """OOC realization of :meth:`process_edges` (DESIGN.md §6): the
-        step of ``executor.make_ooc_pe`` against the spill, then the
-        measured-vs-model audit.  The returned state is the spill's
+        """OOC / DIST_OOC realization of :meth:`process_edges` (DESIGN.md
+        §6, §7): the step of ``executor.make_ooc_pe`` or
+        ``executor.make_dist_ooc_pe`` against the spill(s), then the
+        measured-vs-model audit.  The returned state is the spills'
         zero-copy host views; ``new_active`` is a host bool array."""
         mode_meta = None
         if backend == "block_csr":
@@ -588,11 +785,14 @@ class Engine:
                      for f in (signal_fn, slot_fn, apply_fn))
         cache_key = None
         if all(k is not None for k in keys):
-            cache_key = ("ooc",) + keys + (monoid.name, backend, mode_meta)
+            cache_key = (self.config.executor,) + keys + (
+                monoid.name, backend, mode_meta)
         fn = self._pe_cache.get(cache_key) if cache_key is not None else None
         if fn is None:
-            fn = _executor.make_ooc_pe(self, signal_fn, slot_fn, monoid,
-                                       apply_fn, backend, mode_meta)
+            make = (_executor.make_dist_ooc_pe if self._dist_ooc
+                    else _executor.make_ooc_pe)
+            fn = make(self, signal_fn, slot_fn, monoid, apply_fn, backend,
+                      mode_meta)
             if cache_key is not None:
                 self._pe_cache[cache_key] = fn
         self._sync_ooc_state(state)
@@ -602,6 +802,12 @@ class Engine:
         return new_state, new_active, total, counters
 
     # -- multi-query (DESIGN.md §11) -----------------------------------------
+    def _check_no_dist_mq(self) -> None:
+        if self._dist_ooc:
+            raise NotImplementedError(
+                f"multi-query calls on executor='dist_ooc' come with "
+                f"{SLICE_DIST_MQ}")
+
     def _check_mq_state(self, state, active) -> None:
         nq = self.config.num_queries
         for k, v in state.items():
@@ -638,6 +844,7 @@ class Engine:
         totals [Q], counters)."""
         cfg = self.config
         nq = cfg.num_queries
+        self._check_no_dist_mq()
         self._check_mq_state(state, active)
         if not cfg.enable_adaptive_formats:
             raise ValueError(
@@ -712,6 +919,7 @@ class Engine:
         costs zero vertex I/O (physically skipped on OOC).  Returns
         (new_state, totals [Q], counters)."""
         nq = self.config.num_queries
+        self._check_no_dist_mq()
         self._check_mq_state(state, active)
         if self._ooc:
             return self._mq_ooc_process_vertices(state, work_fn, active)

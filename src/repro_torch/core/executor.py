@@ -1,5 +1,5 @@
 """Chunk-scheduled ProcessEdges executors and the block-CSR slot lowering
-(DESIGN.md §1, §2, §6) — the LOCAL and OOC halves of
+(DESIGN.md §1, §2, §6–§8) — the LOCAL, OOC and DIST_OOC parts of
 ``repro.core.executor``.
 
 * ``make_local_pe`` runs on one device with the partition axis as a
@@ -13,8 +13,13 @@
   active, overlapping reads and decodes with the combine through a
   prefetch thread, and reports **measured** I/O counters next to the
   analytic ones.
+* ``make_dist_ooc_pe`` is distributed and fully out of core: W workers,
+  each with its own chunk-store shard and vertex spill, exchange
+  need-list-filtered message batches over a measured wire
+  (:mod:`repro_torch.core.exchange`), sequentially or on thread pools
+  with bit-identical results.
 
-Both price "network" traffic analytically with the same model
+All price "network" traffic analytically with the same model
 (``phases.routing_counts`` -> ``phases.net_bytes_model``).
 
 Phase 4 runs on one of two compute backends (``EngineConfig.compute_backend``):
@@ -32,20 +37,27 @@ a warning.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import hashlib
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 
 import numpy as np
 import torch
 
 from repro_torch.core import codec, phases
+from repro_torch.core import exchange as exchange_mod
 from repro_torch.core.chunkstore import (
     REP_CSR, REP_DCSR, REP_DCSR_DELTA, ChunkPrefetcher, HBMChunkSource,
+    ScheduleMark,
 )
 from repro_torch.core.formats import BlockTilesHost, _np
 from repro_torch.core.partition import row_block_batch_map
 from repro_torch.kernels.csr_spmv import block_csr_combine, build_tile_struct
-from repro_torch.utils import ceil_div
+from repro_torch.utils import ceil_div, token_ctx
 
 F32 = torch.float32
 
@@ -685,5 +697,356 @@ def make_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
         counters["measured_vertex_write_bytes"] = spill.bytes_written - sw0
         wall["apply_s"] += time.perf_counter() - t_apply
         return spill.state_views(), new_active, total, counters
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# DIST_OOC executor (per-worker chunk shards + filtered sparse exchange)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DestHeader(ScheduleMark):
+    """Per-destination-partition header of the lazy dist_ooc schedule.
+
+    Made on the prefetch thread as :class:`~repro_torch.core.exchange.
+    DecodeAhead` delivers partition q's receive view and phase 3's dispatch
+    runs over it, and forwarded through the chunk prefetch queue ahead of
+    q's work items, so the consumer learns each partition's receive view
+    and dispatch counters in stream order."""
+    q: int
+    recv_mask: np.ndarray      # [P, v_max] message presence per source part
+    recv_msg: np.ndarray       # [P, v_max] message values (0 off the mask)
+    counter_delta: dict        # phase-3 contributions of
+    #                            _dispatch_schedule_one_dest
+
+
+def run_worker_pool(thunks, parallel: bool, pool=None):
+    """Run one phase's per-worker thunks; results in worker index order.
+
+    ``parallel=False`` runs them inline — the sequential reference order.
+    ``parallel=True`` runs worker 0 on the calling thread and the others
+    on ``pool`` (or on a pool made for the call) and joins them all before
+    returning: the phase barrier the dist_ooc executor relies on (every
+    send posted before any receive drains the exchange).  Results, and an
+    exception (re-raised from the lowest-indexed failing worker after
+    every worker has finished), are the same either way."""
+    if not parallel or len(thunks) <= 1:
+        return [t() for t in thunks]
+    if pool is None:
+        with ThreadPoolExecutor(max_workers=len(thunks) - 1,
+                                thread_name_prefix="dist-worker") as tmp:
+            futures = [tmp.submit(t) for t in thunks[1:]]
+            first = thunks[0]()
+            return [first] + [f.result() for f in futures]
+    futures = [pool.submit(t) for t in thunks[1:]]
+    try:
+        first = thunks[0]()
+    except BaseException:
+        futures_wait(futures)      # a full barrier even when worker 0
+        raise                      # fails on the calling thread
+    futures_wait(futures)
+    return [first] + [f.result() for f in futures]
+
+
+# Host wall seconds per worker and stage, accumulated in
+# ``engine.worker_times`` beside the reference's send_s / recv_s / pv_s:
+# the wire's encode + post inside the send loop and its decode + assembly
+# on the decode-ahead thread, then the receive pipeline's OOC split.
+DIST_WALL_KEYS = ("send_s", "recv_s", "pv_s", "post_s", "take_s", "read_s",
+                  "decode_s", "wait_s", "combine_s", "apply_s")
+
+
+def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
+                     mode_meta):
+    """Distributed fully-out-of-core ProcessEdges (DESIGN.md §7, §8).
+
+    W workers each own a contiguous block of destination partitions backed
+    by their own chunk-store shard and vertex spill.  Send side (host
+    numpy, as OOC's phases 1–3): each worker reads its active vertex
+    batches, generates messages on the engine's device, filters them and
+    posts one batch per nonempty (p, q) send list through an
+    :class:`~repro_torch.core.exchange.Exchange` — serialized in the
+    adaptively chosen wire format when it crosses workers (measured
+    network bytes), by reference otherwise.  Receive side: one long-lived
+    pipeline per worker — a lazy schedule advanced on the prefetch thread
+    iterates :class:`~repro_torch.core.exchange.DecodeAhead` (partition
+    q+1's batches decode, their gap streams on the device when
+    ``device_decode``, while q is in flight), prices q's dispatch with the
+    float64 host model as its view lands, and feeds a :class:`DestHeader`
+    and the selective schedule's chunk reads to one
+    :class:`~repro_torch.core.chunkstore.ChunkPrefetcher`.  The consumer
+    combines each streamed batch on the device (one block-CSR launch per
+    batch over its real tiles, or the segment scatter) into its own rows
+    of ``agg`` / ``has`` and applies into its spill.
+
+    With ``EngineConfig.parallel_workers`` the W send loops and the W
+    receive pipelines run on thread pools; every float a worker produces
+    accumulates in worker-private state (its edges-touched tensor
+    included) and is reduced in worker order after the join
+    (``phases.reduce_worker_counters``), so parallel runs are
+    bit-identical to sequential ones."""
+    cfg = engine.config
+    g = engine._host_graph
+    spec = g.spec
+    dev = engine.device
+    p_cnt, v_max = spec.num_partitions, spec.v_max
+    b_cnt, bs = spec.num_batches, spec.batch_size
+    n_workers = cfg.num_workers
+    worker_parts = engine.worker_parts
+    worker_of = engine.worker_of
+    spills = engine.spills
+    sources = engine.dist_sources
+    need = _np(g.need)
+    need_counts = _np(g.need_counts).astype(np.float64)
+    vertex_valid = _np(g.vertex_valid)
+    global_id = engine.global_id
+    part_sizes = np.asarray(spec.partition_sizes(), np.float32)
+    gamma = engine.fmts.gamma
+    identity = float(monoid.identity)
+    mb = cfg.msg_bytes + 4
+    mode = blk = a_const = v_pad_t = None
+    if backend == "block_csr":
+        tile = cfg.block_tile
+        v_pad_t = ceil_div(v_max, tile) * tile
+        blk = (tile, v_pad_t // tile, ceil_div(bs, tile), bs)
+        mode, a_const = mode_meta
+    parallel = cfg.parallel_workers
+    wire_device = dev if engine.device_decode else None
+    cross = worker_of[np.newaxis, :] != worker_of[:, np.newaxis]
+
+    def step(active):
+        counters = {k: 0.0 for k in engine.counter_keys}
+        amask = (vertex_valid if active is None
+                 else _np(active).astype(bool) & vertex_valid)
+        arrays_bytes = spills[0].arrays_bytes()
+        spill_io0 = [(sp.bytes_read, sp.bytes_written) for sp in spills]
+        store_io0 = [(src.store.chunks_read, src.store.bytes_read)
+                     for src in sources]
+        ex = exchange_mod.Exchange(n_workers, v_max,
+                                   compression=cfg.compression)
+        # The shared compute token (utils.token_ctx): the host bursts of
+        # the W pipelines take turns; queue hand-offs and blocking waits
+        # happen outside it.
+        token = threading.Lock() if parallel else None
+        tok = token_ctx(token)
+
+        # Phases 1 + 2 per worker: generate from the worker's spill, filter
+        # and post.  Each returns its own routing columns, assembled in
+        # worker order after the join.
+        def send_task(w):
+            t0 = time.perf_counter()
+            parts = worker_parts[w]
+            lo, hi = parts[0], parts[-1] + 1
+            spill = spills[w]
+            with tok:                       # compute token: generate burst
+                spill.read_bitmap()                         # measured
+                am_w = amask[lo:hi]
+                gen_b = _batch_any(am_w, bs, b_cnt)
+                gstate = {k: v[:, :v_max]
+                          for k, v in spill.read(gen_b).items()}  # measured
+                msg_w = signal_fn(_device_state(gstate, dev),
+                                  global_id[lo:hi]).to(F32).cpu().numpy()
+            counts_w = np.zeros((p_cnt, len(parts)), np.float64)
+            gapb_w = np.zeros((p_cnt, len(parts)), np.float64)
+            unib_w = np.zeros((p_cnt, len(parts)), bool)
+            post_s = 0.0
+            for i, p in enumerate(parts):
+                with tok:                   # compute token: filter + encode
+                    m_p = float(am_w[i].sum())
+                    sendmask = phases.filter_sendmask(
+                        am_w[i], need[p], need_counts[p], m_p, cfg, xp=np)
+                    counts_w[:, i] = phases.routing_counts(sendmask, xp=np)
+                    if cfg.compression:
+                        # the model's data-dependent terms, on the very
+                        # masks the wire serializes
+                        gapb_w[:, i] = codec.mask_gap_bytes(sendmask, xp=np)
+                        unib_w[:, i] = phases.batch_value_uniform(
+                            sendmask, msg_w[i][None, :], xp=np)
+                    t1 = time.perf_counter()
+                    for q in range(p_cnt):
+                        c = int(counts_w[q, i])
+                        if c:
+                            ex.post(w, int(worker_of[q]), p, q, sendmask[q],
+                                    msg_w[i], count=c)
+                    post_s += time.perf_counter() - t1
+            return (counts_w, gapb_w, unib_w, float(gen_b.sum()),
+                    time.perf_counter() - t0, post_s)
+
+        send_out = run_worker_pool(
+            [functools.partial(send_task, w) for w in range(n_workers)],
+            parallel, pool=engine.worker_pool)
+        counts = np.zeros((p_cnt, p_cnt), np.float64)       # [q, p] routing
+        gapb = np.zeros((p_cnt, p_cnt), np.float64)
+        unib = np.zeros((p_cnt, p_cnt), bool)
+        gen_batches_total = 0.0
+        for w, (counts_w, gapb_w, unib_w, gen_b_sum, dt, post_s) in \
+                enumerate(send_out):
+            lo, hi = worker_parts[w][0], worker_parts[w][-1] + 1
+            counts[:, lo:hi] = counts_w
+            gapb[:, lo:hi] = gapb_w
+            unib[:, lo:hi] = unib_w
+            gen_batches_total += gen_b_sum
+            engine.worker_times[w]["send_s"] += dt
+            engine.worker_times[w]["post_s"] += post_s
+
+        n_active = float(amask.sum())
+        counters["msgs_generated"] = n_active
+        counters["msg_disk_bytes"] = n_active * mb
+        counters["msgs_sent"] = float(counts.sum())
+        counters["msgs_sent_nofilter"] = p_cnt * n_active
+        counters["net_bytes_nofilter"] = (p_cnt - 1) * n_active * mb
+        # Modeled network traffic from the routing counts the wire used;
+        # a batch crosses iff its source and destination workers differ.
+        net, net_raw = phases.net_bytes_model(
+            counts, cross, v_max, cfg.msg_bytes,
+            gap_bytes=gapb if cfg.compression else None,
+            uniform=unib if cfg.compression else None, xp=np)
+        counters["net_bytes"] = float(net)
+        counters["net_bytes_raw"] = float(net_raw)
+        counters["measured_net_bytes"] = ex.bytes_sent
+        counters["net_pair_batches"] = float(ex.pair_batches)
+        counters["net_slab_batches"] = float(ex.slab_batches)
+        counters["net_vpair_batches"] = float(ex.vpair_batches)
+        counters["net_uval_batches"] = float(ex.uval_batches)
+
+        # Phases 3 + 4 + apply per worker, against its own shard.  The
+        # send pool has joined, so every batch is posted before a receive
+        # drains the exchange.  Rows of agg / has / new_active are
+        # partitioned by ownership: the concurrent writes never alias.
+        agg = torch.full((p_cnt, v_max), identity, dtype=F32, device=dev)
+        has = torch.zeros((p_cnt, v_max), dtype=torch.bool, device=dev)
+        new_active = np.zeros((p_cnt, v_max), bool)
+
+        def recv_task(w):
+            t0 = time.perf_counter()
+            parts = worker_parts[w]
+            lo, hi = parts[0], parts[-1] + 1
+            spill = spills[w]
+            source = sources[w]
+            cw = {}                       # worker-private counter deltas
+            wall = dict.fromkeys(("take_s", "read_s", "decode_s", "wait_s",
+                                  "combine_s", "apply_s"), 0.0)
+            decoders = []
+
+            def lazy_schedule():
+                # Runs on the prefetch thread: as DecodeAhead delivers q's
+                # receive view, the dispatch and the runtime format choice
+                # price q's reads and emit them right behind q's header.
+                ahead = exchange_mod.DecodeAhead(
+                    ex, w, parts, p_cnt, compute_lock=token,
+                    runner=engine.pipeline_pool, device=wire_device)
+                decoders.append(ahead)
+                for q, recv_mask_q, recv_msg_q in ahead:
+                    with tok:               # compute token: dispatch burst
+                        cd, _, sched_q = _dispatch_schedule_one_dest(
+                            source, q, recv_mask_q, part_sizes, gamma,
+                            cfg.compression)
+                        header = DestHeader(
+                            q=q, recv_mask=recv_mask_q, recv_msg=recv_msg_q,
+                            counter_delta=cd)
+                    yield header
+                    yield from sched_q
+
+            touched = torch.zeros((), dtype=torch.float64, device=dev)
+            dev_chunks = 0
+            cur = mask_q = msg_q = xv_q = xc_q = None
+            t_wait = time.perf_counter()
+            for item in ChunkPrefetcher(
+                    source, lazy_schedule(), depth=cfg.ooc_prefetch_depth,
+                    compute_lock=token, device_decode=engine.device_decode,
+                    device=dev, runner=engine.pipeline_pool):
+                t1 = time.perf_counter()
+                wall["wait_s"] += t1 - t_wait
+                if isinstance(item, DestHeader):
+                    cur = item
+                    mask_q = msg_q = xv_q = xc_q = None
+                    for ck, cv in item.counter_delta.items():
+                        cw[ck] = cw.get(ck, 0.0) + cv
+                    t_wait = time.perf_counter()
+                    continue
+                dev_chunks += item.n_device_chunks
+                wall["read_s"] += item.read_s
+                wall["decode_s"] += item.decode_s
+                with tok:                   # compute token: combine burst
+                    if mask_q is None:
+                        mask_q = torch.from_numpy(cur.recv_mask).to(dev)
+                        msg_q = torch.from_numpy(cur.recv_msg).to(dev)
+                        if backend == "block_csr":
+                            xv_q, xc_q = _block_dest_vectors(
+                                mask_q, msg_q, mode, a_const, identity,
+                                v_pad_t)
+                    touched += _combine_stream_batch(
+                        item, mask_q, msg_q, slot_fn, monoid, agg, has,
+                        backend=backend, mode=mode, blk=blk, xv=xv_q,
+                        xc=xc_q, v_max=v_max)
+                t_wait = time.perf_counter()
+                wall["combine_s"] += t_wait - t1
+            wall["take_s"] = sum(d.take_s for d in decoders)
+
+            # Apply into this worker's spill (measured vertex I/O).
+            t_apply = time.perf_counter()
+            with tok:                       # compute token: apply burst
+                upd_w = has[lo:hi].cpu().numpy() & vertex_valid[lo:hi]
+                upd_b = _batch_any(upd_w, bs, b_cnt)
+                astate_pad = spill.read(upd_b)              # measured
+                astate = {k: v[:, :v_max] for k, v in astate_pad.items()}
+                updates, na_w, ret = apply_fn(
+                    _device_state(astate, dev), agg[lo:hi], has[lo:hi],
+                    global_id[lo:hi])
+                spill.merge_write(astate_pad, _host_state(updates), upd_w,
+                                  upd_b)                    # measured
+                na_w = _np(na_w).astype(bool) & vertex_valid[lo:hi]
+                spill.write_bitmap(na_w)                    # measured
+                new_active[lo:hi] = na_w
+                total_w = float(np.where(
+                    upd_w, _np(ret).astype(np.float32), 0.0).sum())
+            wall["apply_s"] = time.perf_counter() - t_apply
+
+            # Per-worker measured traffic.
+            w_edges = float(touched)
+            cr0, br0 = store_io0[w]
+            sr0, sw0 = spill_io0[w]
+            edge_b = source.store.bytes_read - br0
+            vert_b = ((spill.bytes_read - sr0)
+                      + (spill.bytes_written - sw0))
+            cw["measured_chunks_read"] = source.store.chunks_read - cr0
+            cw["measured_edge_read_bytes"] = edge_b
+            cw["measured_chunks_device_decoded"] = dev_chunks
+            cw["measured_vertex_read_bytes"] = spill.bytes_read - sr0
+            cw["measured_vertex_write_bytes"] = spill.bytes_written - sw0
+            cw["edges_touched"] = w_edges
+            wt = engine.worker_totals[w]
+            wt["disk_bytes"] += edge_b + vert_b
+            wt["net_bytes"] += float(ex.bytes_by_sender[w])
+            wt["edges_touched"] += w_edges
+            return (cw, total_w, float(upd_b.sum()),
+                    time.perf_counter() - t0, wall)
+
+        recv_out = run_worker_pool(
+            [functools.partial(recv_task, w) for w in range(n_workers)],
+            parallel, pool=engine.worker_pool)
+        # Deterministic reduction: every float above accumulated in
+        # worker-private state; summing in worker order after the join
+        # makes parallel runs bit-identical to sequential ones.
+        phases.reduce_worker_counters(counters, [o[0] for o in recv_out])
+        total = 0.0
+        upd_batches_total = 0.0
+        for w, (_, total_w, upd_b_sum, dt, wall) in enumerate(recv_out):
+            total += total_w
+            upd_batches_total += upd_b_sum
+            engine.worker_times[w]["recv_s"] += dt
+            for k, v in wall.items():
+                engine.worker_times[w][k] += v
+
+        # Modeled vertex I/O: the formulas of the other executors (the
+        # per-worker bitmaps sum to the full [P, V] bitmap's bytes).
+        bitmap = float(sum(sp.bitmap_nbytes() for sp in spills))
+        gen_v = gen_batches_total * bs
+        upd_v = upd_batches_total * bs
+        counters["vertex_read_bytes"] = ((gen_v + upd_v) * arrays_bytes
+                                         + bitmap)
+        counters["vertex_write_bytes"] = upd_v * arrays_bytes + bitmap
+        return engine._dist_state_views(), new_active, total, counters
 
     return step

@@ -23,6 +23,8 @@ the reference's ``xp=`` switch (numpy or torch).
 
 The ``mq_*`` functions price a multi-query pass (DESIGN.md §11): the
 wire batches and chunk reads of the union of Q frontiers, paid once.
+:func:`reduce_worker_counters` sums the dist_ooc workers' private counters
+in worker order.
 """
 from __future__ import annotations
 
@@ -434,6 +436,28 @@ def process_block_one_dest(bt, vals, recv_msg, recv_mask, chunk_active,
     agg = val[:, :v_max]
     has = hascnt[:, :v_max] > 0.5
     return agg, has, torch.sum(hascnt, dim=1, dtype=F32)
+
+
+# ---------------------------------------------------------------------------
+# Order-independent counter reduction for parallel workers (DESIGN.md §8)
+# ---------------------------------------------------------------------------
+
+
+def reduce_worker_counters(counters, per_worker):
+    """Reduce per-worker counter contributions into ``counters``, in worker
+    index order.
+
+    The parallel dist_ooc executor runs its W workers concurrently; each
+    accumulates every float it produces into a private dict (in an order
+    fixed by its own schedule), and this reduction runs after all have
+    joined, walking ``per_worker`` in worker index order — so the result
+    is the same whether the workers ran one after another or raced on a
+    thread pool.  ``counters`` is mutated and returned; missing keys start
+    at 0.0."""
+    for cw in per_worker:
+        for k, v in cw.items():
+            counters[k] = counters.get(k, 0.0) + float(v)
+    return counters
 
 
 # ---------------------------------------------------------------------------

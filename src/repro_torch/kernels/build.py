@@ -16,12 +16,19 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# One build of a source at a time in a process (different sources still
+# build together): the parallel dist_ooc workers may ask for a library on
+# several threads at once, and two builds of one source would write the
+# same temporary file.
+_SOURCE_LOCKS: dict = {}
+_SOURCE_LOCKS_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -45,14 +52,19 @@ def load_library(source: str) -> ctypes.CDLL:
     load it.  The compiler's register/spill report (``-Xptxas -v``) is kept
     beside the library as ``<name>.log``."""
     so = library_path(source)
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-            capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stderr)
-        os.replace(tmp, so)
+    with _SOURCE_LOCKS_LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / source)],
+                capture_output=True, text=True, check=False)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {source}:\n{proc.stderr}")
+            so.with_suffix(".log").write_text(proc.stderr)
+            os.replace(tmp, so)
     return ctypes.CDLL(str(so))
