@@ -9,7 +9,7 @@ phase, then drives the port's three graph paths on a Graph500 R-MAT graph
 (scale 21, edge factor 16, weighted, seed 0: 2,097,152 vertices,
 33,554,432 edges; P = 8 partitions, 8 x 8 tiles): LOCAL and OOC through
 PageRank (5 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
-BFS.
+BFS, and multi-query serving on LOCAL, OOC and DIST_OOC.
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -57,7 +57,7 @@ on the card).  It
     then sweeps both scan modes over 2^10, 2^16, 2^20 and 2^24 seeded
     elements (bit-equal, add also to ``torch.cumsum``), timed the same
     way beside ``torch.cumsum`` / ``torch.cummax``;
-  * runs the four algorithms (SSSP cold only, the others cold and warm)
+  * runs the four algorithms cold (BFS also warm)
     with the launch counts of the combine, the
     fused decode, the stencil and the scans set to 0 just before each and
     read just after (the combine and the fused decode must have run, at
@@ -80,9 +80,9 @@ on the card).  It
     bit-identical except the device-decoded chunk count, which is 0.
 
 Serving (multi-query, on the same graph, while the forward store exists).
-The 12 highest out-degree vertices are the sources (query 0 is the BFS
+The 10 highest out-degree vertices are the sources (query 0 is the BFS
 source above).  It
-  * runs a solo LOCAL ``segment`` BFS from each of the 12 sources on the
+  * runs a solo LOCAL ``segment`` BFS from each of the 10 sources on the
     card: the reference levels, iteration counts and counters;
   * serves them on LOCAL (``segment``, Q = 8): ``multi_bfs`` of sources
     0–7, each column bit-equal to its solo BFS with equal iteration
@@ -91,12 +91,14 @@ source above).  It
     ``personalized_pagerank`` of sources 0–7 (2 iterations), query 0
     within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
   * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
-    a fresh spill): a ``GraphServeSession`` with 8 slots takes all 12
-    sources and drains — every result bit-equal to its solo BFS with its
-    run iterations equal to the solo count, every logical counter equal to
-    the sum of the 12 solo runs' (rtol 1e-5) and every shared-stream
-    counter at most that sum; then ``personalized_pagerank`` of sources
-    0–7 (2 iterations), values within 1e-5 of LOCAL serving's and every
+    a fresh spill): a ``GraphServeSession`` with 8 slots takes the first
+    8 sources and drains — every result bit-equal to its solo BFS with
+    its run and wait iterations those the solo counts imply, every
+    logical counter equal to the sum of the 8 solo runs' (rtol 1e-5) and
+    every shared-stream counter at most that sum (its counters after each
+    step are kept for the DIST_OOC session); then
+    ``personalized_pagerank`` of sources 0–7 (2 iterations), values
+    within 1e-5 of LOCAL serving's and every
     counter LOCAL reports within rtol 1e-5 of LOCAL's;
   * counts the launches of ``block_csr_combine_mq`` (set to 0 before the
     session and before PPR; each must have grown, in min and add mode),
@@ -110,8 +112,9 @@ DIST_OOC (``executor="dist_ooc"``, W = 4 workers, ``block_csr``, chunks
 and wire gap streams decoded on the card, ``verify_io``).  It
   * builds a sharded store of the forward graph (contiguous blocks of 2
     destination partitions per worker) beside the OOC stores;
-  * runs PageRank (5) and BFS each cold and warm with the workers in
-    sequence, then once more with ``parallel_workers``, with the launch
+  * runs PageRank (5) and BFS each cold with the workers in sequence
+    (the per-worker split is the cold run's), then once more with
+    ``parallel_workers``, with the launch
     counts of the combine, the fused decode, the stencil and the scans set
     to 0 just before each run and read just after: the combine and the
     fused decode must have run (at most two decode launches and one
@@ -135,6 +138,40 @@ and wire gap streams decoded on the card, ``verify_io``).  It
   * prints cold, warm and parallel seconds, each worker's host seconds
     per stage, the split per iteration, the wire's bytes and batches per
     format, and peak device memory.
+
+DIST_OOC serving (``dist_ooc_serve``: the same W = 4 sharded store with
+fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
+``verify_io``).  It
+  * runs a ``GraphServeSession`` of 8 slots over all 10 sources (two
+    join mid-session), workers in sequence: every result bit-equal to its
+    solo BFS with its run and wait iterations those the solo counts imply
+    (the OOC session's queries' equal to the OOC session's), logical
+    counters equal to the sum of the 10 solo runs' and shared-stream ones
+    at most that sum, and, over the steps before the first query joins
+    (the OOC session's queries alone), every counter but the two network
+    ones equal to the OOC session's after as many steps (rtol 1e-5);
+  * runs ``multi_bfs`` of sources 0–7 for two iterations, sequential and
+    then with ``parallel_workers``: bit-identical (levels as int32
+    patterns, per-iteration returns, every counter, ``worker_totals``);
+  * runs ``personalized_pagerank`` of sources 0–7 (2 iterations),
+    sequential: within 1e-5 of LOCAL serving's, every counter but the two
+    network ones within rtol 1e-5 of LOCAL's;
+  * requires in every run measured == model for disk and network, every
+    chunk read decoded on the card, ``block_csr_combine_mq`` launched and
+    the solo combine not, at most two fused-decode launches and one
+    page-locked copy an item, the stencil and the add scan once per wire
+    gap stream decoded on the card (panels' and legacy items'), the max
+    scan never;
+  * replays the largest panel-combine call of the session (min) and of PPR
+    (add) against the plain version and 8 solo launches, the largest
+    panel gap stream through the stencil and the add scan, and the
+    session's largest streamed item through the fused decode, each
+    against its plain version and timed as above;
+  * prints drain seconds, queries per second, p50 and max latency, steps,
+    each worker's send / recv / post / take seconds per step, bytes per
+    query (disk + measured net), the panel, legacy and worker-local
+    batches (counted where ``Exchange.post_mq`` files them), and peak
+    device memory.
 
 Kernel entry point (``repro_torch.kernels.ops``, after the graph phases
 have freed the card).  Each call runs with its kernel's launch count set
@@ -198,6 +235,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -251,8 +289,10 @@ GLA_MODELS = {   # name -> (heads, Dk, Dv, include_current, bonus)
     "zamba2_1_2b_mamba2": (64, 64, 64, True, False),
 }
 PR_ITERS = 5
-SERVE_SOURCES = 12             # queries the serving phase submits
+SERVE_SOURCES = 10             # queries the DIST_OOC session submits
+OOC_SESSION_SOURCES = 8        # queries the OOC session submits
 SERVE_Q = 8                    # concurrent query slots
+OOC_WARM = ("bfs",)            # OOC algorithms also run warm
 PPR_ITERS = 2
 
 
@@ -275,7 +315,10 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20, split=(), strict=True):
+PROFILER_SESSIONS = 3    # sessions tried before a time is "not measured"
+
+
+def device_ms(fn, reps=20, split=()):
     """(mean device milliseconds per call of ``fn``, device operations per
     call, {name: (milliseconds, operations) per call}) from one profiler
     session over ``reps`` calls: the summed durations of the kernels,
@@ -283,22 +326,24 @@ def device_ms(fn, reps=20, split=(), strict=True):
     whose name holds each name of ``split`` ((None, 0) for a name it
     recorded no event of).  Where a call's host path takes longer than its
     device work, :func:`cuda_ms` measures the host; this measures the card
-    alone.  A session that records no device operation raises, or with
-    ``strict`` off returns (None, 0, {}): not measured."""
+    alone.  The profiler drops events more as a process ages, so up to
+    ``PROFILER_SESSIONS`` sessions are tried; if none records a device
+    operation it returns (None, 0, {}): not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
     if not ops:
-        if not strict:
-            return None, 0, {}
-        raise AssertionError("the profiler recorded no device operation")
+        return None, 0, {}
     per_call = lambda evs: (sum(e.time_range.elapsed_us() for e in evs)
                             / reps / 1e3, len(evs) / reps)
     by_name = {}
@@ -817,9 +862,9 @@ def check_decode_item(host, plan, device, reps=20):
     """The fused decode on one recorded item against its plain version on
     the card (bit-equal), and its times: the call (CUDA events around the
     copy from page-locked memory and the two launches), the kernels alone
-    and the whole call on the card (``torch.profiler``), the plain
-    version; beside the byte bound (the staged bytes read once, 16 B per
-    edge written once)."""
+    and the whole call on the card (``torch.profiler``; None where it
+    records nothing), the plain version; beside the byte bound (the staged
+    bytes read once, 16 B per edge written once)."""
     import torch
     from repro_torch.kernels import chunk_decode
     staged = torch.empty(plan.nbytes, dtype=torch.uint8, device=device)
@@ -840,11 +885,9 @@ def check_decode_item(host, plan, device, reps=20):
     card_ms, card_ops, split = device_ms(
         call, reps, split=("sections_kernel", "edges_kernel"))
     by_kernel = {name: ms for name, (ms, _) in split.items()}
-    kernel_ms = sum(ms for ms, _ in split.values() if ms is not None)
     kernels = sum(n for _, n in split.values())
-    if not kernels:
-        raise AssertionError("fused decode: the profiler recorded neither "
-                             "kernel")
+    kernel_ms = (sum(ms for ms, _ in split.values() if ms is not None)
+                 if kernels else None)          # None: not measured
     plain_ms = cuda_ms(lambda: chunk_decode.decode_item_ref(staged, plan), 3)
     bytes_ = plan.nbytes + 16 * plan.n_edges
     bound_ms, bound_by = bound(bytes_, 0.0)
@@ -900,12 +943,12 @@ def varint_inputs(store, largest, device):
     }
 
 
-def check_varint_kernel(vk, name, x, strict=True):
+def check_varint_kernel(vk, name, x):
     """Kernel vs plain version (bit-equal) on ``x``; times the kernel, the
     plain version and the library call, beside the byte bound (scan: 8 B
     per element, stencil: 9 B per byte, at the card's memory rate), and
     the kernel's and the library's device time alone (:func:`device_ms`,
-    with the device operations per call; ``strict`` as there)."""
+    with the device operations per call; None where not measured)."""
     import torch
     if name == "stencil":
         kern = lambda: vk.byte_stencil(x)
@@ -932,9 +975,9 @@ def check_varint_kernel(vk, name, x, strict=True):
     ms = cuda_ms(kern, 20)
     plain_ms = cuda_ms(plain, 5)
     library_ms = None if library is None else cuda_ms(library, 20)
-    dev_ms, dev_ops, _ = device_ms(kern, strict=strict)
+    dev_ms, dev_ops, _ = device_ms(kern)
     lib_dev_ms = (None if library is None
-                  else device_ms(library, strict=strict)[0])
+                  else device_ms(library)[0])
     bytes_ = x.numel() * per_elem
     bound_ms, bound_by = bound(bytes_, 0.0)
     return dict(elements=x.numel(), max_abs_err=0.0, ms=ms,
@@ -955,7 +998,8 @@ def scan_sweep(vk, device):
     inputs whose sums wrap: bit-equal to the plain version (add also to
     ``torch.cumsum``), timed beside ``torch.cumsum`` / ``torch.cummax`` and
     the byte bound (8 B per element), per call and on the card alone
-    (:func:`device_ms`).  One JSON line per length and mode."""
+    (:func:`device_ms`; None where the profiler records nothing).  One JSON
+    line per length and mode."""
     import torch
     gen = torch.Generator(device=device).manual_seed(0)
     for n in SCAN_SWEEP:
@@ -1206,6 +1250,8 @@ def main(argv=None) -> int:
         dist = run_dist_ooc(tmp, dg=dg, fm=fm, source=source, checks=checks,
                             drives=drives, local_results=local_results,
                             ooc_results=ooc.pop("results"))
+        dist_serve = run_dist_serve(dist.pop("store"), dg=dg, fm=fm,
+                                    serving=ooc["serving"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1237,6 +1283,28 @@ def main(argv=None) -> int:
             f"block_csr_combine_mq[{mode}] OOC", KERNEL_SOURCE,
             TPU_KERNEL_MQ, serving["launches"][mode]["combine_mq"],
             serving["rows"][mode]))
+    # DIST_OOC multi-query: the panel combine per mode, the stencil and the
+    # add scan on the wire's gap streams, the fused decode's largest item
+    dlaunch = dist_serve["launches"]
+    for mode in ("add", "min"):
+        table.append(kernel_row(
+            f"block_csr_combine_mq[{mode}] DIST_OOC", KERNEL_SOURCE,
+            TPU_KERNEL_MQ,
+            sum(v["combine_mq"] for v in dlaunch.values()
+                if v["mode"] == mode), dist_serve["combine_rows"][mode]))
+    for name, key, source_line in (
+            ("blocked_scan[add] DIST_OOC multi-query wire", "add", TPU_SCAN),
+            ("varint_stencil DIST_OOC multi-query wire", "stencil",
+             TPU_STENCIL)):
+        table.append(kernel_row(
+            name, VARINT_SOURCE, source_line,
+            sum(v[key] for v in dlaunch.values()),
+            dist_serve["wire_rows"][key]))
+    drow = dist_serve["decode_row"]
+    table.append(kernel_row(
+        f"chunk_decode DIST_OOC multi-query largest item ({drow['edges']} "
+        "edges)", DECODE_SOURCE, TPU_STENCIL,
+        sum(v["decode"] for v in dlaunch.values()), drow))
     for name, key, source_line in (
             ("blocked_scan[add]", "add", TPU_SCAN),
             ("blocked_scan[max]", "max", TPU_SCAN),
@@ -1381,10 +1449,10 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
              input=f"ooc {name} largest item", **decode_rows[name])
         del largest_item
         # warm: the same run again; its host wall split per iteration.
-        # SSSP runs cold only (the smoke's time limit): its split is the
-        # cold run's.
+        # The others run cold only (the smoke's time limit): their split
+        # is the cold run's.
         warm_s = None
-        if name != "sssp":
+        if name in OOC_WARM:
             for e in engines:
                 e.ooc_wall = dict.fromkeys(e.ooc_wall, 0.0)
             t0 = time.perf_counter()
@@ -1484,24 +1552,42 @@ DIST_ALGOS = ("pagerank", "bfs")
 def recorded_gap_streams():
     """Count the wire gap streams decoded on the card inside the block
     (each one stencil and one add scan launch) and record the largest
-    one's bytes and varint count, for a replay at the wire's shapes."""
+    one's bytes and varint count, for a replay at the wire's shapes; the
+    multi-query panels' union streams are also counted and recorded apart
+    (``panel_streams``, ``largest_panel``).  The takes that decode them
+    run under the executor's compute token, one at a time."""
     from repro_torch.core import exchange
-    real = exchange._gap_decode
-    seen = {"streams": 0, "largest": None}
+    real, real_panel = exchange._gap_decode, exchange.mq_decode_panel
+    seen = {"streams": 0, "largest": None, "panel_streams": 0,
+            "largest_panel": None}
+    in_panel = threading.local()
 
     def recording(stream, count, device=None):
         if device is not None and count:
+            keys = ["largest"]
             seen["streams"] += 1
-            if seen["largest"] is None or len(stream) > len(
-                    seen["largest"][0]):
-                seen["largest"] = (stream, count)
+            if getattr(in_panel, "on", False):
+                seen["panel_streams"] += 1
+                keys.append("largest_panel")
+            for key in keys:
+                if seen[key] is None or len(stream) > len(seen[key][0]):
+                    seen[key] = (stream, count)
         return real(stream, count, device)
 
+    def panel(*args, **kw):
+        in_panel.on = True
+        try:
+            return real_panel(*args, **kw)
+        finally:
+            in_panel.on = False
+
     exchange._gap_decode = recording
+    exchange.mq_decode_panel = panel
     try:
         yield seen
     finally:
         exchange._gap_decode = real
+        exchange.mq_decode_panel = real_panel
 
 
 def reset_dist_counts():
@@ -1526,11 +1612,13 @@ def dist_counts(gaps, copies0):
     return counts
 
 
-def check_dist_counts(counts, path, wire_streams_expected):
-    """The combine and the fused decode ran (at most two decode launches
-    an item, one page-locked copy an item), the stencil and the add scan
-    once per gap stream decoded on the card, the max scan never."""
-    if counts["combine"] < 1 or counts["decode"] < 1:
+def check_dist_counts(counts, path, wire_streams_expected,
+                      combine="combine"):
+    """The combine (``counts[combine]``) and the fused decode ran (at most
+    two decode launches an item, one page-locked copy an item), the
+    stencil and the add scan once per gap stream decoded on the card, the
+    max scan never."""
+    if counts[combine] < 1 or counts["decode"] < 1:
         raise AssertionError(f"{path}: the combine or the fused decode was "
                              f"never launched ({counts})")
     if counts["decode"] > 2 * counts["decode_items"] or \
@@ -1564,10 +1652,9 @@ def check_wire_stream(stream, count, device, reps=20):
     from repro_torch.core import exchange
     from repro_torch.kernels import varint
     buf = torch.from_numpy(np.frombuffer(stream, np.uint8).copy()).to(device)
-    rows = {"stencil": check_varint_kernel(varint, "stencil", buf,
-                                           strict=False)}
+    rows = {"stencil": check_varint_kernel(varint, "stencil", buf)}
     term, _ = varint.byte_stencil(buf)
-    rows["add"] = check_varint_kernel(varint, "add", term, strict=False)
+    rows["add"] = check_varint_kernel(varint, "add", term)
     want = exchange._gap_decode(stream, count)
     got = exchange._gap_decode(stream, count, device)
     if got.dtype != want.dtype or not np.array_equal(got, want):
@@ -1592,7 +1679,7 @@ def check_wire_stream(stream, count, device, reps=20):
 def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
                  ooc_results):
     """The DIST_OOC phase (9b) of :func:`main`: a W = 4 sharded store of
-    the forward graph under ``tmp``, PageRank and BFS each cold and warm
+    the forward graph under ``tmp``, PageRank and BFS each cold
     sequential, then once with ``parallel_workers``; held against LOCAL,
     OOC, the oracles and themselves.  Returns the launch counts, the
     combine and decode rows and the wire's stencil / scan rows."""
@@ -1688,12 +1775,8 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
                 or len(gaps["largest"][0]) > len(largest_stream[0])):
             largest_stream = gaps["largest"]
 
-        # warm: the same run again, its per-worker host split
-        eng.reset_worker_totals()
-        t0 = time.perf_counter()
-        drives[name](eng)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        # the cold run's per-worker host split (the smoke's time limit
+        # leaves no warm run)
         times = [dict(t) for t in eng.worker_times]
         it = stats.iterations
         split = {k: sum(t[k] for t in times) / it
@@ -1726,8 +1809,8 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
         edges = c["edges_touched"]
         emit(phase="dist_ooc_path", algorithm=name, workers=DIST_WORKERS,
              iterations=it, launches=counts, parallel_launches=pcounts,
-             cold_s=cold_s, warm_s=warm_s, parallel_s=par_s,
-             edges_touched=edges, edges_per_s=edges / warm_s,
+             cold_s=cold_s, parallel_s=par_s,
+             edges_touched=edges, edges_per_s=edges / cold_s,
              chunks_read=c["measured_chunks_read"],
              chunks_device_decoded=c["measured_chunks_device_decoded"],
              measured_disk_bytes=(c["measured_edge_read_bytes"]
@@ -1737,7 +1820,7 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
              net_bytes_model=c["net_bytes"],
              batches={f: c[f"net_{f}_batches"]
                       for f in ("pair", "vpair", "slab", "uval")},
-             worker_totals=totals, worker_times_warm=times,
+             worker_totals=totals, worker_times_cold=times,
              worker_times_parallel=par_times,
              split_per_iteration_s=split,
              wire_s_per_iteration=split["post_s"] + split["take_s"],
@@ -1750,22 +1833,363 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
         emit(phase="kernel_vs_plain", kernel=key,
              input="dist_ooc largest wire gap stream", **row)
     emit(phase="dist_wire_round_trip", **trip)
-    del store
     return dict(launches=launches, combine_rows=combine_rows,
                 decode_rows=decode_rows,
-                wire_rows={"stencil": stencil_row, "add": add_row})
+                wire_rows={"stencil": stencil_row, "add": add_row},
+                store=store)
+
+
+def expected_waits(iters, slots):
+    """The wait iterations of queries submitted in order to a
+    ``GraphServeSession`` of ``slots`` slots, each converging after its
+    solo iteration count ``iters[k]``: a step admits pending queries into
+    free slots in order, runs every occupied slot once and frees those
+    that reached their count; every query still pending then waits one
+    more iteration."""
+    pending, running, waits = list(range(len(iters))), {}, [0] * len(iters)
+    while pending or running:
+        while pending and len(running) < slots:
+            running[pending.pop(0)] = 0
+        for k in list(running):
+            running[k] += 1
+            if running[k] >= iters[k]:
+                del running[k]
+        for k in pending:
+            waits[k] += 1
+    return waits
+
+
+def check_session(results, sources, solo, path):
+    """A drained session answered every source once, each result bit-equal
+    to its solo BFS, its run iterations the solo count and its wait
+    iterations those the solo counts imply (:func:`expected_waits`)."""
+    import numpy as np
+    if sorted(r.source for r in results) != sorted(sources):
+        raise AssertionError(f"{path}: not every query was answered")
+    waits = dict(zip(sources, expected_waits(
+        [solo[s][1].iterations for s in sources], SERVE_Q)))
+    for r in results:
+        lv, st = solo[r.source]
+        if not np.array_equal(r.levels.view(np.int32), lv.view(np.int32)):
+            raise AssertionError(f"{path}: query from {r.source} differs "
+                                 "from its solo BFS")
+        if (r.wait_iters, r.run_iters) != (waits[r.source], st.iterations):
+            raise AssertionError(
+                f"{path}: query from {r.source} waited / ran "
+                f"{(r.wait_iters, r.run_iters)}, expected "
+                f"{(waits[r.source], st.iterations)}")
+
+
+def check_session_counters(c, sources, solo, path):
+    """A session's logical counters equal the sum of its queries' solo
+    runs' (rtol 1e-5: the solo runs sum in float32) and its shared-stream
+    counters are at most that sum.  Returns the sum."""
+    from repro_torch.core import accumulate_counters
+    solo_sum = {}
+    for s in sources:
+        solo_sum = accumulate_counters(solo_sum, solo[s][1].counters)
+    for k in ("msgs_generated", "msgs_sent", "edges_touched",
+              "vertex_read_bytes", "vertex_write_bytes"):
+        if abs(c[k] - solo_sum[k]) > 1e-3 + 1e-5 * abs(solo_sum[k]):
+            raise AssertionError(f"{path}: logical counter {k} = {c[k]}, "
+                                 f"sum of the solo runs {solo_sum[k]}")
+    for k in ("chunks_read", "seek_cost", "edge_read_bytes", "net_bytes"):
+        if c[k] > solo_sum[k] * (1 + 1e-5) + 1e-3:
+            raise AssertionError(f"{path}: shared-stream counter {k} = "
+                                 f"{c[k]} exceeds the solo runs' sum "
+                                 f"{solo_sum[k]}")
+    return solo_sum
+
+
+@contextlib.contextmanager
+def recorded_mq_posts():
+    """Count the multi-query batches the wire carries inside the block, by
+    the entry each :meth:`Exchange.post_mq` files: worker-local hand-offs,
+    shared-index panels, and legacy batches (with their solo-format
+    items)."""
+    from repro_torch.core import exchange
+    real = exchange.Exchange._put_entry
+    seen = {"local": 0, "panel": 0, "legacy": 0, "legacy_items": 0}
+    lock = threading.Lock()
+    kinds = {"local_mq": "local", "wire_mq_panel": "panel",
+             "wire_mq_legacy": "legacy"}
+
+    def recording(self, dst_worker, q, p, entry):
+        with lock:
+            seen[kinds[entry[0]]] += 1
+            if entry[0] == "wire_mq_legacy":
+                seen["legacy_items"] += len(entry[1])
+        return real(self, dst_worker, q, p, entry)
+
+    exchange.Exchange._put_entry = recording
+    try:
+        yield seen
+    finally:
+        exchange.Exchange._put_entry = real
+
+
+def run_dist_serve(store, *, dg, fm, serving):
+    """The DIST_OOC serving phase (9c) of :func:`main`, on the W = 4
+    sharded store of :func:`run_dist_ooc` with fresh Q = 8 spills:
+    (a) a ``GraphServeSession`` of 8 slots over the 10 sources, workers in
+    sequence (:func:`check_session`, :func:`check_session_counters`, and
+    every counter but the network's equal to the OOC session's over the
+    steps before the first query joins); (b) ``multi_bfs`` of sources
+    0–7 for two iterations, sequential and then with ``parallel_workers``,
+    bit-identical; (c) ``personalized_pagerank`` of sources 0–7 within
+    1e-5 of LOCAL serving's, every counter but the network's within rtol
+    1e-5 of LOCAL's.  Every run checks measured == model for disk and
+    wire, every chunk decoded on the card, and its launches.  Then the
+    largest panel-combine call of (a) (min) and of (c) (add), the largest
+    panel gap stream and the largest streamed item are replayed against
+    their plain versions and timed.  Returns the launch counts per run
+    and the kernel rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (
+        Engine, EngineConfig, GraphServeSession, multiquery,
+    )
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import (
+        COUNTER_KEYS, DIST_MEASURED_PAIRS, MEASURED_KEYS,
+    )
+    from repro_torch.kernels import csr_spmv
+    dev = torch.device(DEVICE)
+    net_keys = ("net_bytes", "net_bytes_raw")
+    sources, solo = serving["sources"], serving["solo"]
+    first = sources[:SERVE_Q]
+    for shard in store.shards:                 # fresh Q = 8 spills
+        shutil.rmtree(os.path.join(shard.root, "vertex"), ignore_errors=True)
+
+    def engine(parallel):
+        return Engine(dg, fm, EngineConfig(
+            executor="dist_ooc", num_workers=DIST_WORKERS,
+            compute_backend="block_csr", num_queries=SERVE_Q,
+            verify_io=True, parallel_workers=parallel), store=store)
+
+    def reset():
+        copies0 = reset_dist_counts()
+        csr_spmv.block_csr_combine_mq.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        return copies0
+
+    def read_counts(gaps, copies0, path, mode):
+        counts = dist_counts(gaps, copies0)
+        counts["combine_mq"] = csr_spmv.block_csr_combine_mq.launches
+        counts["mode"] = mode
+        if counts["combine"]:
+            raise AssertionError(f"{path}: the solo combine ran ({counts})")
+        check_dist_counts(counts, path, True, combine="combine_mq")
+        return counts
+
+    def check_io(c, path):
+        if c["measured_chunks_device_decoded"] != c["measured_chunks_read"]:
+            raise AssertionError(f"{path}: not every chunk read was decoded "
+                                 "on the card")
+        for mk, ak in DIST_MEASURED_PAIRS:
+            if abs(c[mk] - c[ak]) > 0.5:
+                raise AssertionError(f"{path}: {mk} {c[mk]} != {ak} {c[ak]}")
+
+    def close_counters(got, want, path, keys):
+        for k in keys:
+            if k in net_keys:
+                continue
+            a, b = got[k], want[k]
+            if abs(a - b) > 1e-3 + 1e-5 * abs(b):
+                raise AssertionError(f"{path}: counter {k} = {a}, "
+                                     f"expected {b}")
+
+    eng = engine(False)
+    if not eng.device_decode:
+        raise AssertionError("dist_ooc serving: device_decode is not on by "
+                             "default on the card")
+    launches = {}
+
+    # -- (a) the session: 8 slots, 10 sources -----------------------------
+    sess = GraphServeSession(eng)
+    for s in sources:
+        sess.submit(s)
+    copies0 = reset()
+    results, step_s, step_workers, step_counters = [], [], [], []
+    t0 = time.perf_counter()
+    with recorded_combine(multiquery, largest=True,
+                          name="block_csr_combine_mq") as big_min, \
+            recorded_decode(dev) as big_item, \
+            recorded_gap_streams() as gaps, recorded_mq_posts() as posts:
+        while sess.in_flight:
+            before = [dict(t) for t in eng.worker_times]
+            t1 = time.perf_counter()
+            results.extend(sess.step())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            step_counters.append(dict(sess.counters))
+            step_workers.append([
+                {k: t[k] - b[k] for k in ("send_s", "recv_s", "post_s",
+                                          "take_s")}
+                for t, b in zip(eng.worker_times, before)])
+    drain_s = time.perf_counter() - t0
+    launches["session"] = read_counts(gaps, copies0, "dist session", "min")
+    if not gaps["panel_streams"] or not posts["panel"]:
+        raise AssertionError(f"dist session: no panel crossed the wire "
+                             f"({gaps['panel_streams']}, {posts})")
+    if big_min["kw"]["mode"] != "min":
+        raise AssertionError(f"dist session ran combine mode {big_min['kw']}")
+    peak = torch.cuda.max_memory_allocated()
+    check_session(results, sources, solo, "dist session")
+    for r in results:
+        if r.source in serving["session_iters"] and \
+                (r.wait_iters, r.run_iters) != \
+                serving["session_iters"][r.source]:
+            raise AssertionError(
+                f"dist session: query from {r.source} waited / ran "
+                f"{(r.wait_iters, r.run_iters)}, OOC session "
+                f"{serving['session_iters'][r.source]}")
+    c = sess.counters
+    check_io(c, "dist session")
+    check_session_counters(c, sources, solo, "dist session")
+    # Until its first admission after the start, the session runs the same
+    # queries as the OOC session (the first OOC_SESSION_SOURCES = SERVE_Q
+    # sources, all admitted at once): their counters to that step agree
+    # but for the network's.
+    first_join = min([r.wait_iters for r in results if r.wait_iters]
+                     or [sess.steps])
+    ooc_steps = serving["session_step_counters"]
+    shared = min(first_join, len(ooc_steps))
+    close_counters(step_counters[shared - 1], ooc_steps[shared - 1],
+                   f"dist session, first {shared} steps",
+                   COUNTER_KEYS + MEASURED_KEYS)
+    disk = (c["measured_edge_read_bytes"] + c["measured_vertex_read_bytes"]
+            + c["measured_vertex_write_bytes"])
+    walls = np.array([r.wall_s for r in results])
+    emit(phase="dist_ooc_serve_session", queries=len(sources),
+         slots=SERVE_Q, workers=DIST_WORKERS, steps=sess.steps,
+         drain_s=drain_s, queries_per_s=len(sources) / drain_s,
+         p50_wall_s=float(np.median(walls)), max_wall_s=float(walls.max()),
+         wait_iters=[r.wait_iters for r in results],
+         run_iters=[r.run_iters for r in results], step_s=step_s,
+         worker_s_per_step=step_workers, launches=launches["session"],
+         measured_disk_bytes=disk,
+         measured_net_bytes=c["measured_net_bytes"],
+         net_bytes_model=c["net_bytes"],
+         bytes_per_query=(disk + c["measured_net_bytes"]) / len(sources),
+         steps_equal_to_ooc_session=shared,
+         batches=posts, solo_format_batches={
+             f: c[f"net_{f}_batches"] for f in ("pair", "vpair", "slab",
+                                               "uval")},
+         panel_gap_streams=gaps["panel_streams"],
+         worker_totals=[dict(t) for t in eng.worker_totals],
+         chunks_read=c["measured_chunks_read"],
+         chunks_device_decoded=c["measured_chunks_device_decoded"],
+         max_memory_allocated=peak)
+    largest_panel = gaps["largest_panel"]
+    del sess, results
+
+    # -- (b) multi_bfs, two iterations: sequential, then parallel ----------
+    runs = {}
+    for parallel in (False, True):
+        e = eng if not parallel else engine(True)
+        e.reset_worker_totals()
+        copies0 = reset()
+        t0 = time.perf_counter()
+        with recorded_gap_streams() as bgaps:
+            levels, st = alg.multi_bfs(e, first, max_iters=2)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        name = "multi_bfs_parallel" if parallel else "multi_bfs"
+        launches[name] = read_counts(bgaps, copies0, f"dist {name}", "min")
+        check_io(st.counters, f"dist {name}")
+        runs[parallel] = (levels, st, [dict(t) for t in e.worker_totals],
+                          secs, torch.cuda.max_memory_allocated())
+        if parallel:
+            del e
+    (lv, st, tot, seq_s, seq_peak), (plv, pst, ptot, par_s, par_peak) = \
+        runs[False], runs[True]
+    same_returns = len(st.per_iter_return) == len(pst.per_iter_return) and \
+        all(np.array_equal(a, b) for a, b in zip(st.per_iter_return,
+                                                 pst.per_iter_return))
+    if not (np.array_equal(lv.view(np.int32), plv.view(np.int32))
+            and st.iterations == pst.iterations and same_returns
+            and st.counters == pst.counters and tot == ptot):
+        raise AssertionError("dist multi_bfs: the parallel run is not "
+                             "bit-identical to the sequential one")
+    for j, s in enumerate(first):
+        want_it = min(2, solo[s][1].iterations)
+        if st.iterations[j] != want_it:
+            raise AssertionError(f"dist multi_bfs: query {j} ran "
+                                 f"{st.iterations[j]} iterations, want "
+                                 f"{want_it}")
+    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q, max_iters=2,
+         iterations=st.iterations, sequential_s=seq_s, parallel_s=par_s,
+         launches=launches["multi_bfs"],
+         parallel_launches=launches["multi_bfs_parallel"],
+         worker_totals=tot, parallel_bit_identical=True,
+         max_memory_allocated=max(seq_peak, par_peak))
+    del runs, lv, plv
+
+    # -- (c) personalized PageRank of sources 0-7 --------------------------
+    eng.reset_worker_totals()
+    copies0 = reset()
+    t0 = time.perf_counter()
+    with recorded_combine(multiquery, largest=True,
+                          name="block_csr_combine_mq") as big_add, \
+            recorded_gap_streams() as pgaps, recorded_mq_posts() as pposts:
+        ppr, pstats = alg.personalized_pagerank(eng, first, PPR_ITERS)
+    torch.cuda.synchronize()
+    ppr_s = time.perf_counter() - t0
+    launches["ppr"] = read_counts(pgaps, copies0, "dist ppr", "add")
+    if big_add["kw"]["mode"] != "add":
+        raise AssertionError(f"dist ppr ran combine mode {big_add['kw']}")
+    check_io(pstats.counters, "dist ppr")
+    np.testing.assert_allclose(ppr, serving["ppr_local"], rtol=0, atol=1e-5)
+    close_counters(pstats.counters, serving["ppr_local_counters"],
+                   "dist ppr", COUNTER_KEYS)
+    times = [dict(t) for t in eng.worker_times]
+    emit(phase="dist_ooc_serve_ppr", queries=SERVE_Q, iterations=PPR_ITERS,
+         seconds=ppr_s, max_abs_diff_vs_local=float(
+             np.abs(ppr - serving["ppr_local"]).max()),
+         launches=launches["ppr"], batches=pposts,
+         panel_gap_streams=pgaps["panel_streams"],
+         measured_net_bytes=pstats.counters["measured_net_bytes"],
+         measured_edge_read_bytes=pstats.counters[
+             "measured_edge_read_bytes"],
+         worker_times=times,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    if pgaps["largest_panel"] is not None and (
+            largest_panel is None
+            or len(pgaps["largest_panel"][0]) > len(largest_panel[0])):
+        largest_panel = pgaps["largest_panel"]
+    del eng, ppr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (d) the path's kernels replayed on its own inputs -----------------
+    rows = {}
+    for mode, call in (("min", big_min), ("add", big_add)):
+        rows[mode] = check_kernel(csr_spmv, call["args"], call["kw"],
+                                  "dist_ooc serving", reps=5, panel=True)
+    del big_min, big_add
+    stencil_row, add_row, trip = check_wire_stream(*largest_panel, dev)
+    for key, row in (("stencil", stencil_row), ("add", add_row)):
+        emit(phase="kernel_vs_plain", kernel=key,
+             input="dist_ooc serving largest panel gap stream", **row)
+    emit(phase="dist_serve_wire_round_trip", **trip)
+    decode_row = check_decode_item(big_item["host"], big_item["plan"], dev)
+    emit(phase="kernel_vs_plain", kernel="chunk_decode",
+         input="dist_ooc session largest item", **decode_row)
+    return dict(launches=launches, combine_rows=rows,
+                wire_rows={"stencil": stencil_row, "add": add_row},
+                decode_row=decode_row)
 
 
 def run_serving(store, *, g, source, dg, fm, bfs_oracle):
     """The serving phase (9) of :func:`main`: solo references, LOCAL
-    serving and OOC serving of the 12 highest out-degree sources on the
+    serving and OOC serving of the highest out-degree sources on the
     forward ``store`` (its vertex spill is replaced by a fresh Q = 8 one).
     Returns the panel-combine launch counts per mode and its kernel rows."""
     import numpy as np
     import torch
     from repro_torch.core import (
-        Engine, EngineConfig, GraphServeSession, accumulate_counters,
-        multiquery,
+        Engine, EngineConfig, GraphServeSession, multiquery,
     )
     from repro_torch.core import algorithms as alg
     from repro_torch.core.engine import COUNTER_KEYS, MEASURED_PAIRS
@@ -1825,7 +2249,7 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 9c. OOC serving: a session of 8 slots takes all 12 sources --------
+    # -- 9c. OOC serving: a session of 8 slots takes the first 8 sources ---
     shutil.rmtree(os.path.join(store.root, "vertex"))  # fresh Q = 8 spill
     eng = Engine(dg, fm, EngineConfig(executor="ooc",
                                       compute_backend="block_csr",
@@ -1855,11 +2279,12 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
                 raise AssertionError(f"serving {path}: {mk} {c[mk]} != {ak} "
                                      f"{c[ak]}")
 
+    session_sources = sources[:OOC_SESSION_SOURCES]
     sess = GraphServeSession(eng)
-    for s in sources:
+    for s in session_sources:
         sess.submit(s)
     reset()
-    results, step_s = [], []
+    results, step_s, step_counters = [], [], []
     t0 = time.perf_counter()
     with recorded_combine(multiquery, largest=True,
                           name="block_csr_combine_mq") as big_min:
@@ -1868,50 +2293,31 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
             results.extend(sess.step())
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t1)
+            step_counters.append(dict(sess.counters))
     drain_s = time.perf_counter() - t0
     launches = {"min": read_counts("session")}
     if big_min["kw"]["mode"] != "min":
         raise AssertionError(f"session ran combine mode {big_min['kw']}")
     split = {k: v / sess.steps for k, v in eng.ooc_wall.items()}
     peak = torch.cuda.max_memory_allocated()
-    if sorted(r.source for r in results) != sorted(sources):
-        raise AssertionError("the session did not answer every query")
-    for r in results:
-        lv, st = solo[r.source]
-        if not np.array_equal(r.levels.view(np.int32), lv.view(np.int32)):
-            raise AssertionError(f"session: query from {r.source} differs "
-                                 "from its solo BFS")
-        if r.run_iters != st.iterations:
-            raise AssertionError(f"session: query from {r.source} ran "
-                                 f"{r.run_iters} iterations, solo "
-                                 f"{st.iterations}")
+    check_session(results, session_sources, solo, "ooc session")
+    session_iters = {r.source: (r.wait_iters, r.run_iters) for r in results}
     c = sess.counters
     check_io(c, "session")
-    solo_sum = {}
-    for s in sources:
-        solo_sum = accumulate_counters(solo_sum, solo[s][1].counters)
-    for k in ("msgs_generated", "msgs_sent", "edges_touched",
-              "vertex_read_bytes", "vertex_write_bytes"):
-        if abs(c[k] - solo_sum[k]) > 1e-3 + 1e-5 * abs(solo_sum[k]):
-            raise AssertionError(f"session: logical counter {k} = {c[k]}, "
-                                 f"sum of the solo runs {solo_sum[k]}")
-    for k in ("chunks_read", "seek_cost", "edge_read_bytes", "net_bytes"):
-        if c[k] > solo_sum[k] * (1 + 1e-5) + 1e-3:
-            raise AssertionError(f"session: shared-stream counter {k} = "
-                                 f"{c[k]} exceeds the solo runs' sum "
-                                 f"{solo_sum[k]}")
+    solo_sum = check_session_counters(c, session_sources, solo,
+                                      "ooc session")
     disk = (c["measured_edge_read_bytes"] + c["measured_vertex_read_bytes"]
             + c["measured_vertex_write_bytes"])
     walls = np.array([r.wall_s for r in results])
-    emit(phase="serve_ooc_session", queries=SERVE_SOURCES, slots=SERVE_Q,
-         steps=sess.steps, drain_s=drain_s,
-         queries_per_s=SERVE_SOURCES / drain_s,
+    emit(phase="serve_ooc_session", queries=len(session_sources),
+         slots=SERVE_Q, steps=sess.steps, drain_s=drain_s,
+         queries_per_s=len(session_sources) / drain_s,
          p50_wall_s=float(np.median(walls)), max_wall_s=float(walls.max()),
          wait_iters=[r.wait_iters for r in results],
          run_iters=[r.run_iters for r in results],
          step_s=step_s, split_per_step_s=split, launches=launches["min"],
          measured_disk_bytes=disk, net_bytes=c["net_bytes"],
-         bytes_per_query=(disk + c["net_bytes"]) / SERVE_SOURCES,
+         bytes_per_query=(disk + c["net_bytes"]) / len(session_sources),
          solo_disk_bytes=solo_sum["edge_read_bytes"]
          + solo_sum["vertex_read_bytes"] + solo_sum["vertex_write_bytes"],
          solo_net_bytes=solo_sum["net_bytes"],
@@ -1959,7 +2365,10 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
     for mode, call in (("min", big_min), ("add", big_add)):
         rows[mode] = check_kernel(csr_spmv, call["args"], call["kw"], "ooc",
                                   reps=5, panel=True)
-    return dict(launches=launches, rows=rows)
+    return dict(launches=launches, rows=rows, sources=sources, solo=solo,
+                session_iters=session_iters,
+                session_step_counters=step_counters,
+                ppr_local=ppr_local, ppr_local_counters=ppr_lstats.counters)
 
 
 # ---------------------------------------------------------------------------

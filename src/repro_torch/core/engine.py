@@ -30,9 +30,9 @@ executors of :mod:`repro_torch.core.executor` realize them:
 
 ``process_edges_multi`` / ``process_vertices_multi`` serve
 ``EngineConfig.num_queries`` concurrent queries through one selective pass
-over [P, V, Q] state panels (DESIGN.md §11), on LOCAL (segment backend)
-and OOC (both backends); :mod:`repro_torch.core.multiquery` holds their
-executors.
+over [P, V, Q] state panels (DESIGN.md §11), on LOCAL (segment backend),
+OOC and DIST_OOC (both backends); :mod:`repro_torch.core.multiquery`
+holds their executors.
 
 ``slot`` contributions are reduced with an associative + commutative
 **monoid** (add/min/max — all four paper algorithms fit), the
@@ -80,7 +80,6 @@ from repro_torch.utils import resolve_device, token_ctx
 State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
 
 # The slices of the port that bring what this one does not run.
-SLICE_DIST_MQ = "slice 4 item 3 (DIST_OOC multi-query)"
 SLICE_MESH = "slice 5 (the mesh executor)"
 SLICE_PROCESS = "slice 6 (process mode)"
 
@@ -205,10 +204,10 @@ class EngineConfig:
     trailing query axis ([P, V, Q] panels) and ONE selective pass serves
     all Q frontiers — the scheduled active set is the union of the
     per-query frontiers, per-query masks keep the combines independent.
-    The ooc vertex spill is laid out per query (``{key}@q{j}`` columns,
-    ``active_q{j}`` bitmaps), so a spill root must be (re)built with the
-    same Q (``VertexSpill`` validates).  The single-query API is
-    unaffected by this knob."""
+    The ooc and dist_ooc vertex spills are laid out per query
+    (``{key}@q{j}`` columns, ``active_q{j}`` bitmaps), so a spill root
+    must be (re)built with the same Q (``VertexSpill`` validates).  The
+    single-query API is unaffected by this knob."""
 
 
 COUNTER_KEYS = (
@@ -314,10 +313,6 @@ class Engine:
                  *, device=None):
         if config.executor not in ("auto", "ooc", "dist_ooc"):
             raise ValueError(f"unknown executor: {config.executor!r}")
-        if config.executor == "dist_ooc" and config.num_queries != 1:
-            raise NotImplementedError(
-                f"executor='dist_ooc' with num_queries > 1 comes with "
-                f"{SLICE_DIST_MQ}")
         if mesh is not None or config.physical_sparse_exchange:
             raise NotImplementedError(
                 f"the SHARD_MAP executor comes with {SLICE_MESH}")
@@ -527,10 +522,11 @@ class Engine:
         return _BlockState([sp.state_views() for sp in self.spills])
 
     def _sync_mq_state(self, state: State) -> None:
-        """Multi-query twin of :meth:`_sync_ooc_state`: make the spill
+        """Multi-query twin of :meth:`_sync_ooc_state`: make the spill(s)
         authoritative for a [P, V, Q] state panel, flattened to the
         per-query ``{key}@q{j}`` columns with one ``active_q{j}`` bitmap
-        each.  Panels returned by multi-query OOC calls are recognized by
+        each (on DIST_OOC each worker's spill takes its own rows).  Panels
+        returned by multi-query OOC / DIST_OOC calls are recognized by
         identity and skipped; anything else loads as an unmeasured
         preprocessing sync."""
         if state is self._mq_last_state:
@@ -539,11 +535,19 @@ class Engine:
         nq = self.config.num_queries
         arrs = {k: _np(v) for k, v in state.items()}
         valid = _np(self._host_graph.vertex_valid)
-        self.spill.load({f"{k}@q{j}": np.ascontiguousarray(v[:, :, j])
-                         for k, v in arrs.items() for j in range(nq)})
-        for j in range(nq):
-            self.spill.write_bitmap(valid, name=f"active_q{j}")
-        self.spill.reset_io_counters()
+
+        def load_one(spill, lo, hi):
+            spill.load({f"{k}@q{j}": np.ascontiguousarray(v[lo:hi, :, j])
+                        for k, v in arrs.items() for j in range(nq)})
+            for j in range(nq):
+                spill.write_bitmap(valid[lo:hi], name=f"active_q{j}")
+            spill.reset_io_counters()
+
+        if self._dist_ooc:
+            for spill, parts in zip(self.spills, self.worker_parts):
+                load_one(spill, parts[0], parts[-1] + 1)
+            return
+        load_one(self.spill, 0, self._host_graph.spec.num_partitions)
 
     def _check_measured(self, counters: dict) -> None:
         """Cross-check measured storage (and, for dist_ooc, network)
@@ -675,30 +679,41 @@ class Engine:
         return new_state, total, counters
 
     def _dist_process_vertices(self, state, work_fn, active):
-        """ProcessVertices with each worker serving only its own spill, on
-        the ProcessEdges phase pool when ``parallel_workers`` is on; each
-        worker accumulates into a private counter dict, reduced in worker
-        order after the join (parallel == sequential, bit for bit)."""
+        """ProcessVertices with each worker serving only its own spill
+        (:meth:`_dist_pv`)."""
         self._sync_ooc_state(state)
         vertex_valid = _np(self._host_graph.vertex_valid)
         amask = (vertex_valid if active is None
                  else _np(active).astype(bool) & vertex_valid)
-        counters = {k: 0.0 for k in self.counter_keys}
+        counters, total = self._dist_pv(
+            lambda w, lo, hi, cw: self._spill_process_vertices(
+                self.spills[w], amask[lo:hi], self.global_id[lo:hi],
+                work_fn, cw))
+        new_state = self._dist_state_views()
+        self._ooc_last_state = new_state
+        return new_state, total, counters
+
+    def _dist_pv(self, body):
+        """The DIST_OOC ProcessVertices loop: ``body(w, lo, hi, cw)`` serves
+        worker w's spill (partitions ``lo:hi``) under the compute token,
+        accumulating into the worker's private counter dict ``cw``, and
+        returns (its total or per-query totals, measured bytes read,
+        measured bytes written).  The workers run on the ProcessEdges
+        phase pool when ``parallel_workers`` is on; their dicts and totals
+        reduce in worker order after the join (parallel == sequential, bit
+        for bit).  Returns (the audited counters, the totals' sum)."""
         token = threading.Lock() if self.config.parallel_workers else None
         tok = token_ctx(token)
 
         def pv_task(w):
             t0 = time.perf_counter()
             parts = self.worker_parts[w]
-            lo, hi = parts[0], parts[-1] + 1
             cw = dict.fromkeys(
                 ("vertex_read_bytes", "vertex_write_bytes",
                  "measured_vertex_read_bytes",
                  "measured_vertex_write_bytes"), 0.0)
             with tok:
-                t, dr, dw = self._spill_process_vertices(
-                    self.spills[w], amask[lo:hi], self.global_id[lo:hi],
-                    work_fn, cw)
+                t, dr, dw = body(w, parts[0], parts[-1] + 1, cw)
             self.worker_totals[w]["disk_bytes"] += dr + dw
             return cw, t, time.perf_counter() - t0
 
@@ -706,15 +721,14 @@ class Engine:
             [functools.partial(pv_task, w)
              for w in range(self.config.num_workers)],
             self.config.parallel_workers, pool=self.worker_pool)
-        reduce_worker_counters(counters, [cw for cw, _, _ in out])
+        counters = reduce_worker_counters(
+            {k: 0.0 for k in self.counter_keys}, [cw for cw, _, _ in out])
         total = 0.0
         for w, (_, t, dt) in enumerate(out):
-            total += t
+            total = total + t
             self.worker_times[w]["pv_s"] += dt
         self._check_measured(counters)
-        new_state = self._dist_state_views()
-        self._ooc_last_state = new_state
-        return new_state, total, counters
+        return counters, total
 
     # -- ProcessEdges ---------------------------------------------------------
     def process_edges(self, state: State,
@@ -802,12 +816,6 @@ class Engine:
         return new_state, new_active, total, counters
 
     # -- multi-query (DESIGN.md §11) -----------------------------------------
-    def _check_no_dist_mq(self) -> None:
-        if self._dist_ooc:
-            raise NotImplementedError(
-                f"multi-query calls on executor='dist_ooc' come with "
-                f"{SLICE_DIST_MQ}")
-
     def _check_mq_state(self, state, active) -> None:
         nq = self.config.num_queries
         for k, v in state.items():
@@ -844,7 +852,6 @@ class Engine:
         totals [Q], counters)."""
         cfg = self.config
         nq = cfg.num_queries
-        self._check_no_dist_mq()
         self._check_mq_state(state, active)
         if not cfg.enable_adaptive_formats:
             raise ValueError(
@@ -854,15 +861,16 @@ class Engine:
         backend = cfg.compute_backend
         if backend not in ("segment", "block_csr"):
             raise ValueError(f"unknown compute_backend: {backend!r}")
-        if self._ooc:
+        if self._ooc or self._dist_ooc:
             return self._mq_ooc_process_edges(state, signal_fn, slot_fn,
                                               monoid, apply_fn, active,
                                               backend)
         if backend == "block_csr":
             raise ValueError(
-                "multi-query block_csr runs on the streamed executor "
-                "(ooc), where one decoded chunk feeds the Q-panel kernel; "
-                "LOCAL multi-query supports compute_backend='segment'")
+                "multi-query block_csr runs on the streamed executors "
+                "(ooc, dist_ooc), where one decoded chunk feeds the Q-panel "
+                "kernel; LOCAL multi-query supports "
+                "compute_backend='segment'")
         keys = tuple(_executor.fn_code_key(f)
                      for f in (signal_fn, slot_fn, apply_fn))
         cache_key = None
@@ -880,8 +888,9 @@ class Engine:
 
     def _mq_ooc_process_edges(self, state, signal_fn, slot_fn, monoid,
                               apply_fn, active, backend):
-        """OOC realization of :meth:`process_edges_multi`: the step of
-        ``multiquery.make_ooc_pe_mq`` against the spill, then the
+        """OOC / DIST_OOC realization of :meth:`process_edges_multi`: the
+        step of ``multiquery.make_ooc_pe_mq`` or
+        ``multiquery.make_dist_ooc_pe_mq`` against the spill(s), then the
         measured-vs-model audit.  Panels and ``new_active`` come back as
         host arrays."""
         mode_meta = None
@@ -897,12 +906,14 @@ class Engine:
                      for f in (signal_fn, slot_fn, apply_fn))
         cache_key = None
         if all(k is not None for k in keys):
-            cache_key = ("mq", "ooc") + keys + (monoid.name, backend,
-                                                mode_meta, nq)
+            cache_key = ("mq", self.config.executor) + keys + (
+                monoid.name, backend, mode_meta, nq)
         fn = self._pe_cache.get(cache_key) if cache_key is not None else None
         if fn is None:
-            fn = _multiquery.make_ooc_pe_mq(self, signal_fn, slot_fn, monoid,
-                                            apply_fn, backend, mode_meta, nq)
+            make = (_multiquery.make_dist_ooc_pe_mq if self._dist_ooc
+                    else _multiquery.make_ooc_pe_mq)
+            fn = make(self, signal_fn, slot_fn, monoid, apply_fn, backend,
+                      mode_meta, nq)
             if cache_key is not None:
                 self._pe_cache[cache_key] = fn
         self._sync_mq_state(state)
@@ -919,10 +930,11 @@ class Engine:
         costs zero vertex I/O (physically skipped on OOC).  Returns
         (new_state, totals [Q], counters)."""
         nq = self.config.num_queries
-        self._check_no_dist_mq()
         self._check_mq_state(state, active)
         if self._ooc:
             return self._mq_ooc_process_vertices(state, work_fn, active)
+        if self._dist_ooc:
+            return self._mq_dist_process_vertices(state, work_fn, active)
         state = {k: self._on_device(v) for k, v in state.items()}
         active = None if active is None else self._on_device(active)
         counters = zero_counters(self.device)
@@ -951,13 +963,14 @@ class Engine:
                  else _np(active[..., j]).astype(bool) & vertex_valid)
                 for j in range(self.config.num_queries)]
 
-    def _mq_spill_process_vertices(self, spill, amask_rows, work_fn, base,
-                                   alive, counters):
-        """One spill's multi-query ProcessVertices body: each alive
-        query's bitmap and active batches are read, computed on the
-        device, and merged back into its own ``{key}@q{j}`` columns (dead
-        queries cost zero bytes, measured and modeled alike).  Returns the
-        per-query totals."""
+    def _mq_spill_process_vertices(self, spill, amask_rows, gid_rows,
+                                   work_fn, base, alive, counters):
+        """One spill's multi-query ProcessVertices body (OOC's, or one
+        dist_ooc worker's): each alive query's bitmap and active batches
+        are read, computed on the device, and merged back into its own
+        ``{key}@q{j}`` columns (dead queries cost zero bytes, measured and
+        modeled alike).  Returns (the per-query totals, measured bytes
+        read, measured bytes written)."""
         spec = self.graph.spec
         bs, b_cnt, v_max = spec.batch_size, spec.num_batches, spec.v_max
         sr0, sw0 = spill.bytes_read, spill.bytes_written
@@ -970,8 +983,7 @@ class Engine:
             rstate = {bk: rstate_pad[f"{bk}@q{j}"][:, :v_max]
                       for bk in base}
             updates, ret = work_fn(
-                _executor._device_state(rstate, self.device),
-                self.global_id)
+                _executor._device_state(rstate, self.device), gid_rows)
             spill.merge_write(
                 rstate_pad, {f"{bk}@q{j}": v for bk, v in
                              _executor._host_state(updates).items()},
@@ -984,9 +996,10 @@ class Engine:
             counters["vertex_read_bytes"] += (
                 touched * ab_j + float(spill.bitmap_nbytes()))
             counters["vertex_write_bytes"] += touched * ab_j
-        counters["measured_vertex_read_bytes"] += spill.bytes_read - sr0
-        counters["measured_vertex_write_bytes"] += spill.bytes_written - sw0
-        return totals
+        dr, dw = spill.bytes_read - sr0, spill.bytes_written - sw0
+        counters["measured_vertex_read_bytes"] += dr
+        counters["measured_vertex_write_bytes"] += dw
+        return totals, dr, dw
 
     def _mq_ooc_process_vertices(self, state, work_fn, active):
         """:meth:`process_vertices_multi` against the disk-resident
@@ -997,9 +1010,26 @@ class Engine:
         alive = [j for j in range(nq) if amask[j].any()]
         counters = {k: 0.0 for k in self.counter_keys}
         base = _multiquery.mq_base_names(self.spill)
-        totals = self._mq_spill_process_vertices(
-            self.spill, amask, work_fn, base, alive, counters)
+        totals, _, _ = self._mq_spill_process_vertices(
+            self.spill, amask, self.global_id, work_fn, base, alive,
+            counters)
         self._check_measured(counters)
         new_state = _multiquery.mq_state_views(self.spill, base, nq)
+        self._mq_last_state = new_state
+        return new_state, totals, counters
+
+    def _mq_dist_process_vertices(self, state, work_fn, active):
+        """:meth:`process_vertices_multi` with each worker serving only its
+        own spill's per-query columns (:meth:`_dist_pv`)."""
+        self._sync_mq_state(state)
+        nq = self.config.num_queries
+        amask = self._mq_amasks(active)
+        alive = [j for j in range(nq) if amask[j].any()]
+        base = _multiquery.mq_base_names(self.spills[0])
+        counters, totals = self._dist_pv(
+            lambda w, lo, hi, cw: self._mq_spill_process_vertices(
+                self.spills[w], [m[lo:hi] for m in amask],
+                self.global_id[lo:hi], work_fn, base, alive, cw))
+        new_state = _multiquery.dist_mq_state_views(self.spills, base, nq)
         self._mq_last_state = new_state
         return new_state, totals, counters

@@ -338,16 +338,21 @@ class Exchange:
     racing senders only permute entries with distinct source partitions,
     and :meth:`take_dest` gives each p its own row — the receive view, the
     integer batch tallies and ``bytes_sent`` (a float64 sum of integer
-    byte counts) are independent of thread order.  The multi-query posts
-    come with the DIST_OOC multi-query slice."""
+    byte counts) are independent of thread order.
+
+    Multi-query passes :meth:`post_mq` one batch per nonempty (p, q) with
+    the Q queries' send masks, and drain with :meth:`take_dest_mq` into
+    [Q, P, v_max] views."""
 
     def __init__(self, num_workers: int, v_max: int,
                  compression: bool = True):
         self.num_workers = num_workers
         self.v_max = v_max
         self.compression = compression
-        # inbox[w][q] -> [(p, entry)]; entry is ("local", mask, values) or
-        # ("wire", fmt, count, payload)
+        # inbox[w][q] -> [(p, entry)]; entry is ("local", mask, values),
+        # ("wire", fmt, count, payload), ("local_mq", masks, values),
+        # ("wire_mq_panel", cols, union_count, payload) or
+        # ("wire_mq_legacy", [(j, fmt, count, payload), ...])
         self._inbox: list[dict[int, list]] = [
             {} for _ in range(num_workers)]
         self._lock = threading.Lock()
@@ -384,16 +389,93 @@ class Exchange:
         with self._lock:
             self.bytes_sent += len(payload)
             self.bytes_by_sender[src_worker] += len(payload)
-            if fmt == FMT_SLAB:
-                self.slab_batches += 1
-            elif fmt == FMT_VPAIRS:
-                self.vpair_batches += 1
-            elif fmt == FMT_UVAL:
-                self.uval_batches += 1
-            else:
-                self.pair_batches += 1
+            self._tally(fmt)
             self.posted[src_worker, dst_worker] += 1
         self._put_entry(dst_worker, q, p, ("wire", fmt, count, payload))
+
+    def _tally(self, fmt: int) -> None:
+        """Count one serialized solo-format batch (caller holds the lock)."""
+        if fmt == FMT_SLAB:
+            self.slab_batches += 1
+        elif fmt == FMT_VPAIRS:
+            self.vpair_batches += 1
+        elif fmt == FMT_UVAL:
+            self.uval_batches += 1
+        else:
+            self.pair_batches += 1
+
+    def post_mq(self, src_worker: int, dst_worker: int, p: int, q: int,
+                masks: np.ndarray, values: np.ndarray,
+                counts: Sequence[int]) -> None:
+        """Post one multi-query (p, q) batch: ``masks`` / ``values`` are
+        [Q, v_max] per-query send masks and message values, ``counts``
+        their popcounts (at least one nonzero).  A batch that crosses
+        workers is serialized as the cheaper of the two arms
+        :func:`repro_torch.core.phases.mq_wire_bytes` prices: the Q
+        solo-format batches of its nonempty columns, or (compression on)
+        one shared-index panel, taken only when strictly shorter — so
+        ``bytes_sent`` equals the model by construction.  A worker-local
+        batch hands its arrays over by reference and costs no bytes."""
+        if src_worker == dst_worker:
+            with self._lock:
+                self.posted[src_worker, dst_worker] += 1
+            self._put_entry(dst_worker, q, p, ("local_mq", masks, values))
+            return
+        items = []
+        legacy_sum = 0
+        for j, c in enumerate(counts):
+            if not c:
+                continue
+            fmt, payload = encode_batch(masks[j], values[j], int(c),
+                                        compression=self.compression)
+            legacy_sum += len(payload)
+            items.append((j, fmt, int(c), payload))
+        if self.compression:
+            union = np.asarray(masks, bool).any(axis=0)
+            cols, payload = mq_encode_panel(masks, values, union, counts)
+            if len(payload) < legacy_sum:
+                with self._lock:
+                    self.bytes_sent += len(payload)
+                    self.bytes_by_sender[src_worker] += len(payload)
+                    self.mq_batches += 1
+                    self.posted[src_worker, dst_worker] += 1
+                self._put_entry(dst_worker, q, p, (
+                    "wire_mq_panel", cols, int(union.sum()), payload))
+                return
+        with self._lock:
+            self.bytes_sent += legacy_sum
+            self.bytes_by_sender[src_worker] += legacy_sum
+            for _, fmt, _, _ in items:
+                self._tally(fmt)
+            self.posted[src_worker, dst_worker] += 1
+        self._put_entry(dst_worker, q, p, ("wire_mq_legacy", items))
+
+    def take_dest_mq(self, dst_worker: int, q: int, p_cnt: int,
+                     num_queries: int, device=None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """Assemble destination partition q's multi-query receive view:
+        (recv_mask [Q, P, v_max], recv_msg [Q, P, v_max]).  ``device``
+        decodes every gap stream there — the panel's union stream and the
+        legacy items' (:func:`_gap_decode`)."""
+        recv_mask = np.zeros((num_queries, p_cnt, self.v_max), bool)
+        recv_msg = np.zeros((num_queries, p_cnt, self.v_max), np.float32)
+        with self._lock:
+            entries = self._inbox[dst_worker].pop(q, ())
+        for p, entry in entries:
+            if entry[0] == "local_mq":
+                _, masks, values = entry
+                m = np.asarray(masks, bool)
+                recv_mask[:, p] = m
+                recv_msg[:, p] = np.where(m, values, 0.0)
+            elif entry[0] == "wire_mq_panel":
+                _, cols, u, payload = entry
+                recv_mask[:, p], recv_msg[:, p] = mq_decode_panel(
+                    cols, payload, u, self.v_max, num_queries, device)
+            else:
+                for j, fmt, count, payload in entry[1]:
+                    recv_mask[j, p], recv_msg[j, p] = decode_batch(
+                        fmt, payload, count, self.v_max, device=device)
+        return recv_mask, recv_msg
 
     def take_dest(self, dst_worker: int, q: int, p_cnt: int, device=None
                   ) -> tuple[np.ndarray, np.ndarray]:
@@ -436,15 +518,20 @@ class DecodeAhead:
     """Decode-ahead over a worker's destination partitions.
 
     Iterates ``(q, recv_mask [P, v_max], recv_msg [P, v_max])`` for each
-    owned destination partition, assembling partition *q+1*'s view on a
-    thread of its own (or on ``runner``, a long-lived executor) while the
-    consumer works on *q*.  In the dist_ooc executor the consumer is the
-    worker's lazy schedule, advanced on the chunk prefetch thread, so wire
-    decode, dispatch, disk reads and combine all overlap.  Each
-    :meth:`Exchange.take_dest` runs holding ``compute_lock`` (the shared
-    compute token, never held across a queue put or get).  ``device``
-    decodes the gap streams there; ``take_s`` sums the host seconds spent
-    in :meth:`Exchange.take_dest`.  Exceptions re-raise in the consumer.
+    owned destination partition — given ``num_queries``, the
+    [Q, P, v_max] views of :meth:`Exchange.take_dest_mq` — assembling
+    partition *q+1*'s view on a thread of its own (or on ``runner``, a
+    long-lived executor) while the consumer works on *q*.  In the dist_ooc
+    executor the consumer is the worker's lazy schedule, advanced on the
+    chunk prefetch thread, so wire decode, dispatch, disk reads and
+    combine all overlap.  Each take runs holding ``compute_lock`` (the
+    shared compute token, never held across a queue put or get).
+    ``device`` decodes the gap streams there; ``take_s`` sums the host
+    seconds spent in the takes.  Exceptions re-raise in the consumer.
+
+    The multi-query views follow from ``num_queries`` being given, not from
+    its being above 1: the reference takes solo views at Q = 1 and so fails
+    on a one-query multi-query pass, whose inbox holds panel entries.
     """
 
     _DONE = object()
@@ -452,17 +539,14 @@ class DecodeAhead:
     def __init__(self, exchange: Exchange, worker: int,
                  dests: Sequence[int], p_cnt: int, depth: int = 1,
                  compute_lock=None, runner=None, device=None,
-                 num_queries: int = 1):
-        if num_queries != 1:
-            raise NotImplementedError(
-                "multi-query receive views come with the DIST_OOC "
-                "multi-query slice (slice 4, item 3)")
+                 num_queries: int | None = None):
         self._exchange = exchange
         self._worker = worker
         self._dests = list(dests)
         self._p_cnt = p_cnt
         self._device = device
-        self.take_s = 0.0      # host seconds in take_dest (wire decode)
+        self._num_queries = num_queries
+        self.take_s = 0.0      # host seconds in the takes (wire decode)
         self._lock_ctx = token_ctx(compute_lock)
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
@@ -488,8 +572,13 @@ class DecodeAhead:
             for q in self._dests:
                 with self._lock_ctx:       # compute token: decode burst
                     t0 = time.perf_counter()
-                    mask, msg = self._exchange.take_dest(
-                        self._worker, q, self._p_cnt, device=self._device)
+                    if self._num_queries is not None:
+                        mask, msg = self._exchange.take_dest_mq(
+                            self._worker, q, self._p_cnt, self._num_queries,
+                            device=self._device)
+                    else:
+                        mask, msg = self._exchange.take_dest(
+                            self._worker, q, self._p_cnt, device=self._device)
                     self.take_s += time.perf_counter() - t0
                 if not self._put((q, mask, msg)):
                     return

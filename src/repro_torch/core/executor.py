@@ -716,6 +716,7 @@ class DestHeader(ScheduleMark):
     and dispatch counters in stream order."""
     q: int
     recv_mask: np.ndarray      # [P, v_max] message presence per source part
+    #                            ([Q, P, v_max] on the multi-query executor)
     recv_msg: np.ndarray       # [P, v_max] message values (0 off the mask)
     counter_delta: dict        # phase-3 contributions of
     #                            _dispatch_schedule_one_dest
@@ -755,6 +756,30 @@ def run_worker_pool(thunks, parallel: bool, pool=None):
 # on the decode-ahead thread, then the receive pipeline's OOC split.
 DIST_WALL_KEYS = ("send_s", "recv_s", "pv_s", "post_s", "take_s", "read_s",
                   "decode_s", "wait_s", "combine_s", "apply_s")
+
+
+def record_worker_traffic(engine, w, cw, ex, store_io0, spill_io0,
+                          dev_chunks, edges):
+    """Worker ``w``'s measured traffic of one dist_ooc ProcessEdges call —
+    its shard's chunks and bytes read since ``store_io0``, its spill's
+    bytes since ``spill_io0``, the chunks decoded on the device and the
+    edges touched — into its private counter deltas ``cw`` and its
+    ``engine.worker_totals`` (with the wire bytes it sent on ``ex``)."""
+    store, spill = engine.dist_sources[w].store, engine.spills[w]
+    cr0, br0 = store_io0
+    sr0, sw0 = spill_io0
+    edge_b = store.bytes_read - br0
+    cw["measured_chunks_read"] = store.chunks_read - cr0
+    cw["measured_edge_read_bytes"] = edge_b
+    cw["measured_chunks_device_decoded"] = dev_chunks
+    cw["measured_vertex_read_bytes"] = spill.bytes_read - sr0
+    cw["measured_vertex_write_bytes"] = spill.bytes_written - sw0
+    cw["edges_touched"] = edges
+    wt = engine.worker_totals[w]
+    wt["disk_bytes"] += edge_b + ((spill.bytes_read - sr0)
+                                  + (spill.bytes_written - sw0))
+    wt["net_bytes"] += float(ex.bytes_by_sender[w])
+    wt["edges_touched"] += edges
 
 
 def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
@@ -1003,23 +1028,8 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
                     upd_w, _np(ret).astype(np.float32), 0.0).sum())
             wall["apply_s"] = time.perf_counter() - t_apply
 
-            # Per-worker measured traffic.
-            w_edges = float(touched)
-            cr0, br0 = store_io0[w]
-            sr0, sw0 = spill_io0[w]
-            edge_b = source.store.bytes_read - br0
-            vert_b = ((spill.bytes_read - sr0)
-                      + (spill.bytes_written - sw0))
-            cw["measured_chunks_read"] = source.store.chunks_read - cr0
-            cw["measured_edge_read_bytes"] = edge_b
-            cw["measured_chunks_device_decoded"] = dev_chunks
-            cw["measured_vertex_read_bytes"] = spill.bytes_read - sr0
-            cw["measured_vertex_write_bytes"] = spill.bytes_written - sw0
-            cw["edges_touched"] = w_edges
-            wt = engine.worker_totals[w]
-            wt["disk_bytes"] += edge_b + vert_b
-            wt["net_bytes"] += float(ex.bytes_by_sender[w])
-            wt["edges_touched"] += w_edges
+            record_worker_traffic(engine, w, cw, ex, store_io0[w],
+                                  spill_io0[w], dev_chunks, float(touched))
             return (cw, total_w, float(upd_b.sum()),
                     time.perf_counter() - t0, wall)
 

@@ -1,5 +1,5 @@
-"""Multi-query (Q-panel) ProcessEdges executors (DESIGN.md §11) — the LOCAL
-and OOC half of ``repro.core.multiquery``.
+"""Multi-query (Q-panel) ProcessEdges executors (DESIGN.md §11) — the
+LOCAL, OOC and DIST_OOC parts of ``repro.core.multiquery``.
 
 Concurrent query serving amortizes ONE selective chunk stream across Q
 simultaneous queries: vertex state grows a trailing query axis
@@ -22,29 +22,34 @@ Counter semantics, as the reference's:
   :func:`repro_torch.core.phases.mq_wire_bytes`), so the batched pass
   never costs more than the Q solo passes it replaces.
 
-A query whose frontier has died is physically skipped on OOC: none of its
-spill batches or bitmaps are read (zero cost); LOCAL gates its
-shape-static bitmap term on an aliveness flag so the counters agree.
+A query whose frontier has died is physically skipped on OOC and
+DIST_OOC: none of its spill batches or bitmaps are read (zero cost); LOCAL
+gates its shape-static bitmap term on an aliveness flag so the counters
+agree.
 """
 from __future__ import annotations
 
+import functools
+import threading
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.core import codec, phases
+from repro_torch.core import exchange as exchange_mod
 from repro_torch.core.chunkstore import (
     REP_CSR, REP_DCSR, REP_DCSR_DELTA, ChunkPrefetcher, HBMChunkSource,
 )
 from repro_torch.core.executor import (
-    F32, _apply_and_account, _batch_any, _block_dest_vectors,
+    F32, DestHeader, _apply_and_account, _batch_any, _block_dest_vectors,
     _combine_stream_batch, _device_state, _host_state, _stream_tile_layout,
-    _stream_value_tiles, _zero_counters,
+    _stream_value_tiles, _zero_counters, record_worker_traffic,
+    run_worker_pool,
 )
 from repro_torch.core.formats import _np
 from repro_torch.kernels.csr_spmv import block_csr_combine_mq
-from repro_torch.utils import ceil_div
+from repro_torch.utils import ceil_div, token_ctx
 
 
 def mq_base_names(spill) -> list[str]:
@@ -467,3 +472,330 @@ def mq_state_views(spill, base, nq):
     views = spill.state_views()
     return {bk: np.stack([views[f"{bk}@q{j}"] for j in range(nq)], axis=-1)
             for bk in base}
+
+
+# ---------------------------------------------------------------------------
+# DIST_OOC executor (per-worker shards, shared-index wire panels)
+# ---------------------------------------------------------------------------
+
+def make_dist_ooc_pe_mq(engine, signal_fn, slot_fn, monoid, apply_fn,
+                        backend, mode_meta, nq):
+    """Multi-query distributed fully-out-of-core ProcessEdges:
+    ``step(active)`` -> (new_state panels, new_active [P, V, Q], totals
+    [Q], counters).
+
+    The worker pipeline of the solo ``executor.make_dist_ooc_pe`` (send
+    pool -> phase barrier -> one receive pipeline per worker, a
+    :class:`~repro_torch.core.exchange.DecodeAhead` feeding one
+    :class:`~repro_torch.core.chunkstore.ChunkPrefetcher`), with three
+    differences: each worker generates per alive query from that query's
+    spill columns and bitmap (a dead query costs zero); each nonempty
+    (p, q) send is ONE multi-query batch
+    (:meth:`~repro_torch.core.exchange.Exchange.post_mq`: a shared-index
+    panel or Q solo-format batches, whichever is shorter); and each
+    streamed chunk batch of a worker's union schedule combines into every
+    alive query's column — one panel-kernel launch (block_csr) or the
+    segment scatter per query.  Every float a worker makes stays private
+    and is reduced in worker order after the join, and each worker writes
+    only its own destination rows of ``agg`` / ``has`` / ``new_active``,
+    so parallel workers are bit-identical to sequential ones."""
+    cfg = engine.config
+    g = engine._host_graph
+    spec = g.spec
+    dev = engine.device
+    p_cnt, v_max = spec.num_partitions, spec.v_max
+    b_cnt, bs = spec.num_batches, spec.batch_size
+    n_workers = cfg.num_workers
+    worker_parts = engine.worker_parts
+    worker_of = engine.worker_of
+    spills = engine.spills
+    sources = engine.dist_sources
+    need = _np(g.need)
+    need_counts = _np(g.need_counts).astype(np.float64)
+    vertex_valid = _np(g.vertex_valid)
+    global_id = engine.global_id
+    part_sizes = np.asarray(spec.partition_sizes(), np.float32)
+    gamma = engine.fmts.gamma
+    identity = float(monoid.identity)
+    mb = cfg.msg_bytes + 4
+    mode = blk = a_const = v_pad_t = None
+    if backend == "block_csr":
+        tile = cfg.block_tile
+        v_pad_t = ceil_div(v_max, tile) * tile
+        blk = dict(tile=tile, pb=v_pad_t // tile, n_rows_b=ceil_div(bs, tile),
+                   bs=bs)
+        mode, a_const = mode_meta
+    parallel = cfg.parallel_workers
+    wire_device = dev if engine.device_decode else None
+    cross = worker_of[np.newaxis, :] != worker_of[:, np.newaxis]
+
+    def step(active):
+        base = mq_base_names(spills[0])
+        counters = {k: 0.0 for k in engine.counter_keys}
+        amask = [(vertex_valid if active is None
+                  else _np(active[..., j]).astype(bool) & vertex_valid)
+                 for j in range(nq)]
+        alive = [j for j in range(nq) if amask[j].any()]
+        spill_io0 = [(sp.bytes_read, sp.bytes_written) for sp in spills]
+        store_io0 = [(src.store.chunks_read, src.store.bytes_read)
+                     for src in sources]
+        ex = exchange_mod.Exchange(n_workers, v_max,
+                                   compression=cfg.compression)
+        token = threading.Lock() if parallel else None
+        tok = token_ctx(token)
+
+        # Phases 1 + 2 per worker: generate per alive query from its own
+        # columns and bitmap, filter per query, and post ONE multi-query
+        # batch per nonempty (p, q) over the queries' send masks.
+        def send_task(w):
+            t0 = time.perf_counter()
+            parts = worker_parts[w]
+            lo, hi = parts[0], parts[-1] + 1
+            spill = spills[w]
+            bitmap_w = float(spill.bitmap_nbytes())
+            msg_w = np.zeros((nq, len(parts), v_max), np.float32)
+            vr_model_w = 0.0
+            for j in alive:
+                keys_j = mq_query_keys(base, j)
+                ab_j = spill.arrays_bytes(keys_j)
+                with tok:                   # compute token: generate burst
+                    spill.read_bitmap(name=f"active_q{j}")      # measured
+                    gen_b = _batch_any(amask[j][lo:hi], bs, b_cnt)
+                    gread = spill.read(gen_b, keys=keys_j)      # measured
+                    gstate = {bk: gread[f"{bk}@q{j}"][:, :v_max]
+                              for bk in base}
+                    msg = signal_fn(_device_state(gstate, dev),
+                                    global_id[lo:hi])
+                    msg_w[j] = msg.to(F32).cpu().numpy()
+                vr_model_w += float(gen_b.sum()) * bs * ab_j + bitmap_w
+            counts_w = np.zeros((nq, p_cnt, len(parts)), np.float64)
+            gapb_w = np.zeros((nq, p_cnt, len(parts)), np.float64)
+            unib_w = np.zeros((nq, p_cnt, len(parts)), bool)
+            ugap_w = np.zeros((p_cnt, len(parts)), np.float64)
+            ucounts_w = np.zeros((p_cnt, len(parts)), np.float64)
+            post_s = 0.0
+            for i, p in enumerate(parts):
+                with tok:                   # compute token: filter + encode
+                    sm = np.zeros((nq, p_cnt, v_max), bool)
+                    for j in alive:
+                        sm[j] = phases.filter_sendmask(
+                            amask[j][p], need[p], need_counts[p],
+                            float(amask[j][p].sum()), cfg, xp=np)
+                        counts_w[j, :, i] = phases.routing_counts(sm[j],
+                                                                  xp=np)
+                        if cfg.compression:
+                            gapb_w[j, :, i] = codec.mask_gap_bytes(sm[j],
+                                                                   xp=np)
+                            unib_w[j, :, i] = phases.batch_value_uniform(
+                                sm[j], msg_w[j, i][None, :], xp=np)
+                    union_sm = sm.any(axis=0)
+                    ucounts_w[:, i] = union_sm.sum(axis=1)
+                    if cfg.compression:
+                        ugap_w[:, i] = codec.mask_gap_bytes(union_sm, xp=np)
+                    t1 = time.perf_counter()
+                    for q in range(p_cnt):
+                        cj = [int(c) for c in counts_w[:, q, i]]
+                        if any(cj):
+                            ex.post_mq(w, int(worker_of[q]), p, q, sm[:, q],
+                                       msg_w[:, i], cj)
+                    post_s += time.perf_counter() - t1
+            return (counts_w, gapb_w, unib_w, ugap_w, ucounts_w, vr_model_w,
+                    time.perf_counter() - t0, post_s)
+
+        send_out = run_worker_pool(
+            [functools.partial(send_task, w) for w in range(n_workers)],
+            parallel, pool=engine.worker_pool)
+        counts = np.zeros((nq, p_cnt, p_cnt), np.float64)   # [j, q, p]
+        gapb = np.zeros((nq, p_cnt, p_cnt), np.float64)
+        unib = np.zeros((nq, p_cnt, p_cnt), bool)
+        ugap = np.zeros((p_cnt, p_cnt), np.float64)
+        ucounts = np.zeros((p_cnt, p_cnt), np.float64)
+        for w, (counts_w, gapb_w, unib_w, ugap_w, ucounts_w, vr_model_w,
+                dt, post_s) in enumerate(send_out):
+            lo, hi = worker_parts[w][0], worker_parts[w][-1] + 1
+            counts[:, :, lo:hi] = counts_w
+            gapb[:, :, lo:hi] = gapb_w
+            unib[:, :, lo:hi] = unib_w
+            ugap[:, lo:hi] = ugap_w
+            ucounts[:, lo:hi] = ucounts_w
+            counters["vertex_read_bytes"] += vr_model_w
+            engine.worker_times[w]["send_s"] += dt
+            engine.worker_times[w]["post_s"] += post_s
+
+        for j in alive:
+            n_active = float(amask[j].sum())
+            counters["msgs_generated"] += n_active
+            counters["msg_disk_bytes"] += n_active * mb
+            counters["msgs_sent_nofilter"] += p_cnt * n_active
+            counters["net_bytes_nofilter"] += (p_cnt - 1) * n_active * mb
+        counters["msgs_sent"] = float(counts.sum())
+        net, net_raw = phases.mq_net_bytes_model(
+            counts, ucounts, cross, v_max, cfg.msg_bytes,
+            gap_bytes=gapb if cfg.compression else None,
+            union_gap=ugap if cfg.compression else None,
+            uniform=unib if cfg.compression else None, xp=np)
+        counters["net_bytes"] = float(net)
+        counters["net_bytes_raw"] = float(net_raw)
+        counters["measured_net_bytes"] = ex.bytes_sent
+        counters["net_pair_batches"] = float(ex.pair_batches)
+        counters["net_slab_batches"] = float(ex.slab_batches)
+        counters["net_vpair_batches"] = float(ex.vpair_batches)
+        counters["net_uval_batches"] = float(ex.uval_batches)
+
+        # Phases 3 + 4 + apply per worker over its own shard: one chunk
+        # stream per worker over the union schedule.  Rows of agg / has /
+        # new_active are partitioned by ownership.
+        agg = torch.full((nq, p_cnt, v_max), identity, dtype=F32, device=dev)
+        has = torch.zeros((nq, p_cnt, v_max), dtype=torch.bool, device=dev)
+        new_active = np.zeros((p_cnt, v_max, nq), bool)
+        alive_d = torch.as_tensor(alive, dtype=torch.long, device=dev)
+
+        def recv_task(w):
+            t0 = time.perf_counter()
+            parts = worker_parts[w]
+            lo, hi = parts[0], parts[-1] + 1
+            spill = spills[w]
+            source = sources[w]
+            bitmap_w = float(spill.bitmap_nbytes())
+            cw = {}                       # worker-private counter deltas
+            wall = dict.fromkeys(("take_s", "read_s", "decode_s", "wait_s",
+                                  "combine_s", "apply_s"), 0.0)
+            decoders = []
+
+            def lazy_schedule():
+                ahead = exchange_mod.DecodeAhead(
+                    ex, w, parts, p_cnt, compute_lock=token,
+                    runner=engine.pipeline_pool, device=wire_device,
+                    num_queries=nq)
+                decoders.append(ahead)
+                for q, pmask, pmsg in ahead:
+                    with tok:               # compute token: dispatch burst
+                        cd, _, sched_q = _dispatch_schedule_one_dest_mq(
+                            source, q, pmask.any(axis=0), part_sizes, gamma,
+                            cfg.compression)
+                        header = DestHeader(q=q, recv_mask=pmask,
+                                            recv_msg=pmsg, counter_delta=cd)
+                    yield header
+                    yield from sched_q
+
+            touched = torch.zeros((), dtype=torch.float64, device=dev)
+            dev_chunks = 0
+            cur = mask_q = msg_q = panels = None
+            t_wait = time.perf_counter()
+            for item in ChunkPrefetcher(
+                    source, lazy_schedule(), depth=cfg.ooc_prefetch_depth,
+                    compute_lock=token, device_decode=engine.device_decode,
+                    device=dev, runner=engine.pipeline_pool):
+                t1 = time.perf_counter()
+                wall["wait_s"] += t1 - t_wait
+                if isinstance(item, DestHeader):
+                    cur = item
+                    mask_q = msg_q = panels = None
+                    for ck, cv in item.counter_delta.items():
+                        cw[ck] = cw.get(ck, 0.0) + cv
+                    t_wait = time.perf_counter()
+                    continue
+                dev_chunks += item.n_device_chunks
+                wall["read_s"] += item.read_s
+                wall["decode_s"] += item.decode_s
+                with tok:                   # compute token: combine burst
+                    if mask_q is None:
+                        mask_q = torch.from_numpy(cur.recv_mask).to(dev)
+                        msg_q = torch.from_numpy(cur.recv_msg).to(dev)
+                        if backend == "block_csr":
+                            panels = _mq_panel_vectors(
+                                mask_q, msg_q, mode, a_const, identity,
+                                v_pad_t)
+                    if backend == "segment":
+                        for j in alive:
+                            touched += _combine_stream_batch(
+                                item, mask_q[j], msg_q[j], slot_fn, monoid,
+                                agg[j], has[j], backend="segment", mode=None,
+                                blk=None, xv=None, xc=None, v_max=v_max)
+                    else:
+                        val, hc = _ooc_combine_batch_mq(
+                            item, panels[0], panels[1], slot_fn, monoid,
+                            mode, **blk)
+                        klo = item.k * bs
+                        khi = min(klo + bs, v_max)
+                        agg[alive_d, item.q, klo:khi] = \
+                            val[:khi - klo, alive_d].T
+                        has[alive_d, item.q, klo:khi] = \
+                            (hc[:khi - klo, alive_d] > 0.5).T
+                        touched += torch.sum(hc[:, alive_d],
+                                             dtype=torch.float64)
+                t_wait = time.perf_counter()
+                wall["combine_s"] += t_wait - t1
+            wall["take_s"] = sum(d.take_s for d in decoders)
+
+            # Apply per alive query into this worker's spill columns.
+            t_apply = time.perf_counter()
+            totals_w = np.zeros(nq, np.float64)
+            upd_model_r = upd_model_w = 0.0
+            with tok:
+                has_w = has[:, lo:hi].cpu().numpy()
+            for j in alive:
+                keys_j = mq_query_keys(base, j)
+                ab_j = spill.arrays_bytes(keys_j)
+                with tok:                   # compute token: apply burst
+                    upd_wj = has_w[j] & vertex_valid[lo:hi]
+                    upd_b = _batch_any(upd_wj, bs, b_cnt)
+                    astate_pad = spill.read(upd_b, keys=keys_j)  # measured
+                    state_j = {bk: astate_pad[f"{bk}@q{j}"][:, :v_max]
+                               for bk in base}
+                    updates, na_wj, ret = apply_fn(
+                        _device_state(state_j, dev), agg[j, lo:hi],
+                        has[j, lo:hi], global_id[lo:hi])
+                    spill.merge_write(
+                        astate_pad, {f"{bk}@q{j}": v for bk, v in
+                                     _host_state(updates).items()},
+                        upd_wj, upd_b)                          # measured
+                    na_wj = _np(na_wj).astype(bool) & vertex_valid[lo:hi]
+                    spill.write_bitmap(na_wj, name=f"active_q{j}")  # measured
+                    new_active[lo:hi, :, j] = na_wj
+                    totals_w[j] = float(np.where(
+                        upd_wj, _np(ret).astype(np.float32), 0.0).sum())
+                upd_v = float(upd_b.sum()) * bs
+                upd_model_r += upd_v * ab_j
+                upd_model_w += upd_v * ab_j + bitmap_w
+            cw["vertex_read_bytes"] = upd_model_r
+            cw["vertex_write_bytes"] = upd_model_w
+            wall["apply_s"] = time.perf_counter() - t_apply
+
+            record_worker_traffic(engine, w, cw, ex, store_io0[w],
+                                  spill_io0[w], dev_chunks, float(touched))
+            return cw, totals_w, time.perf_counter() - t0, wall
+
+        recv_out = run_worker_pool(
+            [functools.partial(recv_task, w) for w in range(n_workers)],
+            parallel, pool=engine.worker_pool)
+        phases.reduce_worker_counters(counters, [o[0] for o in recv_out])
+        totals = np.zeros(nq, np.float64)
+        for w, (_, totals_w, dt, wall) in enumerate(recv_out):
+            totals += totals_w
+            engine.worker_times[w]["recv_s"] += dt
+            for k, v in wall.items():
+                engine.worker_times[w][k] += v
+        return (dist_mq_state_views(spills, base, nq), new_active, totals,
+                counters)
+
+    return step
+
+
+def dist_mq_state_views(spills, base, nq):
+    """The [P, v_max, Q] state panels assembled from the per-worker spills'
+    per-query columns (contiguous partition blocks, in worker order;
+    copies, each element written once — the spills stay authoritative)."""
+    views = [sp.state_views() for sp in spills]
+    out = {}
+    for bk in base:
+        first = views[0][f"{bk}@q0"]
+        rows = [v[f"{bk}@q0"].shape[0] for v in views]
+        panel = np.empty((sum(rows), first.shape[1], nq), first.dtype)
+        lo = 0
+        for v, n_rows in zip(views, rows):
+            for j in range(nq):
+                panel[lo:lo + n_rows, :, j] = v[f"{bk}@q{j}"]
+            lo += n_rows
+        out[bk] = panel
+    return out

@@ -357,18 +357,30 @@ def test_build_sharded_needs_a_divisor(problem, tmp_path):
     assert not (tmp_path / "never").exists()
 
 
-def test_later_slices_raise_on_dist(problem):
+def test_later_slices_raise_on_dist(problem, tmp_path):
+    """Process mode still raises; the multi-query half of DIST_OOC runs:
+    a Q = 2 engine builds on a fresh sharded store, and a one-query
+    ``multi_bfs`` equals the solo BFS."""
     p = problem["fwd"]
-    with pytest.raises(NotImplementedError, match="multi-query"):
-        Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc", num_workers=2,
-                                        num_queries=2),
-               store=p.stores["port", 2], device="cpu")
+    mq_store = ChunkStore.build_sharded(p.dg, p.fm, str(tmp_path / "mq"), 2)
+    mq = Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc", num_workers=2,
+                                         num_queries=2),
+                store=mq_store, device="cpu")
+    assert [sp.num_queries for sp in mq.spills] == [2, 2]
     with pytest.raises(NotImplementedError, match="process mode"):
         Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc", num_workers=2),
                store=p.stores["port", 2], proc_ctx=object(), device="cpu")
-    eng = port_engine(problem, "fwd", 2)
-    with pytest.raises(NotImplementedError, match="multi-query"):
-        alg.multi_bfs(eng, [problem["src"]])
+    eng = Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc",
+                                          num_workers=2),
+                 store=ChunkStore.build_sharded(p.dg, p.fm,
+                                                str(tmp_path / "one"), 2),
+                 device="cpu")
+    levels, stats = alg.multi_bfs(eng, [problem["src"]])
+    solo, solo_stats = alg.bfs(port_engine(problem, "fwd", 2),
+                               problem["src"])
+    np.testing.assert_array_equal(levels[:, 0].view(np.int32),
+                                  solo.view(np.int32))
+    assert stats.iterations == [solo_stats.iterations]
     for executor in ("auto", "ooc"):
         with pytest.raises(ValueError, match="parallel_workers"):
             Engine(p.dg, p.fm, EngineConfig(executor=executor,

@@ -140,8 +140,8 @@ def test_default_device_is_the_gpu(problem, monkeypatch):
 @pytest.mark.parametrize("kw,error,match", [
     (dict(executor="ooc"), ValueError, "ChunkStore"),    # needs its store
     (dict(executor="dist_ooc"), ValueError, "ShardedChunkStore"),
-    (dict(executor="dist_ooc", num_queries=2), NotImplementedError,
-     "slice 4 item 3"),
+    (dict(executor="dist_ooc", num_queries=2), ValueError,
+     "ShardedChunkStore"),
     (dict(physical_sparse_exchange=True), NotImplementedError, "slice 5"),
 ])
 def test_later_slices_raise(problem, kw, error, match):

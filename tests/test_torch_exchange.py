@@ -237,8 +237,12 @@ def test_decode_ahead_reraises_and_rejects_panels():
 
     with pytest.raises(KeyError, match="boom"):
         list(ex.DecodeAhead(Broken(1, 8), 0, [0], 1))
-    with pytest.raises(NotImplementedError, match="multi-query"):
-        ex.DecodeAhead(ex.Exchange(1, 8), 0, [0], 1, num_queries=2)
+    # num_queries > 1 yields [Q, P, v_max] panels (an empty inbox: nothing
+    # present)
+    (q, mask, msg), = ex.DecodeAhead(ex.Exchange(1, 8), 0, [0], 1,
+                                     num_queries=2)
+    assert q == 0 and mask.shape == msg.shape == (2, 1, 8)
+    assert not mask.any() and not msg.any()
 
 
 # ---------------------------------------------------------------------------

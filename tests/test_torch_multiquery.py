@@ -1,7 +1,9 @@
 """Multi-query serving in the port (``process_edges_multi``, ``multi_bfs``,
 ``personalized_pagerank``, ``pairwise_reachability``,
 ``GraphServeSession``) against the JAX package, on LOCAL (segment) and OOC
-(both backends), and the panel combine ``block_csr_combine_mq``.
+(both backends), the session also on DIST_OOC (W = 2; the rest of DIST_OOC
+multi-query is ``test_torch_dist_multiquery.py``), and the panel combine
+``block_csr_combine_mq``.
 
 Sizes are the reference suite's (R-MAT scale 7, P = 4, batch size 16,
 Q = 3, the top-3 out-degree sources).  Tolerances: BFS levels and the
@@ -223,13 +225,15 @@ def problem():
 @pytest.fixture
 def stores(problem, tmp_path):
     """``make(name)`` -> (JAX root, port root): one store built by the JAX
-    package and a copy for the port, so each package has its own spill."""
+    package and a copy for the port, so each package has its own spill;
+    ``make.root(name)`` is the directory for a store built otherwise."""
     def make(name):
         root = tmp_path / name
         _ref().core.ChunkStore.build(problem["jdg"], problem["jfm"],
                                      str(root / "jax"))
         shutil.copytree(root / "jax", root / "port")
         return str(root / "jax"), str(root / "port")
+    make.root = lambda name: tmp_path / name
     return make
 
 
@@ -243,6 +247,18 @@ def _engines(problem, stores, executor, backend="segment", nq=NQ,
                            ref.EngineConfig(**kw)),
                 Engine(problem["dg"], problem["fm"], EngineConfig(**kw),
                        device="cpu"))
+    if executor == "dist_ooc":
+        root = stores.root(name)
+        kw.update(executor="dist_ooc", num_workers=2)
+        return (ref.Engine(problem["jdg"], problem["jfm"],
+                           ref.EngineConfig(**kw),
+                           store=ref.ChunkStore.build_sharded(
+                               problem["jdg"], problem["jfm"],
+                               str(root / "jax"), 2)),
+                Engine(problem["dg"], problem["fm"], EngineConfig(**kw),
+                       store=ChunkStore.build_sharded(
+                           problem["dg"], problem["fm"], str(root / "port"),
+                           2), device="cpu"))
     jroot, proot = stores(name)
     return (ref.Engine(problem["jdg"], problem["jfm"],
                        ref.EngineConfig(executor="ooc", **kw),
@@ -367,7 +383,7 @@ def test_ooc_dead_query_costs_nothing(problem, stores):
         assert got[1].counters[k] == solo[k], k
 
 
-@pytest.mark.parametrize("executor", ["auto", "ooc"])
+@pytest.mark.parametrize("executor", ["auto", "ooc", "dist_ooc"])
 def test_serve_session_matches_jax(problem, stores, executor):
     """Two slots, five queries: every result equals the solo BFS, wait and
     run iterations and every counter equal the JAX session's, logical
@@ -396,8 +412,8 @@ def test_serve_session_matches_jax(problem, stores, executor):
     assert res[qids[0][1]].wait_iters == 0
     assert max(r.wait_iters for r in res.values()) >= 1
     _same_counters(sess.counters, jsess.counters,
-                   exact=executor == "ooc")
-    if executor == "ooc":
+                   exact=executor != "auto")
+    if executor != "auto":
         solo = _sum_solo(_solo_ooc_runs(problem, stores, sources, "solo"))
         for k in LOGICAL:
             assert sess.counters[k] == solo[k], k
@@ -490,9 +506,15 @@ def test_multiquery_validation(problem, tmp_path):
                 device="cpu")
     with pytest.raises(ValueError, match="adaptive"):
         _bfs_step(na, good)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    # dist_ooc multi-query needs its sharded store, and builds on one
+    with pytest.raises(ValueError, match="ShardedChunkStore"):
         Engine(dg, fm, EngineConfig(executor="dist_ooc", num_queries=2),
                device="cpu")
+    sharded = ChunkStore.build_sharded(dg, fm, str(tmp_path / "sharded"), 2)
+    dist = Engine(dg, fm, EngineConfig(executor="dist_ooc", num_workers=2,
+                                       num_queries=2), store=sharded,
+                  device="cpu")
+    assert [sp.num_queries for sp in dist.spills] == [2, 2]
     # a spill laid out for Q = 2 refuses an engine with Q = 3
     store = ChunkStore.build(dg, fm, str(tmp_path / "store"))
     Engine(dg, fm, EngineConfig(executor="ooc", num_queries=2), store=store,
