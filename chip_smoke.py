@@ -9,7 +9,8 @@ phase, then drives the port's three graph paths on a Graph500 R-MAT graph
 (scale 21, edge factor 16, weighted, seed 0: 2,097,152 vertices,
 33,554,432 edges; P = 8 partitions, 8 x 8 tiles): LOCAL and OOC through
 PageRank (5 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
-BFS, and multi-query serving on LOCAL, OOC and DIST_OOC.
+BFS, multi-query serving on LOCAL, OOC and DIST_OOC, and the SHARD_MAP
+executor on 8 ranks sharing the card.
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -26,7 +27,9 @@ set the time:
   * prints the solo add and min times on (a) and (b) beside their bounds
     and the balance ratio, add's time on (b) over (a).
 
-LOCAL (the in-memory engine, ``block_csr`` backend).  For each algorithm it
+LOCAL (the in-memory engine, ``block_csr`` backend; one engine per backend
+serves the four algorithms, so the block tiles are built once, in
+PageRank's cold run).  For each algorithm it
   * resets the combine kernel's launch count, runs the algorithm through
     the public entry points, and reads the count (it must have grown);
   * holds the values against the numpy oracles (BFS and WCC exactly,
@@ -57,8 +60,8 @@ on the card).  It
     then sweeps both scan modes over 2^10, 2^16, 2^20 and 2^24 seeded
     elements (bit-equal, add also to ``torch.cumsum``), timed the same
     way beside ``torch.cumsum`` / ``torch.cummax``;
-  * runs the four algorithms cold (BFS also warm)
-    with the launch counts of the combine, the
+  * runs the four algorithms cold (SSSP to 5 iterations, held against
+    LOCAL's SSSP at that depth) with the launch counts of the combine, the
     fused decode, the stencil and the scans set to 0 just before each and
     read just after (the combine and the fused decode must have run, at
     most two decode launches per item, the stencil and the scans not at
@@ -75,9 +78,7 @@ on the card).  It
     fused decode and its plain version on the card (bit-equal), and times
     it: the call (CUDA events around the copy from page-locked memory and
     the decode), the two kernels alone (``torch.profiler``) and the plain
-    version, beside the byte bound (staged bytes in, 16 B per edge out);
-  * runs BFS once more with the host decode: values and counters
-    bit-identical except the device-decoded chunk count, which is 0.
+    version, beside the byte bound (staged bytes in, 16 B per edge out).
 
 Serving (multi-query, on the same graph, while the forward store exists).
 The 10 highest out-degree vertices are the sources (query 0 is the BFS
@@ -88,7 +89,7 @@ source above).  It
     0–7, each column bit-equal to its solo BFS with equal iteration
     counts; ``pairwise_reachability`` of the pairs s_k -> s_(k+1 mod 8),
     each answer equal to the solo levels' finiteness;
-    ``personalized_pagerank`` of sources 0–7 (2 iterations), query 0
+    ``personalized_pagerank`` of sources 0–7 (one iteration), query 0
     within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
   * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
     a fresh spill): a ``GraphServeSession`` with 8 slots takes the first
@@ -97,7 +98,7 @@ source above).  It
     logical counter equal to the sum of the 8 solo runs' (rtol 1e-5) and
     every shared-stream counter at most that sum (its counters after each
     step are kept for the DIST_OOC session); then
-    ``personalized_pagerank`` of sources 0–7 (2 iterations), values
+    ``personalized_pagerank`` of sources 0–7 (one iteration), values
     within 1e-5 of LOCAL serving's and every
     counter LOCAL reports within rtol 1e-5 of LOCAL's;
   * counts the launches of ``block_csr_combine_mq`` (set to 0 before the
@@ -150,10 +151,10 @@ fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
     at most that sum, and, over the steps before the first query joins
     (the OOC session's queries alone), every counter but the two network
     ones equal to the OOC session's after as many steps (rtol 1e-5);
-  * runs ``multi_bfs`` of sources 0–7 for two iterations, sequential and
+  * runs ``multi_bfs`` of sources 0–7 for one iteration, sequential and
     then with ``parallel_workers``: bit-identical (levels as int32
     patterns, per-iteration returns, every counter, ``worker_totals``);
-  * runs ``personalized_pagerank`` of sources 0–7 (2 iterations),
+  * runs ``personalized_pagerank`` of sources 0–7 (one iteration),
     sequential: within 1e-5 of LOCAL serving's, every counter but the two
     network ones within rtol 1e-5 of LOCAL's;
   * requires in every run measured == model for disk and network, every
@@ -172,6 +173,41 @@ fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
     query (disk + measured net), the panel, legacy and worker-local
     batches (counted where ``Exchange.post_mq`` files them), and peak
     device memory.
+
+Mesh (``mesh_path``: the SHARD_MAP executor, ``Engine(..., mesh=...)``
+on 8 ``gloo`` ranks, one per partition, all on the one card, launched by
+``repro_torch.core.mesh.run_mesh``).  The parent writes the graph and its
+formats once as ``.npy`` files under ``.smoke_tmp/``; each rank maps them
+read-only and moves only its own partition's rows to the card, and loads
+the kernels the parent built.  It
+  * runs (a) PageRank (5) under ``block_csr`` with the physical exchange
+    auto (on): within rtol/atol 1e-5 of LOCAL's, the counters
+    ``tests/test_distributed_engine.py`` lists within rtol 1e-5 of LOCAL's,
+    every iteration on the wire the largest need list implies (an
+    all-active frontier ships every need list whole); (b) BFS from the
+    source, same engine: levels and iterations bit-equal to LOCAL's, every
+    counter but the mesh wire's within rtol 1e-5 of LOCAL's, at least one
+    iteration compacted; (c) BFS with the exchange off, 3 iterations:
+    bit-equal to LOCAL's BFS at that depth (run in the parent), every
+    iteration dense, its per-iteration returns (b)'s; (d) ``multi_bfs`` of
+    the 8
+    serving sources (Q = 8, ``segment``, 2 iterations): bit-equal to the
+    port's LOCAL ``multi_bfs`` with the same arguments (run in the parent
+    just before), its counters within rtol 1e-5;
+  * requires on every rank the same values and counters,
+    ``measured_net_payload_elems == net_payload_elems`` (also checked
+    inside every call), one ``block_csr_combine`` launch per rank per
+    ProcessEdges in (a)-(c) (counts set to 0 before each run, summed over
+    the ranks) and no ``block_csr_combine_mq`` launch;
+  * replays the largest per-rank combine call of (a) (add) and of (b)
+    (min), on the rank that made it, against the plain version (min
+    bit-equal, add within rtol 1e-5) and times it as above;
+  * prints spawn and load seconds, per iteration the exchange's wall
+    seconds (the slowest rank's, staging copies included), its payload
+    elements and bytes and whether it went compacted, per rank the compute
+    and collective seconds and peak device memory.
+``GraphServeSession`` on the mesh is host logic over
+``process_edges_multi`` and is held by the CPU tests.
 
 Kernel entry point (``repro_torch.kernels.ops``, after the graph phases
 have freed the card).  Each call runs with its kernel's launch count set
@@ -292,8 +328,9 @@ PR_ITERS = 5
 SERVE_SOURCES = 10             # queries the DIST_OOC session submits
 OOC_SESSION_SOURCES = 8        # queries the OOC session submits
 SERVE_Q = 8                    # concurrent query slots
-OOC_WARM = ("bfs",)            # OOC algorithms also run warm
-PPR_ITERS = 2
+PPR_ITERS = 1                  # every PPR iteration streams every chunk
+OOC_SSSP_ITERS = 5             # OOC SSSP's depth (LOCAL runs it to the end)
+DIST_MQ_ITERS = 1              # DIST serving multi_bfs depth
 
 
 def emit(**obj):
@@ -1188,14 +1225,25 @@ def main(argv=None) -> int:
             kernel_rows[mode] = check_kernel(csr_spmv, tuple(args), kw,
                                              "local")
             del args
+        # the next algorithm lowers its own slot: free these value tiles,
+        # as a fresh engine would have
+        for e in (blk if isinstance(blk, tuple) else (blk,)):
+            e._block_vals_cache.clear()
         del blk, seg, first
         gc.collect()
         torch.cuda.empty_cache()
         local_results[name] = (vals, stats)
         return launches
 
+    # One engine per backend over the forward graph serves the four
+    # algorithms (WCC adds the reversed graph's): its block tiles are built
+    # once, in PageRank's cold run.
+    fwd = {}
+
     def fwd_engines(cfg):
-        return Engine(dg, fm, cfg)
+        if cfg.compute_backend not in fwd:
+            fwd[cfg.compute_backend] = Engine(dg, fm, cfg)
+        return fwd[cfg.compute_backend]
 
     def close(ref, rtol, atol):
         def check(v):
@@ -1234,24 +1282,36 @@ def main(argv=None) -> int:
     fm_rev = build_formats(dg_rev)
 
     def wcc_engines(cfg):
-        return Engine(dg, fm, cfg), Engine(dg_rev, fm_rev, cfg)
+        return fwd_engines(cfg), Engine(dg_rev, fm_rev, cfg)
 
     launches["wcc"] = run_algorithm(
         "wcc", wcc_engines, drives["wcc"], checks["wcc"], "min",
         ("min", "max"))
+    # OOC runs SSSP to OOC_SSSP_ITERS only (the time limit): its reference
+    # is LOCAL's run to that depth (segment = block_csr bit for bit above)
+    shallow = alg.sssp(fwd["segment"], source, OOC_SSSP_ITERS)
+    fwd.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     tmp_root = os.path.join(REPO, ".smoke_tmp")
     os.makedirs(tmp_root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="stores-", dir=tmp_root)
     try:
-        ooc = run_ooc(tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
-                      fm_rev=fm_rev, checks=checks, drives=drives,
-                      local_results=local_results)
+        ooc = run_ooc(
+            tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
+            fm_rev=fm_rev, checks=dict(checks, sssp=exact(shallow[0])),
+            drives=dict(drives, sssp=lambda e: alg.sssp(e, source,
+                                                         OOC_SSSP_ITERS)),
+            local_results=dict(local_results, sssp=shallow))
         dist = run_dist_ooc(tmp, dg=dg, fm=fm, source=source, checks=checks,
                             drives=drives, local_results=local_results,
                             ooc_results=ooc.pop("results"))
         dist_serve = run_dist_serve(dist.pop("store"), dg=dg, fm=fm,
                                     serving=ooc["serving"])
+        mesh = run_mesh_path(tmp, dg=dg, fm=fm, source=source,
+                             first=ooc["serving"]["sources"][:SERVE_Q],
+                             local_results=local_results)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1305,6 +1365,12 @@ def main(argv=None) -> int:
         f"chunk_decode DIST_OOC multi-query largest item ({drow['edges']} "
         "edges)", DECODE_SOURCE, TPU_STENCIL,
         sum(v["decode"] for v in dlaunch.values()), drow))
+    # the mesh: one solo combine launch per rank per ProcessEdges
+    for mode in ("add", "min"):
+        table.append(kernel_row(
+            f"block_csr_combine[{mode}] mesh ({MESH_RANKS} ranks)",
+            KERNEL_SOURCE, TPU_KERNEL, mesh["launches"][mode],
+            mesh["combine_rows"][mode]))
     for name, key, source_line in (
             ("blocked_scan[add]", "add", TPU_SCAN),
             ("blocked_scan[max]", "max", TPU_SCAN),
@@ -1448,17 +1514,8 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         emit(phase="kernel_vs_plain", kernel="chunk_decode",
              input=f"ooc {name} largest item", **decode_rows[name])
         del largest_item
-        # warm: the same run again; its host wall split per iteration.
-        # The others run cold only (the smoke's time limit): their split
-        # is the cold run's.
-        warm_s = None
-        if name in OOC_WARM:
-            for e in engines:
-                e.ooc_wall = dict.fromkeys(e.ooc_wall, 0.0)
-            t0 = time.perf_counter()
-            drives[name](arg)
-            torch.cuda.synchronize()
-            warm_s = time.perf_counter() - t0
+        # cold runs only (the smoke's time limit): the split is the cold
+        # run's host wall per iteration
         split = {k: sum(e.ooc_wall[k] for e in engines) / stats.iterations
                  for k in engines[0].ooc_wall}
         edges = c["edges_touched"]
@@ -1466,10 +1523,8 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
                 + c["measured_vertex_read_bytes"]
                 + c["measured_vertex_write_bytes"])
         emit(phase="ooc_path", algorithm=name, iterations=stats.iterations,
-             launches=counts, cold_s=cold_s, warm_s=warm_s,
-             edges_touched=edges,
-             edges_per_s=None if warm_s is None else edges / warm_s,
-             split_of="cold" if warm_s is None else "warm",
+             launches=counts, cold_s=cold_s, edges_touched=edges,
+             edges_per_s=edges / cold_s, split_of="cold",
              chunks_read=c["measured_chunks_read"],
              chunks_device_decoded=c["measured_chunks_device_decoded"],
              measured_edge_read_bytes=c["measured_edge_read_bytes"],
@@ -1479,33 +1534,6 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         del engines, arg
         gc.collect()
         torch.cuda.empty_cache()
-
-    # -- 8b. BFS with the host decode: bit-identical but the decoded count ---
-    eng = Engine(dg, fm, EngineConfig(executor="ooc",
-                                      compute_backend="block_csr",
-                                      device_decode=False),
-                 store=stores["fwd"])
-    varint.reset_launches()
-    chunk_decode.reset_launches()
-    t0 = time.perf_counter()
-    hv, hs = drives["bfs"](eng)
-    host_s = time.perf_counter() - t0
-    dv, ds = results["bfs"]
-    if not np.array_equal(hv.view(np.int32), dv.view(np.int32)):
-        raise AssertionError("ooc bfs: host decode values differ")
-    for k, v in ds.counters.items():
-        want = 0.0 if k == "measured_chunks_device_decoded" else v
-        if hs.counters[k] != want:
-            raise AssertionError(f"ooc bfs host decode: counter {k} = "
-                                 f"{hs.counters[k]}, expected {want}")
-    if varint.byte_stencil.launches or varint.blocked_scan.launches or \
-            chunk_decode.decode_item.launches:
-        raise AssertionError("the host decode launched decode kernels")
-    emit(phase="ooc_host_decode", algorithm="bfs", seconds=host_s,
-         iterations=hs.iterations, bit_identical=True)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
 
     serving = run_serving(stores["fwd"], g=g, source=source, dg=dg, fm=fm,
                           bfs_oracle=checks["bfs"])
@@ -1935,7 +1963,7 @@ def run_dist_serve(store, *, dg, fm, serving):
     sequence (:func:`check_session`, :func:`check_session_counters`, and
     every counter but the network's equal to the OOC session's over the
     steps before the first query joins); (b) ``multi_bfs`` of sources
-    0–7 for two iterations, sequential and then with ``parallel_workers``,
+    0–7 for one iteration, sequential and then with ``parallel_workers``,
     bit-identical; (c) ``personalized_pagerank`` of sources 0–7 within
     1e-5 of LOCAL serving's, every counter but the network's within rtol
     1e-5 of LOCAL's.  Every run checks measured == model for disk and
@@ -2084,7 +2112,7 @@ def run_dist_serve(store, *, dg, fm, serving):
     largest_panel = gaps["largest_panel"]
     del sess, results
 
-    # -- (b) multi_bfs, two iterations: sequential, then parallel ----------
+    # -- (b) multi_bfs, DIST_MQ_ITERS deep: sequential, then parallel -------
     runs = {}
     for parallel in (False, True):
         e = eng if not parallel else engine(True)
@@ -2092,7 +2120,7 @@ def run_dist_serve(store, *, dg, fm, serving):
         copies0 = reset()
         t0 = time.perf_counter()
         with recorded_gap_streams() as bgaps:
-            levels, st = alg.multi_bfs(e, first, max_iters=2)
+            levels, st = alg.multi_bfs(e, first, max_iters=DIST_MQ_ITERS)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         name = "multi_bfs_parallel" if parallel else "multi_bfs"
@@ -2113,12 +2141,13 @@ def run_dist_serve(store, *, dg, fm, serving):
         raise AssertionError("dist multi_bfs: the parallel run is not "
                              "bit-identical to the sequential one")
     for j, s in enumerate(first):
-        want_it = min(2, solo[s][1].iterations)
+        want_it = min(DIST_MQ_ITERS, solo[s][1].iterations)
         if st.iterations[j] != want_it:
             raise AssertionError(f"dist multi_bfs: query {j} ran "
                                  f"{st.iterations[j]} iterations, want "
                                  f"{want_it}")
-    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q, max_iters=2,
+    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q,
+         max_iters=DIST_MQ_ITERS,
          iterations=st.iterations, sequential_s=seq_s, parallel_s=par_s,
          launches=launches["multi_bfs"],
          parallel_launches=launches["multi_bfs_parallel"],
@@ -2374,6 +2403,364 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
 # ---------------------------------------------------------------------------
 # The kernel entry point (repro_torch.kernels.ops) at full width
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# mesh_path: the SHARD_MAP executor, 8 gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 8                 # one rank per partition
+MESH_MQ_ITERS = 2              # multi_bfs depth on the mesh
+MESH_TIMEOUT_S = 600           # the mesh job's deadline (and gloo's timeout)
+MESH_DENSE_BFS_ITERS = 3       # (c)'s depth
+# the counters tests/test_distributed_engine.py holds SHARD_MAP to
+MESH_PR_COUNTERS = ("msgs_generated", "msgs_sent", "net_bytes",
+                    "net_bytes_raw", "edge_read_bytes", "edge_read_bytes_raw",
+                    "chunks_read_csr", "chunks_read_dcsr",
+                    "chunks_read_dcsr_delta")
+MESH_WIRE_KEYS = ("net_payload_elems", "net_payload_elems_dense",
+                  "measured_net_payload_elems", "exchange_compacted_iters",
+                  "exchange_dense_iters")
+
+
+def save_structures(root, dg, fm):
+    """Write every tensor field of the graph and its formats as one ``.npy``
+    file under ``root``, and their other fields as JSON: the ranks map
+    them instead of rebuilding or copying the graph."""
+    import dataclasses
+    import numpy as np
+    os.makedirs(root, exist_ok=True)
+    statics = {}
+    for kind, obj in (("dg", dg), ("fm", fm)):
+        statics[kind] = {}
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if hasattr(v, "numpy"):
+                np.save(os.path.join(root, f"{kind}.{f.name}.npy"),
+                        v.cpu().numpy())
+            elif dataclasses.is_dataclass(v):
+                statics[kind][f.name] = dataclasses.asdict(v)
+            else:
+                statics[kind][f.name] = v
+    with open(os.path.join(root, "statics.json"), "w") as f:
+        json.dump(statics, f)
+
+
+def load_structures(root):
+    """(DistGraph, ChunkFormats) on the host over read-only maps of the
+    files :func:`save_structures` wrote: no copy is made (the engine only
+    reads the host graph and moves its own rows to the device)."""
+    import dataclasses
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.core.formats import ChunkFormats
+    from repro_torch.core.partition import DistGraph, TwoLevelSpec
+    with open(os.path.join(root, "statics.json")) as f:
+        statics = json.load(f)
+    out = []
+    for kind, cls in (("dg", DistGraph), ("fm", ChunkFormats)):
+        kw = {}
+        for fld in dataclasses.fields(cls):
+            if fld.name in statics[kind]:
+                kw[fld.name] = statics[kind][fld.name]
+                continue
+            arr = np.load(os.path.join(root, f"{kind}.{fld.name}.npy"),
+                          mmap_mode="r")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # read-only map
+                kw[fld.name] = torch.from_numpy(arr)
+        if kind == "dg":
+            spec = kw["spec"]
+            kw["spec"] = TwoLevelSpec(**{**spec, "boundaries":
+                                         tuple(spec["boundaries"])})
+        out.append(cls(**kw))
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def recorded_live_combine(module):
+    """Record the arguments of the combine call with the most live tiles
+    that the engine makes through ``module.block_csr_combine`` inside the
+    block (a mesh rank's calls all have the same slot count; their live
+    tiles differ)."""
+    real = module.block_csr_combine
+    seen = {}
+
+    def recording(*args, **kw):
+        live = live_slots(args[3])
+        if not seen or live > seen["live"]:
+            seen.update(args=args, kw=kw, live=live)
+        return real(*args, **kw)
+
+    module.block_csr_combine = recording
+    try:
+        yield seen
+    finally:
+        module.block_csr_combine = real
+
+
+def _mesh_rank(mesh, root, source, first):
+    """One rank of the mesh_path phase: the graph mapped from ``root``,
+    its own row on the card, then (a) PageRank and (b) BFS under
+    block_csr with the exchange auto (on), (c) BFS with it off for
+    ``MESH_DENSE_BFS_ITERS``, (d) ``multi_bfs`` of ``first`` (Q = 8,
+    segment, 2 iterations).  The rank
+    with the most live tiles in its largest combine call of (a) (add) and
+    of (b) (min) replays it against the plain version while the others
+    wait.  Returns per run the counters, launches, the exchange log and
+    peak memory, the values' digest (rank 0 also the values)."""
+    entered = time.time()
+    import hashlib
+    import numpy as np
+    import torch
+    from repro_torch.core import Engine, EngineConfig, phases
+    from repro_torch.core import algorithms as alg
+    from repro_torch.kernels import csr_spmv
+    cuda = mesh.device.type == "cuda"
+    t0 = time.perf_counter()
+    dg, fm = load_structures(root)
+    if cuda:
+        csr_spmv._library()        # built by the parent: loaded here
+    out = dict(rank=mesh.rank, entered=entered,
+               load_s=time.perf_counter() - t0, runs={}, replays={})
+
+    def run(name, eng, drive):
+        csr_spmv.block_csr_combine.launches = 0
+        csr_spmv.block_csr_combine_mq.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        n_log = len(eng.mesh_log)
+        mesh.barrier()
+        t0 = time.perf_counter()
+        with recorded_live_combine(phases) as big:
+            vals, st = drive(eng)
+        if cuda:
+            torch.cuda.synchronize()
+        rec = dict(
+            seconds=time.perf_counter() - t0, iterations=st.iterations,
+            counters=dict(st.counters), log=eng.mesh_log[n_log:],
+            returns=[np.asarray(r).tolist() for r in st.per_iter_return],
+            launches=csr_spmv.block_csr_combine.launches,
+            launches_mq=csr_spmv.block_csr_combine_mq.launches,
+            peak=torch.cuda.max_memory_allocated() if cuda else 0,
+            digest=hashlib.sha256(
+                np.ascontiguousarray(vals).tobytes()).hexdigest())
+        if mesh.rank == 0:
+            rec["values"] = vals
+        out["runs"][name] = rec
+        return big
+
+    def replay(big, mode):
+        """The largest call over the ranks, replayed on the rank that made
+        it against the plain version and timed; the others wait."""
+        live = torch.tensor([[big.get("live", -1)]], dtype=torch.int64)
+        lives = mesh.all_gather(live)[:, 0]
+        owner = int(torch.argmax(lives))
+        if mesh.rank == owner:
+            if big["kw"]["mode"] != mode:
+                raise AssertionError(f"mesh: combine ran mode "
+                                     f"{big['kw']['mode']}, expected {mode}")
+            row = check_kernel(csr_spmv, big["args"], big["kw"], "mesh")
+            out["replays"][mode] = dict(row, rank=owner,
+                                        live_tiles=int(lives[owner]))
+        mesh.barrier()
+
+    blk = EngineConfig(compute_backend="block_csr")
+    eng = Engine(dg, fm, blk, mesh=mesh)
+    big = run("pagerank", eng, lambda e: alg.pagerank(e, PR_ITERS))
+    replay(big, "add")
+    del big
+    big = run("bfs", eng, lambda e: alg.bfs(e, source))
+    replay(big, "min")
+    del big, eng
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    eng = Engine(dg, fm, EngineConfig(compute_backend="block_csr",
+                                      physical_sparse_exchange=False),
+                 mesh=mesh)
+    run("bfs_dense", eng,
+        lambda e: alg.bfs(e, source, MESH_DENSE_BFS_ITERS))
+    del eng
+    gc.collect()
+    eng = Engine(dg, fm, EngineConfig(num_queries=len(first)), mesh=mesh)
+    run("multi_bfs", eng,
+        lambda e: alg.multi_bfs(e, first, max_iters=MESH_MQ_ITERS))
+    del eng
+    return out
+
+
+def run_mesh_path(tmp, *, dg, fm, source, first, local_results):
+    """The mesh_path phase (9d) of :func:`main`: the SHARD_MAP executor on
+    ``MESH_RANKS`` gloo ranks sharing the card (:func:`_mesh_rank`), held
+    against LOCAL.  Returns the launch counts and the combine rows."""
+    import numpy as np
+    import torch
+    from repro_torch.core import Engine, EngineConfig, run_mesh
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.engine import COUNTER_KEYS
+    from repro_torch.core.exchange import choose_physical_exchange
+    from repro_torch.core.sparse_collectives import capacity_bucket
+
+    # LOCAL multi_bfs at the mesh run's depth (segment, Q = 8)
+    t0 = time.perf_counter()
+    local = Engine(dg, fm, EngineConfig(num_queries=len(first)))
+    mq_vals, mq_stats = alg.multi_bfs(local, first, max_iters=MESH_MQ_ITERS)
+    torch.cuda.synchronize()
+    local_mq_s = time.perf_counter() - t0
+    # and LOCAL BFS at (c)'s depth
+    dense_vals, dense_stats = alg.bfs(local, source, MESH_DENSE_BFS_ITERS)
+    del local
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(tmp, "mesh")
+    t0 = time.perf_counter()
+    save_structures(root, dg, fm)
+    write_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for f in os.listdir(root))
+
+    # An all-active frontier sends every need list whole (the filter never
+    # skips: a need list is no longer than its partition's messages), so
+    # PageRank's bound is the largest need list; the reference's
+    # arbitration decides from it alone.
+    all_active_bound = int(dg.need_counts.max())
+    all_active_compacts = choose_physical_exchange(
+        capacity_bucket(all_active_bound), dg.spec.v_max,
+        EngineConfig().msg_bytes)
+    t_spawn, t0 = time.time(), time.perf_counter()
+    ranks = run_mesh(
+        _mesh_rank, MESH_RANKS, timeout_s=MESH_TIMEOUT_S,
+        device="cpu" if DEVICE == "cpu" else None,
+        args=(root, source, first))
+    job_s = time.perf_counter() - t0
+    emit(phase="mesh_setup", ranks=MESH_RANKS, backend="gloo",
+         structures_bytes=nbytes, write_s=write_s, local_multi_bfs_s=local_mq_s,
+         job_s=job_s, spawn_s=max(r["entered"] for r in ranks) - t_spawn,
+         load_s=[r["load_s"] for r in ranks],
+         all_active_bound=all_active_bound, v_max=dg.spec.v_max,
+         all_active_compacts=all_active_compacts)
+
+    def same_on_every_rank(name):
+        r0 = ranks[0]["runs"][name]
+        for r in ranks[1:]:
+            rr = r["runs"][name]
+            if (rr["digest"] != r0["digest"] or rr["counters"] != r0["counters"]
+                    or rr["iterations"] != r0["iterations"]):
+                raise AssertionError(f"mesh {name}: rank {r['rank']} differs "
+                                     "from rank 0")
+        return r0
+
+    def check_counters(name, c, ref, keys):
+        for k in keys:
+            if abs(c[k] - ref[k]) > 1e-5 * abs(ref[k]) + 1e-3:
+                raise AssertionError(f"mesh {name}: counter {k} = {c[k]}, "
+                                     f"LOCAL {ref[k]}")
+
+    def check_launches(name, rec, per_pe):
+        for r in ranks:
+            rr = r["runs"][name]
+            if rr["launches"] != (per_pe * rr["iterations"] if per_pe else 0):
+                raise AssertionError(
+                    f"mesh {name}: rank {r['rank']} launched the combine "
+                    f"{rr['launches']} times in {rr['iterations']} "
+                    "ProcessEdges")
+            if rr["launches_mq"]:
+                raise AssertionError(f"mesh {name}: the panel combine ran")
+        return sum(r["runs"][name]["launches"] for r in ranks)
+
+    results, totals = {}, {}
+    for name in ("pagerank", "bfs", "bfs_dense", "multi_bfs"):
+        rec = same_on_every_rank(name)
+        c, vals = rec["counters"], rec["values"]
+        if abs(c["measured_net_payload_elems"] - c["net_payload_elems"]) > 0.5:
+            raise AssertionError(f"mesh {name}: measured payload "
+                                 f"{c['measured_net_payload_elems']} != model "
+                                 f"{c['net_payload_elems']}")
+        pes = len(rec["log"])
+        if name != "multi_bfs" and pes != rec["iterations"]:
+            raise AssertionError(f"mesh {name}: {pes} ProcessEdges logged in "
+                                 f"{rec['iterations']} iterations")
+        if c["exchange_compacted_iters"] + c["exchange_dense_iters"] != pes:
+            raise AssertionError(f"mesh {name}: {pes} exchanges, counted "
+                                 f"{c['exchange_compacted_iters']} + "
+                                 f"{c['exchange_dense_iters']}")
+        if name == "pagerank":
+            lv, ls = local_results["pagerank"]
+            np.testing.assert_allclose(vals, lv, rtol=1e-5, atol=1e-5)
+            check_counters(name, c, ls.counters, MESH_PR_COUNTERS)
+            if c["exchange_compacted_iters"] != (pes if all_active_compacts
+                                                 else 0):
+                raise AssertionError(
+                    "mesh pagerank: the all-active iterations did not all "
+                    f"take the wire the largest need list "
+                    f"({all_active_bound}) implies (compacted: "
+                    f"{all_active_compacts})")
+        elif name in ("bfs", "bfs_dense"):
+            lv, ls = (local_results["bfs"] if name == "bfs"
+                      else (dense_vals, dense_stats))
+            if not np.array_equal(vals.view(np.int32), lv.view(np.int32)) \
+                    or rec["iterations"] != ls.iterations:
+                raise AssertionError(f"mesh {name}: levels differ from "
+                                     "LOCAL's")
+            check_counters(name, c, ls.counters,
+                           [k for k in COUNTER_KEYS
+                            if k not in MESH_WIRE_KEYS])
+            if name == "bfs" and c["exchange_compacted_iters"] < 1:
+                raise AssertionError("mesh bfs: no iteration went compacted")
+            if name == "bfs_dense" and (
+                    c["exchange_compacted_iters"] or rec["returns"]
+                    != results["bfs"]["returns"][:rec["iterations"]]):
+                raise AssertionError("mesh bfs with the exchange off is not "
+                                     "all dense and equal to it on")
+        else:
+            if not np.array_equal(vals.view(np.int32),
+                                  mq_vals.view(np.int32)) \
+                    or rec["iterations"] != mq_stats.iterations:
+                raise AssertionError("mesh multi_bfs differs from LOCAL's")
+            check_counters(name, c, mq_stats.counters,
+                           [k for k in COUNTER_KEYS
+                            if k not in MESH_WIRE_KEYS])
+        launches = totals[name] = check_launches(
+            name, rec, 0 if name == "multi_bfs" else 1)
+        n_log = len(rec["log"])
+        per_iter = [dict(
+            exchange_s=max(r["runs"][name]["log"][i]["exchange_s"]
+                           for r in ranks),
+            payload_elems=sum(r["runs"][name]["log"][i]["payload_elems"]
+                              for r in ranks),
+            payload_bytes=sum(r["runs"][name]["log"][i]["payload_bytes"]
+                              for r in ranks),
+            compacted=rec["log"][i]["compacted"],
+            capacity=rec["log"][i]["capacity"]) for i in range(n_log)]
+        emit(phase="mesh_path", run=name, ranks=MESH_RANKS,
+             iterations=rec["iterations"],
+             seconds=max(r["runs"][name]["seconds"] for r in ranks),
+             launches=launches,
+             launches_mq=sum(r["runs"][name]["launches_mq"] for r in ranks),
+             exchange_compacted_iters=c["exchange_compacted_iters"],
+             exchange_dense_iters=c["exchange_dense_iters"],
+             net_payload_elems=c["net_payload_elems"],
+             net_payload_elems_dense=c["net_payload_elems_dense"],
+             exchange_per_iteration=per_iter,
+             compute_s_per_rank=[sum(x["compute_s"]
+                                     for x in r["runs"][name]["log"])
+                                 for r in ranks],
+             wire_s_per_rank=[sum(x["wire_s"] for x in r["runs"][name]["log"])
+                              for r in ranks],
+             peak_memory_per_rank=[r["runs"][name]["peak"] for r in ranks])
+        results[name] = rec
+    replays = {}
+    for r in ranks:
+        replays.update(r["replays"])
+    if set(replays) != {"add", "min"}:
+        raise AssertionError(f"mesh: replays {sorted(replays)}")
+    return dict(
+        launches={"add": totals["pagerank"],
+                  "min": totals["bfs"] + totals["bfs_dense"]},
+        combine_rows={m: {k: replays[m][k] for k in ROW_KEYS}
+                      for m in ("add", "min")})
+
 
 def kept_pairs(sq, skv, causal, window):
     """(query, key) pairs the mask keeps, counted row by row (positions

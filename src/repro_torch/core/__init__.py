@@ -5,9 +5,12 @@ Layering mirrors ``repro.core``: ``phases`` holds the four ProcessEdges
 phases; ``chunkstore`` the storage tier (on-disk chunk store, vertex spill,
 prefetcher, per-worker shards and the ChunkSource contract); ``exchange``
 the inter-worker wire (adaptive encodings, measured bytes, decode-ahead);
-``executor`` composes them into the LOCAL, OOC and DIST_OOC executors and
-``multiquery`` into their Q-query panel twins; ``engine`` is the public
-signal/slot API on top, and ``serve`` the continuous-query session.
+``mesh`` the process mesh of the SHARD_MAP executor (``torch.distributed``
+ranks, one per partition) and ``sparse_collectives`` its exchanges;
+``executor`` composes them into the LOCAL, SHARD_MAP, OOC and DIST_OOC
+executors and ``multiquery`` into their Q-query panel twins; ``engine`` is
+the public signal/slot API on top, and ``serve`` the continuous-query
+session.
 """
 from repro_torch.core.partition import (  # noqa: F401
     TwoLevelSpec, DistGraph, make_spec, build_dist_graph,
@@ -27,6 +30,9 @@ from repro_torch.core.chunkstore import (  # noqa: F401
 from repro_torch.core.exchange import (  # noqa: F401
     FMT_PAIRS, FMT_SLAB, FMT_UVAL, FMT_VPAIRS, DecodeAhead, Exchange,
     batch_wire_bytes, choose_wire_format, decode_batch, encode_batch,
+)
+from repro_torch.core.mesh import (  # noqa: F401
+    MeshError, ProcessMesh, run_mesh,
 )
 from repro_torch.core.engine import (  # noqa: F401
     ADD, MIN, MAX, Engine, EngineConfig, Monoid, accumulate_counters,

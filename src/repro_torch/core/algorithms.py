@@ -5,6 +5,12 @@ callbacks written in torch.  Each returns (final global vertex values as a
 numpy array, iteration stats).  The multi-query algorithms (multi-source
 BFS, personalized PageRank, pairwise reachability) serve Q queries per
 pass on ``Engine.process_edges_multi`` (DESIGN.md §11).
+
+On a mesh engine every rank runs the same loop on its own rows: the
+frontier goes on the rank's row as the reference puts it on the sharding
+(``engine.shard``), loops stop on the mesh-summed ``updated`` (so every
+rank stops together), and every rank returns the same full result,
+gathered once at the end (``engine.gather``).
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ class RunStats:
 
 
 def _finish(engine: Engine, values) -> np.ndarray:
+    if engine._distributed:
+        values = engine.gather(values)
     return gather_vertex_values(engine.graph.spec, values)
 
 
@@ -96,6 +104,8 @@ def bfs(engine: Engine, source: int, max_iters: int = 10_000):
         level=torch.where(gid == source, 0.0, F32_MAX).to(torch.float32),
     )
     active = (gid == source) & g.vertex_valid
+    if engine._distributed:
+        active = engine.shard(active)
     counters, rets = {}, []
     it = 0
     while it < max_iters:
@@ -166,6 +176,8 @@ def sssp(engine: Engine, source: int, max_iters: int = 10_000):
         dist=torch.where(gid == source, 0.0, F32_MAX / 4).to(torch.float32),
     )
     active = (gid == source) & g.vertex_valid
+    if engine._distributed:
+        active = engine.shard(active)
     counters, rets = {}, []
     it = 0
     while it < max_iters:
@@ -200,8 +212,9 @@ class MultiRunStats:
 
 
 def _gather_panel(engine: Engine, panel) -> np.ndarray:
-    """[P, V, Q] panel (tensor or array) -> [n, Q] global values."""
-    arr = _np(panel)
+    """[P, V, Q] panel (tensor or array; on a mesh, this rank's row,
+    gathered here) -> [n, Q] global values."""
+    arr = engine.gather(panel) if engine._distributed else _np(panel)
     return np.stack([gather_vertex_values(engine.graph.spec, arr[:, :, j])
                      for j in range(arr.shape[-1])], axis=1)
 
@@ -225,6 +238,8 @@ def multi_bfs(engine: Engine, sources, max_iters: int = 10_000):
     state = engine.init_state(
         level=torch.where(hit, 0.0, F32_MAX).to(torch.float32))
     active = hit & g.vertex_valid[..., None]
+    if engine._distributed:
+        active = engine.shard(active)
     counters, rets = {}, []
     iters = [0] * nq
     alive = [True] * nq

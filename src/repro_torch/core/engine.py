@@ -1,6 +1,6 @@
 """DFOGraph engine: vertex-centric push with signal/slot (paper §3) — the
-LOCAL, OOC and DIST_OOC subset of ``repro.core.engine``, single- and
-multi-query.
+LOCAL, SHARD_MAP, OOC and DIST_OOC subset of ``repro.core.engine``, single-
+and multi-query.
 
 ProcessEdges runs the paper's four phases:
   1. generating          — active vertices produce messages (``signal``),
@@ -11,11 +11,18 @@ ProcessEdges runs the paper's four phases:
   4. processing          — ``slot`` contributions along edges are combined per
                            destination vertex and ``apply`` updates vertex state.
 
-The phase implementations live in :mod:`repro_torch.core.phases`; two
+The phase implementations live in :mod:`repro_torch.core.phases`; the
 executors of :mod:`repro_torch.core.executor` realize them:
 
   * ``LOCAL`` (``executor="auto"``) — one device, the partition axis a
     leading tensor axis, everything resident in device memory;
+  * ``SHARD_MAP`` (``mesh=ProcessMesh(...)``) — the partition axis is the
+    mesh axis: P ranks of one ``torch.distributed`` group
+    (:mod:`repro_torch.core.mesh`), each holding only its own partition's
+    rows on its device; phase 2 is a real all-to-all, the dense slab or
+    the compacted (value, source-index) exchange the host arbitrates
+    each iteration (``physical_sparse_exchange``, DESIGN.md §12), and
+    every counter is summed over the mesh;
   * ``OOC`` (``executor="ooc"``) — one host, edge chunks streamed from a
     disk :class:`~repro_torch.core.chunkstore.ChunkStore` and vertex state
     in a :class:`~repro_torch.core.chunkstore.VertexSpill`; only the reads
@@ -30,9 +37,9 @@ executors of :mod:`repro_torch.core.executor` realize them:
 
 ``process_edges_multi`` / ``process_vertices_multi`` serve
 ``EngineConfig.num_queries`` concurrent queries through one selective pass
-over [P, V, Q] state panels (DESIGN.md §11), on LOCAL (segment backend),
-OOC and DIST_OOC (both backends); :mod:`repro_torch.core.multiquery`
-holds their executors.
+over [P, V, Q] state panels (DESIGN.md §11), on LOCAL and SHARD_MAP
+(segment backend), OOC and DIST_OOC (both backends);
+:mod:`repro_torch.core.multiquery` holds their executors.
 
 ``slot`` contributions are reduced with an associative + commutative
 **monoid** (add/min/max — all four paper algorithms fit), the
@@ -45,9 +52,16 @@ Phase 4 runs on a configurable compute backend
 partition, destination batch) tiles that zero-skips chunks which received
 no messages (selective computation, §4.1/§4.4, on the compute path).
 
-LOCAL counters are float32 0-d tensors, as in the reference; OOC and
-DIST_OOC counters are Python floats from the host phases, as in the
-reference.  Algorithm loops accumulate both in Python floats.
+LOCAL counters are float32 0-d tensors, as in the reference (SHARD_MAP's
+are too, summed over the mesh on the host); OOC and DIST_OOC counters are
+Python floats from the host phases, as in the reference.  Algorithm loops
+accumulate both in Python floats.
+
+On a mesh, ``graph``, ``fmts`` and ``global_id`` stay where the caller
+built them (the host): the algorithms build full [P, V] arrays there,
+and :meth:`Engine.init_state` / :meth:`Engine.shard` move this rank's row
+to its device.  States and frontiers passed between calls are rank rows
+([1, V] or [1, V, Q]); :meth:`Engine.gather` assembles the full array.
 """
 from __future__ import annotations
 
@@ -67,7 +81,8 @@ import torch
 from repro_torch.core import executor as _executor
 from repro_torch.core import multiquery as _multiquery
 from repro_torch.core.chunkstore import (
-    ChunkStore, DiskChunkSource, ShardedChunkStore, VertexSpill,
+    ChunkStore, DiskChunkSource, HBMChunkSource, ShardedChunkStore,
+    VertexSpill,
 )
 from repro_torch.core.exchange import WIRE_MSG_BYTES
 from repro_torch.core.formats import ChunkFormats, _np, build_block_tiles
@@ -79,8 +94,7 @@ from repro_torch.utils import resolve_device, token_ctx
 
 State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
 
-# The slices of the port that bring what this one does not run.
-SLICE_MESH = "slice 5 (the mesh executor)"
+# The slice of the port that brings what this one does not run.
 SLICE_PROCESS = "slice 6 (process mode)"
 
 
@@ -115,9 +129,7 @@ MAX = Monoid("max", float(np.finfo(np.float32).min))
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Tunables mirroring the paper's knobs, with the reference's field
-    names and defaults.  Fields the port does not run yet (the mesh one)
-    keep their defaults; anything else raises ``NotImplementedError``
-    naming the slice that brings it."""
+    names and defaults."""
 
     enable_filtering: bool = True
     """Apply the paper's §4.3 need-list message filter in phase 2."""
@@ -196,7 +208,15 @@ class EngineConfig:
     plain memcpy, nothing to decode)."""
 
     physical_sparse_exchange: bool | None = None
-    """SHARD_MAP only (later slices)."""
+    """SHARD_MAP only (DESIGN.md §12): realize phase 2's filtering on the
+    collective itself.  Each iteration the host takes the ``pmax``'d
+    per-peer live count of the send decision, buckets it to a power-of-two
+    capacity and ships the compacted (value, source-index) exchange when
+    that is cheaper than the dense slab (the ``choose_wire_format``
+    comparison), else the slab; results are bit-identical either way and
+    ``measured_net_payload_elems`` audits the elements shipped against the
+    model.  ``None`` (auto) enables it exactly when there is a mesh;
+    ``True`` without one raises."""
 
     num_queries: int = 1
     """Q for the multi-query serving surface (``process_edges_multi`` /
@@ -255,6 +275,13 @@ DIST_MEASURED_PAIRS = MEASURED_PAIRS + (
     ("measured_net_bytes", "net_bytes"),
 )
 
+# The SHARD_MAP executor's wire audit (DESIGN.md §12): the payload elements
+# the collective shipped must equal the model that arbitrated it, checked
+# after every mesh ProcessEdges when verify_io is on.
+SHARDED_MEASURED_PAIRS = (
+    ("measured_net_payload_elems", "net_payload_elems"),
+)
+
 
 class _BlockState(Mapping):
     """Mapping view of the per-worker spill blocks as one [P, V] state.
@@ -303,7 +330,9 @@ def accumulate_counters(acc: dict, new: dict) -> dict:
 
 class Engine:
     """Executes signal/slot programs over a two-level-partitioned graph on
-    one device (``"cuda"`` unless the caller passes ``device``)."""
+    one device (``"cuda"`` unless the caller passes ``device``), or, with
+    ``mesh``, as one rank of the SHARD_MAP executor on the mesh's device
+    (``mesh.size`` must equal the number of partitions)."""
 
     counter_keys = COUNTER_KEYS
 
@@ -313,9 +342,6 @@ class Engine:
                  *, device=None):
         if config.executor not in ("auto", "ooc", "dist_ooc"):
             raise ValueError(f"unknown executor: {config.executor!r}")
-        if mesh is not None or config.physical_sparse_exchange:
-            raise NotImplementedError(
-                f"the SHARD_MAP executor comes with {SLICE_MESH}")
         if proc_ctx is not None:
             raise NotImplementedError(
                 f"process-mode dist_ooc comes with {SLICE_PROCESS}")
@@ -332,17 +358,42 @@ class Engine:
                 "device_decode=True requires compression=True: uncompressed "
                 "chunk payloads are plain column memcpys with nothing to "
                 "decode on device")
+        self.mesh, self.axis = mesh, axis
+        self._distributed = mesh is not None
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.config = config
         self._host_graph = graph
-        self.graph = graph.to(self.device)
-        self.fmts = fmts.to(self.device)
         spec = graph.spec
-        gid = (np.asarray(spec.boundaries[:-1], np.int32)[:, None]
-               + np.arange(spec.v_max, dtype=np.int32)[None, :])
-        self.global_id = torch.from_numpy(gid).to(self.device)   # [P, V]
+        gid = torch.from_numpy(
+            np.asarray(spec.boundaries[:-1], np.int32)[:, None]
+            + np.arange(spec.v_max, dtype=np.int32)[None, :])   # [P, V]
+        if self._distributed:
+            self._init_mesh(graph, fmts, gid)
+        else:
+            self.graph = graph.to(self.device)
+            self.fmts = fmts.to(self.device)
+            self.global_id = gid.to(self.device)
         self._ooc = config.executor == "ooc"
         self._dist_ooc = config.executor == "dist_ooc"
+        # Resolve the physical_sparse_exchange knob (docstring on
+        # EngineConfig): auto means "on exactly when there is a mesh for
+        # the collective to run over".
+        if config.physical_sparse_exchange and not self._distributed:
+            raise ValueError(
+                "physical_sparse_exchange=True requires the SHARD_MAP "
+                "executor (pass mesh=...): the other executors have no "
+                "in-mesh collective to realize")
+        if config.physical_sparse_exchange is None:
+            self.physical_sparse_exchange = self._distributed
+        else:
+            self.physical_sparse_exchange = bool(
+                config.physical_sparse_exchange)
+        if (self._ooc or self._dist_ooc) and self._distributed:
+            raise ValueError(f"executor={config.executor!r} is "
+                             "single-process; the SHARD_MAP executor is "
+                             "selected by `mesh`")
         if config.device_decode is None:
             self.device_decode = (config.compression
                                   and (self._ooc or self._dist_ooc)
@@ -362,6 +413,31 @@ class Engine:
         self._probe_cache: dict = {}
         self._pe_cache: dict = {}
         self._warned_slot_fallback = False
+
+    def _init_mesh(self, graph, fmts, gid):
+        """SHARD_MAP state of this rank: the host structures kept whole
+        (the algorithms build their initial arrays from them), and only
+        this rank's row of every array the executor reads — the reference's
+        sharded ``garrs`` — on the device."""
+        spec = graph.spec
+        if self.mesh.size != spec.num_partitions:
+            raise ValueError(
+                f"the mesh has {self.mesh.size} ranks but the graph has "
+                f"{spec.num_partitions} partitions: SHARD_MAP runs one "
+                "partition per rank")
+        self.graph, self.fmts, self.global_id = graph, fmts, gid
+        row = slice(self.mesh.rank, self.mesh.rank + 1)
+        put = lambda x: x[row].to(self.device)
+        self._garrs = dict(
+            vertex_valid=put(graph.vertex_valid), need=put(graph.need),
+            need_counts=put(graph.need_counts), global_id=put(gid),
+            **{k: put(v) for k, v in
+               HBMChunkSource.dest_arrays(fmts).items()},
+            **{k: put(v) for k, v in
+               HBMChunkSource.edge_arrays(graph).items()})
+        # per ProcessEdges: seconds, payload and wire choice
+        # (executor.log_mesh_call)
+        self.mesh_log: list = []
 
     def _init_out_of_core(self):
         """What both out-of-core executors share: the validations of the
@@ -487,8 +563,25 @@ class Engine:
                 "the store from these formats)")
 
     def init_state(self, **arrays) -> State:
+        """Vertex state on the engine's device (on a mesh: this rank's row
+        of each full [P, V, ...] array)."""
+        if self._distributed:
+            return {k: self.shard(v) for k, v in arrays.items()}
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in arrays.items()}
+
+    def shard(self, x) -> torch.Tensor:
+        """This rank's [1, ...] row of a full [P, ...] array (tensor or
+        numpy), on the engine's device — where the reference puts an array
+        on the mesh sharding."""
+        r = self.mesh.rank
+        return torch.as_tensor(x)[r:r + 1].to(self.device)
+
+    def gather(self, rows) -> np.ndarray:
+        """The full [P, ...] host array from every rank's [1, ...] rows:
+        one ``all_gather``, so every rank must call it (an algorithm calls
+        it once, at its end)."""
+        return self.mesh.all_gather(torch.as_tensor(rows).cpu()).numpy()
 
     # -- OOC state residency and audit ---------------------------------------
     def _sync_ooc_state(self, state: State) -> None:
@@ -549,13 +642,15 @@ class Engine:
             return
         load_one(self.spill, 0, self._host_graph.spec.num_partitions)
 
-    def _check_measured(self, counters: dict) -> None:
+    def _check_measured(self, counters: dict, pairs=None) -> None:
         """Cross-check measured storage (and, for dist_ooc, network)
         traffic against the analytic model (the fully-out-of-core claim,
-        enforced every call)."""
+        enforced every call).  ``pairs`` overrides the executor's pair
+        set: the mesh paths pass ``SHARDED_MEASURED_PAIRS`` to audit the
+        collective's payload elements."""
         if not self.config.verify_io:
             return
-        for mk, ak in self._measured_pairs:
+        for mk, ak in (self._measured_pairs if pairs is None else pairs):
             if abs(float(counters[mk]) - float(counters[ak])) > 0.5:
                 raise RuntimeError(
                     f"{self.config.executor} measured/model I/O mismatch: "
@@ -563,10 +658,12 @@ class Engine:
 
     # -- block_csr backend plumbing ----------------------------------------
     def _ensure_block(self):
+        """Block tiles on the device (on a mesh, this rank's row only)."""
         if self._block is None:
+            rows = [self.mesh.rank] if self._distributed else None
             bt, self._block_host = build_block_tiles(
                 self._host_graph, tile=self.config.block_tile,
-                device=self.device)
+                device=self.device, rows=rows)
             self._block = bt.to(self.device)
 
     def _probe_slot(self, slot_fn, monoid):
@@ -597,6 +694,9 @@ class Engine:
         self._ensure_block()
         key, mode, a_const, a, b = probe
         if key not in self._block_vals_cache:
+            if self._distributed:        # the probe covers every row
+                r = self.mesh.rank
+                a, b = a[r:r + 1], b[r:r + 1]
             arrays_np = _executor.build_value_tiles(
                 self._block_host, monoid, mode, a, b)
             self._block_vals_cache[key] = {
@@ -617,10 +717,27 @@ class Engine:
             return self._ooc_process_vertices(state, work_fn, active)
         if self._dist_ooc:
             return self._dist_process_vertices(state, work_fn, active)
-        g, cfg = self.graph, self.config
-        vertex_valid = g.vertex_valid
+        new_state, total, counters = self._pv_rows(state, work_fn, active)
+        if self._distributed:
+            counters, total = _executor.reduce_mesh_counters(
+                self.mesh, counters, COUNTER_KEYS, total)
+            total = total[0]
+        return new_state, total, counters
+
+    def _vertex_rows(self):
+        """(vertex_valid, global_id) of the rows this engine computes on:
+        every partition on LOCAL, this rank's row on a mesh."""
+        if self._distributed:
+            return self._garrs["vertex_valid"], self._garrs["global_id"]
+        return self.graph.vertex_valid, self.global_id
+
+    def _pv_rows(self, state, work_fn, active):
+        """ProcessVertices on the in-memory rows (LOCAL's, or this mesh
+        rank's), counters not yet summed over the mesh."""
+        cfg = self.config
+        vertex_valid, gid = self._vertex_rows()
         amask = vertex_valid if active is None else (active & vertex_valid)
-        updates, ret = work_fn(state, self.global_id)
+        updates, ret = work_fn(state, gid)
         new_state = dict(state)
         for k, v in updates.items():
             new_state[k] = torch.where(amask, v, state[k])
@@ -628,7 +745,7 @@ class Engine:
         counters = zero_counters(self.device)
         if cfg.account_io:
             arrays_bytes = sum(v.element_size() for v in state.values())
-            touched = batch_touched(amask, g.spec.batch_size)
+            touched = batch_touched(amask, self.graph.spec.batch_size)
             counters["vertex_read_bytes"] = (
                 touched * arrays_bytes + bitmap_model_bytes(amask))
             counters["vertex_write_bytes"] = touched * arrays_bytes
@@ -770,15 +887,20 @@ class Engine:
             cache_key = keys + (monoid.name, backend, mode_meta,
                                 active is not None)
         fn = self._pe_cache.get(cache_key) if cache_key is not None else None
+        make = (_executor.make_sharded_pe if self._distributed
+                else _executor.make_local_pe)
         if fn is None:
-            fn = _executor.make_local_pe(
-                self, signal_fn, slot_fn, monoid, apply_fn, backend,
-                mode_meta)
+            fn = make(self, signal_fn, slot_fn, monoid, apply_fn, backend,
+                      mode_meta)
             if cache_key is not None:
                 self._pe_cache[cache_key] = fn
         bt = self._block if backend == "block_csr" else None
-        return fn(state, active, self.graph, self.fmts, self.global_id,
-                  bt, vals)
+        if not self._distributed:
+            return fn(state, active, self.graph, self.fmts, self.global_id,
+                      bt, vals)
+        out = fn(state, active, self._garrs, bt, vals)
+        self._check_measured(out[3], pairs=SHARDED_MEASURED_PAIRS)
+        return out
 
     def _ooc_process_edges(self, state, signal_fn, slot_fn, monoid,
                            apply_fn, active, backend):
@@ -869,7 +991,7 @@ class Engine:
             raise ValueError(
                 "multi-query block_csr runs on the streamed executors "
                 "(ooc, dist_ooc), where one decoded chunk feeds the Q-panel "
-                "kernel; LOCAL multi-query supports "
+                "kernel; LOCAL / SHARD_MAP multi-query supports "
                 "compute_backend='segment'")
         keys = tuple(_executor.fn_code_key(f)
                      for f in (signal_fn, slot_fn, apply_fn))
@@ -877,14 +999,19 @@ class Engine:
         if all(k is not None for k in keys):
             cache_key = ("mq",) + keys + (monoid.name, nq)
         fn = self._pe_cache.get(cache_key) if cache_key is not None else None
+        make = (_multiquery.make_sharded_pe_mq if self._distributed
+                else _multiquery.make_local_pe_mq)
         if fn is None:
-            fn = _multiquery.make_local_pe_mq(
-                self, signal_fn, slot_fn, monoid, apply_fn, nq)
+            fn = make(self, signal_fn, slot_fn, monoid, apply_fn, nq)
             if cache_key is not None:
                 self._pe_cache[cache_key] = fn
         state = {k: self._on_device(v) for k, v in state.items()}
         active = None if active is None else self._on_device(active)
-        return fn(state, active, self.graph, self.fmts, self.global_id)
+        if not self._distributed:
+            return fn(state, active, self.graph, self.fmts, self.global_id)
+        out = fn(state, active, self._garrs)
+        self._check_measured(out[3], pairs=SHARDED_MEASURED_PAIRS)
+        return out
 
     def _mq_ooc_process_edges(self, state, signal_fn, slot_fn, monoid,
                               apply_fn, active, backend):
@@ -937,25 +1064,37 @@ class Engine:
             return self._mq_dist_process_vertices(state, work_fn, active)
         state = {k: self._on_device(v) for k, v in state.items()}
         active = None if active is None else self._on_device(active)
+        vertex_valid, _ = self._vertex_rows()
         counters = zero_counters(self.device)
-        new_cols, totals = {k: [] for k in state}, []
+        new_cols, totals, per_query, alive = {k: [] for k in state}, [], [], []
         for j in range(nq):
             active_j = None if active is None else active[..., j]
-            ns_j, total_j, c_j = self.process_vertices(
+            ns_j, total_j, c_j = self._pv_rows(
                 {k: v[..., j] for k, v in state.items()}, work_fn, active_j)
-            # The bitmap term is shape-static: gate the query's I/O on
-            # aliveness so a converged query prices zero.
-            amask_j = (self.graph.vertex_valid if active_j is None
-                       else active_j & self.graph.vertex_valid)
-            alive_f = torch.any(amask_j).to(torch.float32)
-            for k, v in c_j.items():
-                counters[k] += alive_f * v
+            amask_j = (vertex_valid if active_j is None
+                       else active_j & vertex_valid)
+            per_query.append(c_j)
+            alive.append(torch.sum(amask_j, dtype=torch.float32))
             for k in state:
                 new_cols[k].append(ns_j[k])
             totals.append(total_j)
+        # The bitmap term is shape-static: gate each query's I/O on its
+        # aliveness (on a mesh, alive on any rank) so a converged query
+        # prices zero.
+        alive = torch.stack(alive)
+        if self._distributed:
+            alive = self.mesh.pmax(alive.cpu())
+        for j, c_j in enumerate(per_query):
+            alive_f = (alive[j] > 0).to(torch.float32).to(self.device)
+            for k, v in c_j.items():
+                counters[k] += alive_f * v
         new_state = {k: torch.stack(cols, dim=-1)
                      for k, cols in new_cols.items()}
-        return new_state, torch.stack(totals), counters
+        totals = torch.stack(totals)
+        if self._distributed:
+            counters, totals = _executor.reduce_mesh_counters(
+                self.mesh, counters, COUNTER_KEYS, totals)
+        return new_state, totals, counters
 
     def _mq_amasks(self, active):
         vertex_valid = _np(self._host_graph.vertex_valid)

@@ -142,6 +142,25 @@ def choose_wire_format(count: int, v_max: int, msg_bytes: int,
     return best
 
 
+def choose_physical_exchange(capacity: int, v_max: int, msg_bytes: int,
+                             nq: int = 1) -> bool:
+    """Arbitrate the SHARD_MAP physical wire (DESIGN.md §12): True ships
+    the compacted collective this iteration, False the dense slab.
+
+    The same cost comparison :func:`choose_wire_format` runs for the
+    serialized wire, applied to the collective's per-peer volume: a
+    compacted exchange is a pairs batch of ``capacity`` entries and the
+    dense one a slab (the compressed encodings do not apply: the
+    collective ships raw arrays).  The multi-query panel pays the shared
+    index stream once, and each of its Q columns adds ``capacity`` values
+    and presence flags against its own dense slab."""
+    if nq <= 1:
+        return choose_wire_format(capacity, v_max, msg_bytes) == FMT_PAIRS
+    comp = (capacity * float(_IDX_BYTES)
+            + nq * capacity * float(msg_bytes + 1))
+    return comp < nq * slab_batch_bytes(v_max, msg_bytes)
+
+
 # ---------------------------------------------------------------------------
 # Physical encode / decode
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """Chunk-scheduled ProcessEdges executors and the block-CSR slot lowering
-(DESIGN.md §1, §2, §6–§8) — the LOCAL, OOC and DIST_OOC parts of
-``repro.core.executor``.
+(DESIGN.md §1, §2, §6–§8, §12) — the port of ``repro.core.executor``.
 
 * ``make_local_pe`` runs on one device with the partition axis as a
   leading tensor axis.  The inter-partition exchange is a re-axis (the
   send masks of every source partition, viewed receive-major as
   [Q, P, V]).
+* ``make_sharded_pe`` runs on one rank of a mesh
+  (:mod:`repro_torch.core.mesh`): the partition axis is the mesh axis,
+  the exchange a real all-to-all (the dense slab or the compacted
+  collective the host arbitrates each iteration), and counters are
+  summed over the mesh.
 * ``make_ooc_pe`` is fully out of core: edge chunks and vertex arrays live
   on disk (:class:`~repro_torch.core.chunkstore.ChunkStore` /
   :class:`~repro_torch.core.chunkstore.VertexSpill`); the executor walks
@@ -48,7 +52,7 @@ from concurrent.futures import wait as futures_wait
 import numpy as np
 import torch
 
-from repro_torch.core import codec, phases
+from repro_torch.core import codec, phases, sparse_collectives
 from repro_torch.core import exchange as exchange_mod
 from repro_torch.core.chunkstore import (
     REP_CSR, REP_DCSR, REP_DCSR_DELTA, ChunkPrefetcher, HBMChunkSource,
@@ -328,6 +332,226 @@ def make_local_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
             spec.batch_size, amask)
         counters.update(io)
         return new_state, new_active, total, counters
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# SHARD_MAP executor (partition axis = mesh axis, all_to_all exchange)
+# ---------------------------------------------------------------------------
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _dense_exchange(msg_row, sendmask, mesh):
+    """The legacy physical wire: one dense [P, V] slab per peer (values +
+    int8 presence).  Returns (recv_msg [P, V], recv_mask [P, V], the
+    payload elements this rank handed its P - 1 peers)."""
+    sent0 = mesh.sent_elems
+    recv_msg, recv_mask = sparse_collectives.filtered_all_to_all(
+        msg_row, sendmask, mesh)
+    return recv_msg, recv_mask, float(mesh.sent_elems - sent0)
+
+
+def _check_overflow(overflow, capacity):
+    """The collective's ``pmax``'d overflow flag.  The host arbitrated
+    ``capacity`` from the exact bound of these send masks, so it can never
+    be set; if it were, the received buffers would be truncated."""
+    if overflow:
+        raise RuntimeError(f"the compacted exchange overflowed its capacity "
+                           f"{capacity}, which the probe's bound set")
+
+
+def _compacted_exchange(msg_row, sendmask, capacity, mesh):
+    """The compacted physical wire (DESIGN.md §12): <= ``capacity``
+    (value, source-index) pairs per peer, re-densified on the receive side
+    so phases 3-4 see the exact dense-slab layout."""
+    sent0 = mesh.sent_elems
+    recv, recv_idx, overflow = sparse_collectives.masked_compacted_all_to_all(
+        msg_row, sendmask, capacity, mesh)
+    _check_overflow(overflow, capacity)
+    recv_msg, recv_mask = sparse_collectives.compacted_scatter_back(
+        recv, recv_idx, sendmask.shape[1])
+    return recv_msg, recv_mask, float(mesh.sent_elems - sent0)
+
+
+def make_sharded_probe(engine):
+    """Capacity probe of the physical sparse exchange: ``probe(sendmasks)``
+    returns the ``pmax``'d largest per-(source, destination) live count of
+    this iteration's send decision — of the UNION of the given [P, V]
+    send masks for multi-query, the panel's capacity bound.
+
+    The reference runs it as a separate pass that re-runs the phase-2
+    filter, because its compacted collective's capacity is a static shape
+    that must be known before the step traces; here the step hands it the
+    send masks it just computed, so the bound is exact by construction and
+    costs one ``pmax``.  The host buckets it to a power-of-two capacity
+    (:func:`~repro_torch.core.sparse_collectives.capacity_bucket`), never
+    below the bound, so the reference's in-step fallback to the dense slab
+    on overflow has nothing to catch here."""
+    mesh = engine.mesh
+
+    def probe(sendmasks):
+        union = sendmasks[0]
+        for sm in sendmasks[1:]:
+            union = union | sm
+        cmax = torch.max(torch.sum(union, dim=-1, dtype=torch.int32))
+        return int(mesh.pmax(cmax.reshape(1).cpu()).item())
+    return probe
+
+
+def arbitrate_wire(engine, probe, sendmasks, nq=1):
+    """The host's per-iteration wire choice (DESIGN.md §12): the bucketed
+    capacity when the compacted collective wins, None for the dense slab.
+    Identical on every rank, since the probe's bound is ``pmax``'d."""
+    if not engine.physical_sparse_exchange:
+        return None
+    cap = sparse_collectives.capacity_bucket(probe(sendmasks))
+    spec, cfg = engine.graph.spec, engine.config
+    if exchange_mod.choose_physical_exchange(cap, spec.v_max, cfg.msg_bytes,
+                                             nq=nq):
+        return cap
+    return None
+
+
+def reduce_mesh_counters(mesh, counters, keys, totals):
+    """``psum`` every counter (float32, as the reference's) and the
+    total(s) in one all-reduce; every rank gets the same values.  Returns
+    (counters as 0-d host tensors, the reduced totals [n] on the host)."""
+    dev = totals.device
+    vec = torch.cat([torch.stack([
+        torch.as_tensor(counters[k], dtype=F32, device=dev).reshape(())
+        for k in keys]), totals.reshape(-1).to(F32)]).cpu()
+    red = mesh.psum(vec)
+    return dict(zip(keys, red[:len(keys)].unbind())), red[len(keys):]
+
+
+def log_mesh_call(engine, t_start, wire0, exchange, capacity):
+    """One record of ``engine.mesh_log`` per mesh ProcessEdges: the
+    exchange's wall seconds (staging copies included), the payload
+    elements and bytes this rank shipped and whether they went compacted,
+    and the step's seconds split into collectives (``wire_s``: the probe,
+    the exchange, the counter reduction) and compute."""
+    _sync(engine.device)
+    step_s = time.perf_counter() - t_start
+    wire_s = engine.mesh.wire_s - wire0
+    exchange_s, elems, nbytes = exchange
+    engine.mesh_log.append(dict(
+        step_s=step_s, exchange_s=exchange_s, wire_s=wire_s,
+        compute_s=step_s - wire_s, compacted=capacity is not None,
+        capacity=capacity, payload_elems=elems, payload_bytes=nbytes))
+
+
+def make_sharded_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
+                    mode_meta):
+    """Build one algorithm's mesh ProcessEdges step for this rank:
+    ``step(state, active, garrs, bt, vals)`` -> (new_state, new_active,
+    total, counters), over this rank's rows ([1, V] state and ``garrs``,
+    [1, ...] tiles).
+
+    Phase 1 and the filter run on the rank's row; the network is priced
+    with ``phases.net_bytes_model`` with every other rank as a crossing;
+    the exchange is the dense slab or the compacted collective the host
+    arbitrated this iteration (:func:`arbitrate_wire`); phases 3-4 are
+    LOCAL's :func:`_dest_phases` on the rank's one destination row (one
+    ``block_csr_combine`` launch under ``block_csr``).  Every counter and
+    the total are ``psum``'d, so every rank returns the same values;
+    ``measured_net_payload_elems`` counts the elements of the tensors
+    handed to ``all_to_all``, ``net_payload_elems`` is the model."""
+    cfg = engine.config
+    spec = engine.graph.spec
+    p_cnt, v_max = spec.num_partitions, spec.v_max
+    mesh, dev = engine.mesh, engine.device
+    gamma = engine.fmts.gamma
+    part_sizes = torch.as_tensor(spec.partition_sizes(), dtype=F32,
+                                 device=dev)
+    bt_static = engine._block if backend == "block_csr" else None
+    rb_map = (torch.as_tensor(row_block_batch_map(spec, bt_static.tile),
+                              device=dev)
+              if backend == "block_csr" else None)
+    cross = torch.arange(p_cnt, device=dev) != mesh.rank
+    counter_keys = engine.counter_keys
+    probe = make_sharded_probe(engine)
+    is0 = 1.0 if mesh.rank == 0 else 0.0
+    dense_elems = phases.net_payload_elems_model(p_cnt, v_max)
+
+    def step(state, active, garrs, bt, vals):
+        t_start, wire0 = time.perf_counter(), mesh.wire_s
+        counters = _zero_counters(counter_keys, dev)
+        vertex_valid = garrs["vertex_valid"]                     # [1, V]
+        amask = vertex_valid if active is None else (active & vertex_valid)
+        # Phase 1: generate
+        msg = signal_fn(state, garrs["global_id"])               # [1, V]
+        m_p = torch.sum(amask, dtype=F32)
+        counters["msgs_generated"] = m_p
+        counters["msg_disk_bytes"] = m_p * (cfg.msg_bytes + 4)
+
+        # Phase 2: filter + the real exchange.  The network model is
+        # LOCAL's on this rank's row: per-destination batch counts priced
+        # at the adaptive wire encoding, this rank's own batch excluded.
+        sendmask = phases.filter_sendmask(
+            amask[0], garrs["need"][0], garrs["need_counts"][0], m_p, cfg)
+        counters["msgs_sent"] = torch.sum(sendmask, dtype=F32)
+        counters["msgs_sent_nofilter"] = p_cnt * m_p
+        counts = phases.routing_counts(sendmask)                 # [P]
+        gapb = unib = None
+        if cfg.compression:
+            gapb = codec.mask_gap_bytes(sendmask, xp=torch)
+            unib = phases.batch_value_uniform(sendmask, msg[0][None, :])
+        counters["net_bytes"], counters["net_bytes_raw"] = (
+            phases.net_bytes_model(counts, cross, v_max, cfg.msg_bytes,
+                                   gap_bytes=gapb, uniform=unib))
+        counters["net_bytes_nofilter"] = ((p_cnt - 1) * m_p
+                                          * (cfg.msg_bytes + 4))
+        # Physical wire: the dense slab, or the compacted collective at the
+        # capacity the host arbitrated (the same on every rank, so every
+        # rank takes the same branch and the collectives stay in lockstep).
+        # Either way phases 3-4 see the exact dense layout.
+        capacity = arbitrate_wire(engine, probe, [sendmask])
+        counters["net_payload_elems_dense"] = dense_elems
+        _sync(dev)
+        t0, bytes0 = time.perf_counter(), mesh.sent_bytes
+        if capacity is None:
+            recv_msg, recv_mask, measured = _dense_exchange(
+                msg[0], sendmask, mesh)
+            counters["net_payload_elems"] = dense_elems
+            counters["exchange_dense_iters"] = is0
+        else:
+            recv_msg, recv_mask, measured = _compacted_exchange(
+                msg[0], sendmask, capacity, mesh)
+            counters["net_payload_elems"] = phases.net_payload_elems_model(
+                p_cnt, v_max, capacity=capacity)
+            counters["exchange_compacted_iters"] = is0
+        counters["measured_net_payload_elems"] = measured
+        _sync(dev)
+        exchange = (time.perf_counter() - t0, measured,
+                    mesh.sent_bytes - bytes0)
+
+        # Phases 3 + 4 on this rank's destination row (in-HBM ChunkSource)
+        d = HBMChunkSource.dest_arrays(garrs)
+        if backend == "segment":
+            d.update(HBMChunkSource.edge_arrays(garrs))
+        else:
+            d.update(slot_row=bt.slot_row, slot_col=bt.slot_col,
+                     slot_part=bt.slot_part, slot_valid=bt.slot_valid,
+                     row_ptr=bt.row_ptr, tiles_cnt=bt.tiles_cnt, **vals)
+        agg, has, cd = _dest_phases(
+            d, recv_msg[None], recv_mask[None], slot_fn=slot_fn,
+            monoid=monoid, spec=spec, cfg=cfg, backend=backend,
+            part_sizes=part_sizes, gamma=gamma, mode_meta=mode_meta,
+            rb_map=rb_map, bt_static=bt_static)
+        counters.update({k: torch.sum(v) for k, v in cd.items()})
+
+        new_state, new_active, total, io = _apply_and_account(
+            state, agg, has, garrs["global_id"], vertex_valid, apply_fn,
+            cfg, spec.batch_size, amask)
+        counters.update(io)
+        counters, total = reduce_mesh_counters(mesh, counters, counter_keys,
+                                               total)
+        log_mesh_call(engine, t_start, wire0, exchange, capacity)
+        return new_state, new_active, total[0], counters
 
     return step
 

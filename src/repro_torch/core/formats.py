@@ -340,12 +340,15 @@ class BlockTilesHost:
     tile: int
 
 
-def build_block_tiles(g: DistGraph, *, tile: int = 8, device=None
-                      ) -> tuple[BlockTiles, BlockTilesHost]:
+def build_block_tiles(g: DistGraph, *, tile: int = 8, device=None,
+                      rows=None) -> tuple[BlockTiles, BlockTilesHost]:
     """Host-side preprocessing: per destination partition, group the (dst
     batch x src partition) adjacency into T x T block-CSR tiles (reusing the
     kernel-side :func:`build_tile_struct` core, which sorts the tile keys
-    on ``device``, the CPU by default)."""
+    on ``device``, the CPU by default).
+
+    ``rows`` (destination partitions, all by default) builds only those
+    rows, stacked in that order: a mesh rank builds its own row alone."""
 
     spec = g.spec
     p_cnt, v_max = spec.num_partitions, spec.v_max
@@ -355,16 +358,19 @@ def build_block_tiles(g: DistGraph, *, tile: int = 8, device=None
     n_rows = v_pad // t
     n_col_blocks = p_cnt * pb
 
-    esl = _np(g.edge_src_local)
-    esp = _np(g.edge_src_part)
-    edl = _np(g.edge_dst_local)
-    evalid = _np(g.edge_valid)
-    edata = _np(g.edge_data)
+    qs = list(range(p_cnt)) if rows is None else [int(q) for q in rows]
+    n_q = len(qs)
+    pick = _np if rows is None else (lambda x: _np(x)[qs])
+    esl = pick(g.edge_src_local)
+    esp = pick(g.edge_src_part)
+    edl = pick(g.edge_dst_local)
+    evalid = pick(g.edge_valid)
+    edata = pick(g.edge_data)
     e_max = esl.shape[1]
 
     per_q = []
-    edge_slot = np.full((p_cnt, e_max), 0, np.int32)
-    for q in range(p_cnt):
+    edge_slot = np.full((n_q, e_max), 0, np.int32)
+    for q in range(n_q):
         m = evalid[q]
         v, u, p = edl[q][m], esl[q][m], esp[q][m]
         slot_row, slot_col, row_ptr, eslot = build_tile_struct_np(
@@ -375,12 +381,12 @@ def build_block_tiles(g: DistGraph, *, tile: int = 8, device=None
     s_max = max(1, max(sr.shape[0] for sr, _, _ in per_q))
     max_tpr = max(1, max(int((rp[1:] - rp[:-1]).max()) for _, _, rp in per_q))
 
-    slot_row = np.full((p_cnt, s_max), n_rows - 1, np.int32)
-    slot_col = np.zeros((p_cnt, s_max), np.int32)
-    slot_part = np.zeros((p_cnt, s_max), np.int32)
-    slot_valid = np.zeros((p_cnt, s_max), bool)
-    row_ptr = np.zeros((p_cnt, n_rows + 1), np.int32)
-    tiles_cnt = np.zeros((p_cnt, s_max, t, t), np.float32)
+    slot_row = np.full((n_q, s_max), n_rows - 1, np.int32)
+    slot_col = np.zeros((n_q, s_max), np.int32)
+    slot_part = np.zeros((n_q, s_max), np.int32)
+    slot_valid = np.zeros((n_q, s_max), bool)
+    row_ptr = np.zeros((n_q, n_rows + 1), np.int32)
+    tiles_cnt = np.zeros((n_q, s_max, t, t), np.float32)
     for q, (sr, sc, rp) in enumerate(per_q):
         n = sr.shape[0]
         slot_row[q, :n] = sr

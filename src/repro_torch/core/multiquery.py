@@ -1,5 +1,6 @@
 """Multi-query (Q-panel) ProcessEdges executors (DESIGN.md §11) — the
-LOCAL, OOC and DIST_OOC parts of ``repro.core.multiquery``.
+port of ``repro.core.multiquery``: LOCAL, SHARD_MAP (the mesh), OOC and
+DIST_OOC.
 
 Concurrent query serving amortizes ONE selective chunk stream across Q
 simultaneous queries: vertex state grows a trailing query axis
@@ -36,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import codec, phases
+from repro_torch.core import codec, phases, sparse_collectives
 from repro_torch.core import exchange as exchange_mod
 from repro_torch.core.chunkstore import (
     REP_CSR, REP_DCSR, REP_DCSR_DELTA, ChunkPrefetcher, HBMChunkSource,
@@ -44,8 +45,10 @@ from repro_torch.core.chunkstore import (
 from repro_torch.core.executor import (
     F32, DestHeader, _apply_and_account, _batch_any, _block_dest_vectors,
     _combine_stream_batch, _device_state, _host_state, _stream_tile_layout,
-    _stream_value_tiles, _zero_counters, record_worker_traffic,
-    run_worker_pool,
+    _check_overflow, _stream_value_tiles, _sync, _zero_counters,
+    arbitrate_wire,
+    log_mesh_call, make_sharded_probe, record_worker_traffic,
+    reduce_mesh_counters, run_worker_pool,
 )
 from repro_torch.core.formats import _np
 from repro_torch.kernels.csr_spmv import block_csr_combine_mq
@@ -262,6 +265,182 @@ def make_local_pe_mq(engine, signal_fn, slot_fn, monoid, apply_fn, nq):
                      for k, cols in new_cols.items()}
         return (new_state, torch.stack(new_act, dim=-1),
                 torch.stack(totals), counters)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# SHARD_MAP executor (mesh axis, one panel all_to_all)
+# ---------------------------------------------------------------------------
+
+def _dense_panel(send_valsp, send_maskp, mesh):
+    """The dense [P, V, Q] panel exchange: one value and one int8 presence
+    all_to_all (each column a pure permutation, so bit-identical to its
+    solo exchange).  Returns (recv_vals, recv_maskp, payload elements)."""
+    sent0 = mesh.sent_elems
+    sv = torch.where(send_maskp, send_valsp[None], 0.0)          # [P, V, nq]
+    rv = mesh.all_to_all(sv)
+    rm = mesh.all_to_all(send_maskp.to(torch.int8)) > 0
+    return rv, rm, float(mesh.sent_elems - sent0)
+
+
+def _compacted_panel(send_valsp, send_maskp, capacity, mesh):
+    """The union-compacted panel (DESIGN.md §12): one shared source-index
+    stream per peer, Q value columns and Q presence flags, re-densified to
+    the dense panel's layout."""
+    sent0 = mesh.sent_elems
+    rv, rm, ridx, overflow = \
+        sparse_collectives.masked_compacted_all_to_all_mq(
+            send_valsp, send_maskp, capacity, mesh)
+    _check_overflow(overflow, capacity)
+    rvf, rmf = sparse_collectives.compacted_scatter_back_mq(
+        rv, rm, ridx, send_maskp.shape[1])
+    return rvf, rmf, float(mesh.sent_elems - sent0)
+
+
+def make_sharded_pe_mq(engine, signal_fn, slot_fn, monoid, apply_fn, nq):
+    """Multi-query mesh ProcessEdges for this rank (segment backend):
+    ``step(state, active, garrs)`` over [1, V, Q] rows.
+
+    Phases 1-2 run per query on the rank's row; ONE panel exchange ships
+    the [P, V, Q] slab, or the union-compacted panel when the host's
+    arbitration (``choose_physical_exchange(..., nq=Q)``) picks it — each
+    column bit-identical to the solo exchange; the network model prices
+    each crossing batch at the multi-query minimum; phase 3 and the chunk
+    model run once over the union of the received columns, phase 4 and
+    apply per query.  Counters and totals are ``psum``'d."""
+    cfg = engine.config
+    spec = engine.graph.spec
+    p_cnt, v_max, b_cnt = (spec.num_partitions, spec.v_max,
+                           spec.num_batches)
+    mesh, dev = engine.mesh, engine.device
+    gamma = engine.fmts.gamma
+    part_sizes = torch.as_tensor(spec.partition_sizes(), dtype=F32,
+                                 device=dev)
+    cross = torch.arange(p_cnt, device=dev) != mesh.rank
+    counter_keys = engine.counter_keys
+    probe = make_sharded_probe(engine)
+    is0 = 1.0 if mesh.rank == 0 else 0.0
+    mb = cfg.msg_bytes + 4
+    dense_elems = phases.net_payload_elems_model(p_cnt, v_max, nq=nq)
+
+    def step(state, active, garrs):
+        t_start, wire0 = time.perf_counter(), mesh.wire_s
+        counters = _zero_counters(counter_keys, dev)
+        vertex_valid = garrs["vertex_valid"]                     # [1, V]
+
+        amasks, msgs, sendmasks = [], [], []
+        for j in range(nq):
+            state_j = {k: v[..., j] for k, v in state.items()}
+            amask_j = (vertex_valid if active is None
+                       else (active[..., j] & vertex_valid))
+            msg_j = signal_fn(state_j, garrs["global_id"])      # [1, V]
+            m_p = torch.sum(amask_j, dtype=F32)
+            counters["msgs_generated"] += m_p
+            counters["msg_disk_bytes"] += m_p * mb
+            sendmask_j = phases.filter_sendmask(
+                amask_j[0], garrs["need"][0], garrs["need_counts"][0],
+                m_p, cfg)                                        # [P, V]
+            counters["msgs_sent"] += torch.sum(sendmask_j, dtype=F32)
+            counters["msgs_sent_nofilter"] += p_cnt * m_p
+            counters["net_bytes_nofilter"] += (p_cnt - 1) * m_p * mb
+            amasks.append(amask_j)
+            msgs.append(msg_j)
+            sendmasks.append(sendmask_j)
+
+        union_sm = sendmasks[0]
+        for j in range(1, nq):
+            union_sm = union_sm | sendmasks[j]                   # [P, V]
+        counts = torch.stack([phases.routing_counts(sm)
+                              for sm in sendmasks])              # [nq, P]
+        ucounts = phases.routing_counts(union_sm)                # [P]
+        gapb = unib = ugap = None
+        if cfg.compression:
+            gapb = torch.stack([codec.mask_gap_bytes(sm, xp=torch)
+                                for sm in sendmasks])
+            unib = torch.stack([phases.batch_value_uniform(
+                sm, m[0][None, :]) for sm, m in zip(sendmasks, msgs)])
+            ugap = codec.mask_gap_bytes(union_sm, xp=torch)
+        counters["net_bytes"], counters["net_bytes_raw"] = (
+            phases.mq_net_bytes_model(counts, ucounts, cross, v_max,
+                                      cfg.msg_bytes, gap_bytes=gapb,
+                                      union_gap=ugap, uniform=unib))
+
+        # ONE panel exchange, dense or union-compacted, arbitrated as the
+        # solo path's.
+        send_valsp = torch.stack([m[0] for m in msgs], dim=-1)   # [V, nq]
+        send_maskp = torch.stack(sendmasks, dim=-1)              # [P, V, nq]
+        capacity = arbitrate_wire(engine, probe, sendmasks, nq=nq)
+        counters["net_payload_elems_dense"] = dense_elems
+        _sync(dev)
+        t0, bytes0 = time.perf_counter(), mesh.sent_bytes
+        if capacity is None:
+            recv_vals, recv_maskp, measured = _dense_panel(
+                send_valsp, send_maskp, mesh)
+            counters["net_payload_elems"] = dense_elems
+            counters["exchange_dense_iters"] = is0
+        else:
+            recv_vals, recv_maskp, measured = _compacted_panel(
+                send_valsp, send_maskp, capacity, mesh)
+            counters["net_payload_elems"] = phases.net_payload_elems_model(
+                p_cnt, v_max, capacity=capacity, nq=nq)
+            counters["exchange_compacted_iters"] = is0
+        counters["measured_net_payload_elems"] = measured
+        _sync(dev)
+        exchange = (time.perf_counter() - t0, measured,
+                    mesh.sent_bytes - bytes0)
+
+        # Phase 3 + the chunk model over the union of the received columns.
+        d = HBMChunkSource.dest_arrays(garrs)
+        union_recv = torch.any(recv_maskp, dim=-1)[None]         # [1, P, V]
+        chunk_active, dispatched = phases.dispatch_one_dest(
+            d["dcsr_src"], d["dcsr_part"], d["dcsr_batch"], d["dcsr_valid"],
+            union_recv, v_max, b_cnt)
+        counters["msgs_dispatched"] += torch.sum(dispatched)
+        counters["chunks_read"] += torch.sum(chunk_active, dtype=F32)
+        cd = phases.mq_format_choice_one_dest(
+            d["dcsr_ptr"], d["has_csr"], d["csr_bytes"], d["dcsr_bytes"],
+            d["dcsr_delta_bytes"], d["csr_raw_bytes"], d["dcsr_raw_bytes"],
+            part_sizes, gamma, torch.sum(union_recv, dim=2).to(torch.int32),
+            cfg.compression, chunk_active)
+        for k, v in cd.items():
+            counters[k] += torch.sum(v)
+
+        # Phase 4 + apply per query on this rank's destination row.
+        e = HBMChunkSource.edge_arrays(garrs)
+        new_cols, new_act, totals, ios = {k: [] for k in state}, [], [], []
+        for j in range(nq):
+            rmask_j = recv_maskp[..., j][None]
+            rmsg_j = torch.where(rmask_j, recv_vals[..., j][None], 0.0)
+            agg, has, touched = phases.process_segment_one_dest(
+                e["edge_src_part"], e["edge_src_local"], e["edge_dst_local"],
+                e["edge_data"], e["edge_valid"], rmsg_j, rmask_j, slot_fn,
+                monoid, v_max)
+            counters["edges_touched"] += torch.sum(touched)
+            state_j = {k: v[..., j] for k, v in state.items()}
+            ns_j, na_j, total_j, io = _apply_and_account(
+                state_j, agg, has, garrs["global_id"], vertex_valid,
+                apply_fn, cfg, spec.batch_size, amasks[j])
+            ios.append(io)
+            for k in state:
+                new_cols[k].append(ns_j[k])
+            new_act.append(na_j)
+            totals.append(total_j)
+        # A query's vertex I/O stays priced while its frontier is alive on
+        # ANY rank, as a solo run's would: one pmax of the [nq] counts.
+        alive = mesh.pmax(torch.stack([torch.sum(a, dtype=F32)
+                                       for a in amasks]).cpu()) > 0
+        for j, io in enumerate(ios):
+            if bool(alive[j]):
+                for k, v in io.items():
+                    counters[k] += v
+
+        new_state = {k: torch.stack(cols, dim=-1)
+                     for k, cols in new_cols.items()}
+        counters, totals = reduce_mesh_counters(
+            mesh, counters, counter_keys, torch.stack(totals))
+        log_mesh_call(engine, t_start, wire0, exchange, capacity)
+        return new_state, torch.stack(new_act, dim=-1), totals, counters
 
     return step
 

@@ -183,6 +183,25 @@ def mq_net_bytes_model(counts, union_count, cross, v_max, msg_bytes,
     return net, raw
 
 
+def net_payload_elems_model(p_cnt: int, v_max: int, capacity=None,
+                            nq: int = 1) -> float:
+    """Physical payload elements ONE rank ships to its peers in a mesh
+    exchange (DESIGN.md §12) — tensor elements, not bytes: the collective
+    moves typed arrays.  Summed over the mesh this is the wire volume the
+    ``measured_net_payload_elems`` counter must equal.
+
+    Dense slab (``capacity=None``): each of the p_cnt - 1 peers gets a
+    v_max value column and a v_max presence column, per query.
+    Compacted: each peer gets ``capacity`` values per query, one shared
+    ``capacity`` source-index stream and, for panels (nq > 1),
+    ``capacity`` presence flags per query (a solo compacted exchange needs
+    none: ``recv_src_index == -1`` marks its padding)."""
+    if capacity is None:
+        return float((p_cnt - 1) * 2 * v_max * nq)
+    per_slot = 2 if nq == 1 else 2 * nq + 1
+    return float((p_cnt - 1) * capacity * per_slot)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: intra-node dispatch over the dispatching graph (paper §4.2)
 # ---------------------------------------------------------------------------

@@ -1,6 +1,5 @@
 """Continuous multi-query serving on the Q-panel engine (DESIGN.md §11) —
-the port of ``repro.core.serve`` (its mesh branch waits for the mesh
-executor).
+the port of ``repro.core.serve``.
 
 A fixed number of in-flight slots (= ``EngineConfig.num_queries``), an
 admission queue, and ONE batched step that advances every in-flight query
@@ -17,6 +16,11 @@ Slot admission writes new columns into the state panel, which breaks the
 engine's returned-state identity — on the ooc executor the next step
 re-loads the spill as an unmeasured preprocessing sync (the same contract
 as handing any caller-constructed state to the engine).
+
+On a mesh engine every rank runs the same session (the same submits, in
+the same order): the panels are the rank's [1, V, Q] rows, every rank
+sees the same mesh-summed ``updated`` and so retires the same queries,
+and a step that retires any gathers the level panel once.
 """
 from __future__ import annotations
 
@@ -60,7 +64,10 @@ class GraphServeSession:
         self._spec = spec
         self._gid = _np(engine.global_id)
         self._valid = _np(engine.graph.vertex_valid)
-        shape = (spec.num_partitions, spec.v_max, self.slots)
+        if engine._distributed:              # this rank's rows only
+            r = engine.mesh.rank
+            self._gid, self._valid = self._gid[r:r + 1], self._valid[r:r + 1]
+        shape = self._gid.shape + (self.slots,)
         self._state = {"level": np.full(shape, F32_MAX, np.float32)}
         self._active = np.zeros(shape, bool)
         self._slot_qid: list = [None] * self.slots
@@ -125,7 +132,9 @@ class GraphServeSession:
             meta["run"] += 1
             if float(updated[j]) == 0.0 or meta["run"] >= self.max_iters:
                 if levels_panel is None:
-                    levels_panel = _np(state["level"])
+                    levels_panel = (self.engine.gather(state["level"])
+                                    if self.engine._distributed
+                                    else _np(state["level"]))
                 done.append(QueryResult(
                     qid=qid, source=meta["source"],
                     levels=gather_vertex_values(self._spec,
