@@ -60,8 +60,7 @@ on the card).  It
     then sweeps both scan modes over 2^10, 2^16, 2^20 and 2^24 seeded
     elements (bit-equal, add also to ``torch.cumsum``), timed the same
     way beside ``torch.cumsum`` / ``torch.cummax``;
-  * runs the four algorithms cold (SSSP to 5 iterations, held against
-    LOCAL's SSSP at that depth) with the launch counts of the combine, the
+  * runs the four algorithms cold with the launch counts of the combine, the
     fused decode, the stencil and the scans set to 0 just before each and
     read just after (the combine and the fused decode must have run, at
     most two decode launches per item, the stencil and the scans not at
@@ -89,7 +88,7 @@ source above).  It
     0–7, each column bit-equal to its solo BFS with equal iteration
     counts; ``pairwise_reachability`` of the pairs s_k -> s_(k+1 mod 8),
     each answer equal to the solo levels' finiteness;
-    ``personalized_pagerank`` of sources 0–7 (one iteration), query 0
+    ``personalized_pagerank`` of sources 0–7 (2 iterations), query 0
     within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
   * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
     a fresh spill): a ``GraphServeSession`` with 8 slots takes the first
@@ -98,7 +97,7 @@ source above).  It
     logical counter equal to the sum of the 8 solo runs' (rtol 1e-5) and
     every shared-stream counter at most that sum (its counters after each
     step are kept for the DIST_OOC session); then
-    ``personalized_pagerank`` of sources 0–7 (one iteration), values
+    ``personalized_pagerank`` of sources 0–7 (2 iterations), values
     within 1e-5 of LOCAL serving's and every
     counter LOCAL reports within rtol 1e-5 of LOCAL's;
   * counts the launches of ``block_csr_combine_mq`` (set to 0 before the
@@ -151,10 +150,10 @@ fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
     at most that sum, and, over the steps before the first query joins
     (the OOC session's queries alone), every counter but the two network
     ones equal to the OOC session's after as many steps (rtol 1e-5);
-  * runs ``multi_bfs`` of sources 0–7 for one iteration, sequential and
+  * runs ``multi_bfs`` of sources 0–7 for two iterations, sequential and
     then with ``parallel_workers``: bit-identical (levels as int32
     patterns, per-iteration returns, every counter, ``worker_totals``);
-  * runs ``personalized_pagerank`` of sources 0–7 (one iteration),
+  * runs ``personalized_pagerank`` of sources 0–7 (2 iterations),
     sequential: within 1e-5 of LOCAL serving's, every counter but the two
     network ones within rtol 1e-5 of LOCAL's;
   * requires in every run measured == model for disk and network, every
@@ -328,9 +327,7 @@ PR_ITERS = 5
 SERVE_SOURCES = 10             # queries the DIST_OOC session submits
 OOC_SESSION_SOURCES = 8        # queries the OOC session submits
 SERVE_Q = 8                    # concurrent query slots
-PPR_ITERS = 1                  # every PPR iteration streams every chunk
-OOC_SSSP_ITERS = 5             # OOC SSSP's depth (LOCAL runs it to the end)
-DIST_MQ_ITERS = 1              # DIST serving multi_bfs depth
+PPR_ITERS = 2
 
 
 def emit(**obj):
@@ -1228,7 +1225,7 @@ def main(argv=None) -> int:
         # the next algorithm lowers its own slot: free these value tiles,
         # as a fresh engine would have
         for e in (blk if isinstance(blk, tuple) else (blk,)):
-            e._block_vals_cache.clear()
+            e.free_value_tiles()
         del blk, seg, first
         gc.collect()
         torch.cuda.empty_cache()
@@ -1287,9 +1284,6 @@ def main(argv=None) -> int:
     launches["wcc"] = run_algorithm(
         "wcc", wcc_engines, drives["wcc"], checks["wcc"], "min",
         ("min", "max"))
-    # OOC runs SSSP to OOC_SSSP_ITERS only (the time limit): its reference
-    # is LOCAL's run to that depth (segment = block_csr bit for bit above)
-    shallow = alg.sssp(fwd["segment"], source, OOC_SSSP_ITERS)
     fwd.clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1298,12 +1292,9 @@ def main(argv=None) -> int:
     os.makedirs(tmp_root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="stores-", dir=tmp_root)
     try:
-        ooc = run_ooc(
-            tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
-            fm_rev=fm_rev, checks=dict(checks, sssp=exact(shallow[0])),
-            drives=dict(drives, sssp=lambda e: alg.sssp(e, source,
-                                                         OOC_SSSP_ITERS)),
-            local_results=dict(local_results, sssp=shallow))
+        ooc = run_ooc(tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
+                      fm_rev=fm_rev, checks=checks, drives=drives,
+                      local_results=local_results)
         dist = run_dist_ooc(tmp, dg=dg, fm=fm, source=source, checks=checks,
                             drives=drives, local_results=local_results,
                             ooc_results=ooc.pop("results"))
@@ -2112,7 +2103,7 @@ def run_dist_serve(store, *, dg, fm, serving):
     largest_panel = gaps["largest_panel"]
     del sess, results
 
-    # -- (b) multi_bfs, DIST_MQ_ITERS deep: sequential, then parallel -------
+    # -- (b) multi_bfs, two iterations: sequential, then parallel ----------
     runs = {}
     for parallel in (False, True):
         e = eng if not parallel else engine(True)
@@ -2120,7 +2111,7 @@ def run_dist_serve(store, *, dg, fm, serving):
         copies0 = reset()
         t0 = time.perf_counter()
         with recorded_gap_streams() as bgaps:
-            levels, st = alg.multi_bfs(e, first, max_iters=DIST_MQ_ITERS)
+            levels, st = alg.multi_bfs(e, first, max_iters=2)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         name = "multi_bfs_parallel" if parallel else "multi_bfs"
@@ -2141,13 +2132,12 @@ def run_dist_serve(store, *, dg, fm, serving):
         raise AssertionError("dist multi_bfs: the parallel run is not "
                              "bit-identical to the sequential one")
     for j, s in enumerate(first):
-        want_it = min(DIST_MQ_ITERS, solo[s][1].iterations)
+        want_it = min(2, solo[s][1].iterations)
         if st.iterations[j] != want_it:
             raise AssertionError(f"dist multi_bfs: query {j} ran "
                                  f"{st.iterations[j]} iterations, want "
                                  f"{want_it}")
-    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q,
-         max_iters=DIST_MQ_ITERS,
+    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q, max_iters=2,
          iterations=st.iterations, sequential_s=seq_s, parallel_s=par_s,
          launches=launches["multi_bfs"],
          parallel_launches=launches["multi_bfs_parallel"],

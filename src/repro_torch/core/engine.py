@@ -666,6 +666,14 @@ class Engine:
                 device=self.device, rows=rows)
             self._block = bt.to(self.device)
 
+    def free_value_tiles(self) -> None:
+        """Drop the device value tiles of every slot function lowered so
+        far (``block_csr``); the next ProcessEdges that needs one lowers
+        it again.  The block structure stays.  Several algorithms run one
+        after another on one engine keep one slot's tiles on the device
+        if each frees its tiles before the next starts."""
+        self._block_vals_cache.clear()
+
     def _probe_slot(self, slot_fn, monoid):
         """Cached affine-slot probe; warns once and returns None when the
         slot cannot be lowered to tiles (segment fallback)."""

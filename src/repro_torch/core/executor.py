@@ -355,23 +355,18 @@ def _dense_exchange(msg_row, sendmask, mesh):
     return recv_msg, recv_mask, float(mesh.sent_elems - sent0)
 
 
-def _check_overflow(overflow, capacity):
-    """The collective's ``pmax``'d overflow flag.  The host arbitrated
-    ``capacity`` from the exact bound of these send masks, so it can never
-    be set; if it were, the received buffers would be truncated."""
-    if overflow:
-        raise RuntimeError(f"the compacted exchange overflowed its capacity "
-                           f"{capacity}, which the probe's bound set")
-
-
 def _compacted_exchange(msg_row, sendmask, capacity, mesh):
     """The compacted physical wire (DESIGN.md §12): <= ``capacity``
     (value, source-index) pairs per peer, re-densified on the receive side
-    so phases 3-4 see the exact dense-slab layout."""
+    so phases 3-4 see the exact dense-slab layout.  The host bucketed
+    ``capacity`` from the ``pmax``'d exact bound of these send masks, so
+    no rank can overflow it and the collective's ``pmax``'d overflow flag
+    is not paid for."""
     sent0 = mesh.sent_elems
-    recv, recv_idx, overflow = sparse_collectives.masked_compacted_all_to_all(
-        msg_row, sendmask, capacity, mesh)
-    _check_overflow(overflow, capacity)
+    buf, idx, cmax = sparse_collectives.masked_compacted_send(
+        msg_row, sendmask, capacity)
+    assert int(cmax) <= capacity, (int(cmax), capacity)
+    recv, recv_idx = mesh.all_to_all(buf), mesh.all_to_all(idx)
     recv_msg, recv_mask = sparse_collectives.compacted_scatter_back(
         recv, recv_idx, sendmask.shape[1])
     return recv_msg, recv_mask, float(mesh.sent_elems - sent0)

@@ -11,7 +11,7 @@ gloo, which takes CUDA tensors and stages them through host memory
 itself; those copies are part of the wire's time.
 
 * :class:`ProcessMesh` — one rank's handle on the default process group:
-  ``size``, ``rank``, ``axis``, and the collectives the executors use —
+  ``size``, ``rank``, ``AXIS``, and the collectives the executors use —
   :meth:`~ProcessMesh.all_to_all` (``jax.lax.all_to_all`` over dim 0),
   :meth:`~ProcessMesh.psum`, :meth:`~ProcessMesh.pmax` and
   :meth:`~ProcessMesh.all_gather`.  It counts the payload elements and
@@ -44,8 +44,6 @@ import torch.distributed as dist
 
 from repro_torch.utils import resolve_device
 
-AXIS = "part"
-
 
 class MeshError(RuntimeError):
     """A mesh job failed: a rank died without a result, raised an
@@ -53,23 +51,23 @@ class MeshError(RuntimeError):
 
 
 class ProcessMesh:
-    """One rank's view of the partition mesh: the default process group
-    (or ``group``), its size and this process's rank along ``axis``.
+    """One rank's view of the partition mesh: the default process group,
+    its size and this process's rank along the mesh axis ``AXIS``.
 
     Every collective must be called by every rank in the same order
     (the lockstep of the reference's ``shard_map``).  Tensors may live on
     the CPU or on a CUDA device (gloo stages CUDA tensors through host
     memory); a result lives where its input did."""
 
-    def __init__(self, *, device=None, group=None, axis: str = AXIS):
+    AXIS = "part"            # the reference's mesh axis name
+
+    def __init__(self, *, device=None):
         if not dist.is_initialized():
             raise RuntimeError(
                 "ProcessMesh needs an initialized process group: run the "
                 "job under repro_torch.core.mesh.run_mesh")
-        self.group = group
-        self.axis = axis
-        self.size = dist.get_world_size(group)
-        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size()
+        self.rank = dist.get_rank()
         self.device = resolve_device(device)
         self.sent_elems = 0       # payload elements handed to peers
         self.sent_bytes = 0       # and their bytes
@@ -101,13 +99,12 @@ class ProcessMesh:
         self.sent_bytes += peers * t.element_size()
         send = t.contiguous()
         recv = torch.empty_like(send)
-        self._timed(lambda: dist.all_to_all_single(recv, send,
-                                                   group=self.group), t)
+        self._timed(lambda: dist.all_to_all_single(recv, send), t)
         return recv
 
     def _all_reduce(self, t, op):
         out = t.clone()
-        self._timed(lambda: dist.all_reduce(out, op=op, group=self.group), t)
+        self._timed(lambda: dist.all_reduce(out, op=op), t)
         return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
@@ -125,14 +122,13 @@ class ProcessMesh:
         send = t.contiguous()
         out = torch.empty((self.size,) + tuple(send.shape), dtype=send.dtype,
                           device=send.device)
-        self._timed(lambda: dist.all_gather(list(out.unbind(0)), send,
-                                            group=self.group), t)
+        self._timed(lambda: dist.all_gather(list(out.unbind(0)), send), t)
         return out.reshape((self.size * send.shape[0],)
                            + tuple(send.shape[1:]))
 
     def barrier(self) -> None:
         t0 = time.perf_counter()
-        dist.barrier(group=self.group)
+        dist.barrier()
         self.wire_s += time.perf_counter() - t0
 
 

@@ -45,8 +45,7 @@ from repro_torch.core.chunkstore import (
 from repro_torch.core.executor import (
     F32, DestHeader, _apply_and_account, _batch_any, _block_dest_vectors,
     _combine_stream_batch, _device_state, _host_state, _stream_tile_layout,
-    _check_overflow, _stream_value_tiles, _sync, _zero_counters,
-    arbitrate_wire,
+    _stream_value_tiles, _sync, _zero_counters, arbitrate_wire,
     log_mesh_call, make_sharded_probe, record_worker_traffic,
     reduce_mesh_counters, run_worker_pool,
 )
@@ -287,12 +286,14 @@ def _dense_panel(send_valsp, send_maskp, mesh):
 def _compacted_panel(send_valsp, send_maskp, capacity, mesh):
     """The union-compacted panel (DESIGN.md §12): one shared source-index
     stream per peer, Q value columns and Q presence flags, re-densified to
-    the dense panel's layout."""
+    the dense panel's layout.  ``capacity`` bounds the ``pmax``'d union
+    count, so no rank can overflow it (as in the solo exchange)."""
     sent0 = mesh.sent_elems
-    rv, rm, ridx, overflow = \
-        sparse_collectives.masked_compacted_all_to_all_mq(
-            send_valsp, send_maskp, capacity, mesh)
-    _check_overflow(overflow, capacity)
+    bufv, bufm, idx, cmax = sparse_collectives.masked_compacted_send_mq(
+        send_valsp, send_maskp, capacity)
+    assert int(cmax) <= capacity, (int(cmax), capacity)
+    rv, rm = mesh.all_to_all(bufv), mesh.all_to_all(bufm) > 0
+    ridx = mesh.all_to_all(idx)
     rvf, rmf = sparse_collectives.compacted_scatter_back_mq(
         rv, rm, ridx, send_maskp.shape[1])
     return rvf, rmf, float(mesh.sent_elems - sent0)
