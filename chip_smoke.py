@@ -9,8 +9,9 @@ phase, then drives the port's three graph paths on a Graph500 R-MAT graph
 (scale 21, edge factor 16, weighted, seed 0: 2,097,152 vertices,
 33,554,432 edges; P = 8 partitions, 8 x 8 tiles): LOCAL and OOC through
 PageRank (5 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
-BFS, multi-query serving on LOCAL, OOC and DIST_OOC, and the SHARD_MAP
-executor on 8 ranks sharing the card.
+BFS, in threads and as 2 OS ranks over sockets (process mode, with one
+rank killed and recovered), multi-query serving on LOCAL, OOC and
+DIST_OOC, and the SHARD_MAP executor on 8 ranks sharing the card.
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -49,8 +50,8 @@ OOC (fully out of core: ``executor="ooc"``, ``block_csr``, chunks decoded
 on the card).  It
   * builds the forward and reversed chunk stores of the same graph in a
     temporary directory under ``.smoke_tmp/`` (removed at exit);
-  * decodes every chunk of both stores in every representation it stores
-    on the card through the fused decode (``chunk_decode``, one chunk an
+  * decodes every chunk of the forward store in every representation it
+    stores on the card through the fused decode (``chunk_decode``, one chunk an
     item) and with the host codec, and requires bit-equality;
   * holds the varint stencil and both scan modes against their plain
     versions (bit-equal) on the largest chunk's streams and on one long
@@ -80,9 +81,9 @@ on the card).  It
     version, beside the byte bound (staged bytes in, 16 B per edge out).
 
 Serving (multi-query, on the same graph, while the forward store exists).
-The 10 highest out-degree vertices are the sources (query 0 is the BFS
+The 8 highest out-degree vertices are the sources (query 0 is the BFS
 source above).  It
-  * runs a solo LOCAL ``segment`` BFS from each of the 10 sources on the
+  * runs a solo LOCAL ``segment`` BFS from each of the 8 sources on the
     card: the reference levels, iteration counts and counters;
   * serves them on LOCAL (``segment``, Q = 8): ``multi_bfs`` of sources
     0–7, each column bit-equal to its solo BFS with equal iteration
@@ -92,9 +93,9 @@ source above).  It
     within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
   * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
     a fresh spill): a ``GraphServeSession`` with 8 slots takes the first
-    8 sources and drains — every result bit-equal to its solo BFS with
+    6 sources and drains — every result bit-equal to its solo BFS with
     its run and wait iterations those the solo counts imply, every
-    logical counter equal to the sum of the 8 solo runs' (rtol 1e-5) and
+    logical counter equal to the sum of the 6 solo runs' (rtol 1e-5) and
     every shared-stream counter at most that sum (its counters after each
     step are kept for the DIST_OOC session); then
     ``personalized_pagerank`` of sources 0–7 (2 iterations), values
@@ -142,14 +143,13 @@ and wire gap streams decoded on the card, ``verify_io``).  It
 DIST_OOC serving (``dist_ooc_serve``: the same W = 4 sharded store with
 fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
 ``verify_io``).  It
-  * runs a ``GraphServeSession`` of 8 slots over all 10 sources (two
-    join mid-session), workers in sequence: every result bit-equal to its
-    solo BFS with its run and wait iterations those the solo counts imply
-    (the OOC session's queries' equal to the OOC session's), logical
-    counters equal to the sum of the 10 solo runs' and shared-stream ones
-    at most that sum, and, over the steps before the first query joins
-    (the OOC session's queries alone), every counter but the two network
-    ones equal to the OOC session's after as many steps (rtol 1e-5);
+  * runs a ``GraphServeSession`` of 8 slots over the first 6 sources (the
+    OOC session's queries, all admitted at once), workers in sequence:
+    every result bit-equal to its solo BFS with its run and wait
+    iterations those of the OOC session, logical counters equal to the
+    sum of the 6 solo runs' and shared-stream ones at most that sum, and
+    every counter but the two network ones equal to the OOC session's
+    after as many steps (rtol 1e-5);
   * runs ``multi_bfs`` of sources 0–7 for two iterations, sequential and
     then with ``parallel_workers``: bit-identical (levels as int32
     patterns, per-iteration returns, every counter, ``worker_totals``);
@@ -173,10 +173,38 @@ fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
     batches (counted where ``Exchange.post_mq`` files them), and peak
     device memory.
 
+Process mode (``proc_path``: DIST_OOC's W = 4 logical workers on 2 OS
+ranks sharing the card, two workers each, over TCP sockets on the loopback,
+spawned from this script; ``repro_torch.runtime.procworker.run_rank`` with
+the reference's run specs, ``block_csr``, ``verify_io``).  The parent
+writes the graph and its formats once as ``.npy`` files under
+``.smoke_tmp/`` (the mesh ranks map the same files); each rank maps them,
+opens the DIST phase's sharded store and loads the kernels the parent
+built.  It
+  * runs PageRank (5) and BFS failure-free, then BFS with
+    ``FaultPlan.kill(1, pe=2, phase="recv")``: rank 1 exits with
+    ``FAULT_EXIT``, rank 0 adopts workers 1 and 3, rolls the op back from
+    its per-op block-store checkpoints and replays it;
+  * requires every result (rank 0's of the recovery run) bit-identical to
+    the DIST_OOC phase's in-thread run: values as int32 patterns,
+    iterations, per-iteration returns, every counter, ``worker_totals``;
+    the recovery at least one, worker 1 on rank 0; the other exit codes 0;
+  * sets the DIST launch counts to 0 before each run in each rank and reads
+    them after: summed over the ranks, the combine, the fused decode, the
+    stencil and the add scan equal the in-thread run's (the max scan 0),
+    and the payload bytes the ranks' sockets carried plus the bytes passed
+    between two workers of one rank equal ``measured_net_bytes``;
+  * rank 0 replays the largest combine call of PageRank (add) and of BFS
+    (min), BFS's largest streamed item and largest wire gap stream
+    against their plain versions and times them, as on DIST_OOC;
+  * prints spawn and load seconds, per rank and run the wall seconds, peak
+    device memory, per-op checkpoint seconds and bytes, wire frames,
+    socket payload bytes, recovery seconds and launches.
+
 Mesh (``mesh_path``: the SHARD_MAP executor, ``Engine(..., mesh=...)``
 on 8 ``gloo`` ranks, one per partition, all on the one card, launched by
-``repro_torch.core.mesh.run_mesh``).  The parent writes the graph and its
-formats once as ``.npy`` files under ``.smoke_tmp/``; each rank maps them
+``repro_torch.core.mesh.run_mesh``).  Each rank maps the structures the
+process-mode phase wrote
 read-only and moves only its own partition's rows to the card, and loads
 the kernels the parent built.  It
   * runs (a) PageRank (5) under ``block_csr`` with the physical exchange
@@ -324,8 +352,9 @@ GLA_MODELS = {   # name -> (heads, Dk, Dv, include_current, bonus)
     "zamba2_1_2b_mamba2": (64, 64, 64, True, False),
 }
 PR_ITERS = 5
-SERVE_SOURCES = 10             # queries the DIST_OOC session submits
-OOC_SESSION_SOURCES = 8        # queries the OOC session submits
+SERVE_SOURCES = 8              # solo references (10 before PR 23)
+SESSION_SOURCES = 6            # queries each session submits (OOC 8 and
+                               # DIST_OOC 10 before PR 23)
 SERVE_Q = 8                    # concurrent query slots
 PPR_ITERS = 2
 
@@ -1298,6 +1327,9 @@ def main(argv=None) -> int:
         dist = run_dist_ooc(tmp, dg=dg, fm=fm, source=source, checks=checks,
                             drives=drives, local_results=local_results,
                             ooc_results=ooc.pop("results"))
+        proc = run_proc_path(tmp, dg=dg, fm=fm, store=dist["store"],
+                             source=source, scale=opts.scale,
+                             dist=dist)
         dist_serve = run_dist_serve(dist.pop("store"), dg=dg, fm=fm,
                                     serving=ooc["serving"])
         mesh = run_mesh_path(tmp, dg=dg, fm=fm, source=source,
@@ -1356,6 +1388,24 @@ def main(argv=None) -> int:
         f"chunk_decode DIST_OOC multi-query largest item ({drow['edges']} "
         "edges)", DECODE_SOURCE, TPU_STENCIL,
         sum(v["decode"] for v in dlaunch.values()), drow))
+    # process mode: the DIST_OOC kernels in each of the OS ranks, launches
+    # summed over the ranks of the failure-free runs, rank 0's replays
+    plaunch = proc["launches"]
+    for mode, run in (("add", "pagerank"), ("min", "bfs")):
+        table.append(kernel_row(
+            f"block_csr_combine[{mode}] DIST_OOC process mode "
+            f"({PROC_RANKS} ranks)", KERNEL_SOURCE, TPU_KERNEL,
+            plaunch[run]["combine"], proc["rows"]["combine", mode]))
+    for name, key, source_file, source_line in (
+            ("blocked_scan[add] DIST_OOC process-mode wire", "add",
+             VARINT_SOURCE, TPU_SCAN),
+            ("varint_stencil DIST_OOC process-mode wire", "stencil",
+             VARINT_SOURCE, TPU_STENCIL),
+            ("chunk_decode DIST_OOC process mode largest item", "decode",
+             DECODE_SOURCE, TPU_STENCIL)):
+        table.append(kernel_row(
+            name, source_file, source_line,
+            sum(v[key] for v in plaunch.values()), proc["rows"][key]))
     # the mesh: one solo combine launch per rank per ProcessEdges
     for mode in ("add", "min"):
         table.append(kernel_row(
@@ -1420,13 +1470,14 @@ def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
         if name == "fwd":
             largest = st["largest_chunk"]
 
-    # -- 6. every chunk decoded on the card == the host codec ---------------
-    for name, store in stores.items():
-        t0 = time.perf_counter()
-        checked, decode_launches = decode_check(store, dev)
-        emit(phase="decode_check", store=name, decodes_checked=checked,
-             fused_decode_launches=decode_launches,
-             seconds=time.perf_counter() - t0)
+    # -- 6. every chunk of the forward store decoded on the card == the host
+    # codec (the reversed store's too before PR 23; its chunks still decode
+    # on the card in OOC WCC, against LOCAL's labels) ------------------------
+    t0 = time.perf_counter()
+    checked, decode_launches = decode_check(stores["fwd"], dev)
+    emit(phase="decode_check", store="fwd", decodes_checked=checked,
+         fused_decode_launches=decode_launches,
+         seconds=time.perf_counter() - t0)
 
     # -- 7. the varint kernels against their plain versions ------------------
     kernel_rows = {}
@@ -1724,6 +1775,7 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
             parallel_workers=parallel), store=store)
 
     launches, combine_rows, decode_rows, largest_stream = {}, {}, {}, None
+    results = {}
     for name in DIST_ALGOS:
         eng = engine(False)
         if not eng.device_decode:
@@ -1794,6 +1846,8 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
                 or len(gaps["largest"][0]) > len(largest_stream[0])):
             largest_stream = gaps["largest"]
 
+        results[name] = dict(values=vals, stats=stats, totals=totals,
+                             cold_s=cold_s)
         # the cold run's per-worker host split (the smoke's time limit
         # leaves no warm run)
         times = [dict(t) for t in eng.worker_times]
@@ -1855,7 +1909,7 @@ def run_dist_ooc(tmp, *, dg, fm, source, checks, drives, local_results,
     return dict(launches=launches, combine_rows=combine_rows,
                 decode_rows=decode_rows,
                 wire_rows={"stencil": stencil_row, "add": add_row},
-                store=store)
+                store=store, results=results)
 
 
 def expected_waits(iters, slots):
@@ -1933,12 +1987,12 @@ def recorded_mq_posts():
     kinds = {"local_mq": "local", "wire_mq_panel": "panel",
              "wire_mq_legacy": "legacy"}
 
-    def recording(self, dst_worker, q, p, entry):
+    def recording(self, src_worker, dst_worker, q, p, entry):
         with lock:
             seen[kinds[entry[0]]] += 1
             if entry[0] == "wire_mq_legacy":
                 seen["legacy_items"] += len(entry[1])
-        return real(self, dst_worker, q, p, entry)
+        return real(self, src_worker, dst_worker, q, p, entry)
 
     exchange.Exchange._put_entry = recording
     try:
@@ -1950,11 +2004,12 @@ def recorded_mq_posts():
 def run_dist_serve(store, *, dg, fm, serving):
     """The DIST_OOC serving phase (9c) of :func:`main`, on the W = 4
     sharded store of :func:`run_dist_ooc` with fresh Q = 8 spills:
-    (a) a ``GraphServeSession`` of 8 slots over the 10 sources, workers in
-    sequence (:func:`check_session`, :func:`check_session_counters`, and
-    every counter but the network's equal to the OOC session's over the
-    steps before the first query joins); (b) ``multi_bfs`` of sources
-    0–7 for one iteration, sequential and then with ``parallel_workers``,
+    (a) a ``GraphServeSession`` of 8 slots over the OOC session's
+    ``SESSION_SOURCES`` sources, workers in sequence
+    (:func:`check_session`, :func:`check_session_counters`, and every
+    counter but the network's equal to the OOC session's over the steps
+    before the first query joins); (b) ``multi_bfs`` of sources 0–7 for
+    two iterations, sequential and then with ``parallel_workers``,
     bit-identical; (c) ``personalized_pagerank`` of sources 0–7 within
     1e-5 of LOCAL serving's, every counter but the network's within rtol
     1e-5 of LOCAL's.  Every run checks measured == model for disk and
@@ -2024,7 +2079,8 @@ def run_dist_serve(store, *, dg, fm, serving):
                              "default on the card")
     launches = {}
 
-    # -- (a) the session: 8 slots, 10 sources -----------------------------
+    # -- (a) the session: 8 slots, the OOC session's SESSION_SOURCES sources
+    sources = sources[:SESSION_SOURCES]
     sess = GraphServeSession(eng)
     for s in sources:
         sess.submit(s)
@@ -2066,10 +2122,10 @@ def run_dist_serve(store, *, dg, fm, serving):
     c = sess.counters
     check_io(c, "dist session")
     check_session_counters(c, sources, solo, "dist session")
-    # Until its first admission after the start, the session runs the same
-    # queries as the OOC session (the first OOC_SESSION_SOURCES = SERVE_Q
-    # sources, all admitted at once): their counters to that step agree
-    # but for the network's.
+    # Until its first admission after the start (none, with no more queries
+    # than slots), the session runs the same queries as the OOC session
+    # (the first SESSION_SOURCES sources, all admitted at once): their
+    # counters to that step agree but for the network's.
     first_join = min([r.wait_iters for r in results if r.wait_iters]
                      or [sess.steps])
     ooc_steps = serving["session_step_counters"]
@@ -2268,7 +2324,7 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 9c. OOC serving: a session of 8 slots takes the first 8 sources ---
+    # -- 9c. OOC serving: a session of 8 slots takes the first 6 sources ---
     shutil.rmtree(os.path.join(store.root, "vertex"))  # fresh Q = 8 spill
     eng = Engine(dg, fm, EngineConfig(executor="ooc",
                                       compute_backend="block_csr",
@@ -2298,7 +2354,7 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
                 raise AssertionError(f"serving {path}: {mk} {c[mk]} != {ak} "
                                      f"{c[ak]}")
 
-    session_sources = sources[:OOC_SESSION_SOURCES]
+    session_sources = sources[:SESSION_SOURCES]
     sess = GraphServeSession(eng)
     for s in session_sources:
         sess.submit(s)
@@ -2433,6 +2489,24 @@ def save_structures(root, dg, fm):
                 statics[kind][f.name] = v
     with open(os.path.join(root, "statics.json"), "w") as f:
         json.dump(statics, f)
+
+
+_STRUCTURES = {}
+
+
+def structures(tmp, dg, fm):
+    """(root, write seconds, bytes) of the graph's structures saved under
+    ``tmp`` (:func:`save_structures`), written on the first call only:
+    the process-mode ranks and the mesh ranks map the same files."""
+    if tmp not in _STRUCTURES:
+        root = os.path.join(tmp, "structures")
+        t0 = time.perf_counter()
+        save_structures(root, dg, fm)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for f in os.listdir(root))
+        _STRUCTURES[tmp] = (root, write_s, nbytes)
+    return _STRUCTURES[tmp]
 
 
 def load_structures(root):
@@ -2603,12 +2677,7 @@ def run_mesh_path(tmp, *, dg, fm, source, first, local_results):
     del local
     gc.collect()
     torch.cuda.empty_cache()
-    root = os.path.join(tmp, "mesh")
-    t0 = time.perf_counter()
-    save_structures(root, dg, fm)
-    write_s = time.perf_counter() - t0
-    nbytes = sum(os.path.getsize(os.path.join(root, f))
-                 for f in os.listdir(root))
+    root, write_s, nbytes = structures(tmp, dg, fm)
 
     # An all-active frontier sends every need list whole (the filter never
     # skips: a need list is no longer than its partition's messages), so
@@ -2750,6 +2819,271 @@ def run_mesh_path(tmp, *, dg, fm, source, first, local_results):
                   "min": totals["bfs"] + totals["bfs_dense"]},
         combine_rows={m: {k: replays[m][k] for k in ROW_KEYS}
                       for m in ("add", "min")})
+
+
+# ---------------------------------------------------------------------------
+# Process mode: DIST_OOC's logical workers on OS ranks, over sockets
+# ---------------------------------------------------------------------------
+
+PROC_RANKS = 2                 # OS ranks sharing the card, 2 workers each
+PROC_TIMEOUT_S = 900           # the ranks' deadline and the transport's I/O
+PROC_KILL = (1, 2, "recv")     # the recovery run: worker 1's rank dies at
+                               # ProcessEdges call 2, before its receive
+PROC_LAUNCH_KEYS = ("combine", "decode", "decode_items", "stencil", "add",
+                    "max", "gap_streams", "pinned_copies")
+
+
+def _proc_rank(root, jobs, rank):
+    """One OS rank of the proc_path phase: maps the graph's structures
+    from ``root`` (no rebuild), loads the kernels the parent built, then
+    runs each ``(spec, replays)`` of ``jobs`` in turn through the port's
+    worker body (``procworker.run_rank``) with the DIST launch counts set
+    to 0 just before and read just after.  Rank 0 replays the run's
+    largest combine call (``"combine"``), streamed item (``"decode"``) and
+    wire gap stream (``"wire"``) against their plain versions while the
+    other rank waits in the final barrier.  Each job leaves the rank's
+    ``result_r{rank}.npz`` and ``smoke_r{rank}.json`` (seconds, memory,
+    checkpoint cost, wire, recovery, launches, replays) in its result
+    directory.  The rank a fault plan kills exits with ``FAULT_EXIT``."""
+    entered = time.time()
+    import torch
+    from repro_torch.core import executor
+    from repro_torch.kernels import chunk_decode, csr_spmv, varint
+    from repro_torch.runtime import procworker
+    t0 = time.perf_counter()
+    dg, fm = load_structures(root)
+    device = jobs[0][0].get("device") or "cuda"
+    cuda = device != "cpu"
+    if cuda:
+        csr_spmv._library()        # built by the parent: loaded here
+        varint._library()
+        chunk_decode._library()
+    load_s = time.perf_counter() - t0
+    dev = torch.device(device)
+    if cuda:
+        torch.zeros(1, device=dev)     # the CUDA context, before the runs
+    ready = time.time()
+    for spec, replays in jobs:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        copies0 = reset_dist_counts()
+        t0 = time.perf_counter()
+        with recorded_combine(executor, largest=True) as big, \
+                recorded_decode(dev) as item, \
+                recorded_gap_streams() as gaps:
+            job = procworker.run_rank(spec, rank, dg.spec, dg, fm)
+        if cuda:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        ctx, eng = job["ctx"], job["engine"]
+        stats = dict(
+            rank=rank, entered=entered, ready=ready, load_s=load_s,
+            wall_s=wall_s,
+            peak=torch.cuda.max_memory_allocated() if cuda else 0,
+            launches=dist_counts(gaps, copies0), ckpt=dict(eng.proc_ckpt),
+            wire_frames=int(ctx.stats["wire_frames"].sum()),
+            socket_payload_bytes=int(ctx.stats["socket_payload_bytes"]),
+            rank_local_wire_bytes=int(ctx.stats["rank_local_wire_bytes"]),
+            recoveries=int(ctx.stats["recoveries"]),
+            recovery_s=ctx.recovery_s, assign=list(ctx.assign),
+            workers=ctx.my_workers(), replays={})
+        if rank == 0:
+            if "combine" in replays:
+                stats["replays"]["combine"] = check_kernel(
+                    csr_spmv, big["args"], big["kw"], "proc")
+                stats["replays"]["mode"] = big["kw"]["mode"]
+            if "decode" in replays:
+                stats["replays"]["decode"] = check_decode_item(
+                    item["host"], item["plan"], dev)
+            if "wire" in replays:
+                stencil_row, add_row, trip = check_wire_stream(
+                    *gaps["largest"], dev)
+                stats["replays"].update(stencil=stencil_row, add=add_row,
+                                        wire_trip=trip)
+        procworker.write_result(spec["result_dir"], rank, job["out"])
+        with open(os.path.join(spec["result_dir"],
+                               f"smoke_r{rank}.json"), "w") as f:
+            json.dump(stats, f)
+        del big, item, gaps, job, eng
+        ctx.finalize()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def run_proc_path(tmp, *, dg, fm, store, source, scale, dist):
+    """The proc_path phase (9e) of :func:`main`: process-mode DIST_OOC on
+    ``PROC_RANKS`` OS ranks sharing the card (:func:`_proc_rank`), the W =
+    4 logical workers of :func:`run_dist_ooc`'s sharded store two to a
+    rank, with the reference's run specs: PageRank (5) and BFS
+    failure-free, then BFS with worker 1's rank killed at ProcessEdges
+    call 2 (``PROC_KILL``).  Held against the in-thread DIST_OOC runs
+    ``dist``: values, iterations, per-iteration returns, every counter and
+    ``worker_totals`` bit for bit, launches summed over the ranks equal to
+    the thread runs', and the socket's payload bytes plus the bytes handed
+    between two workers of one rank equal to ``measured_net_bytes``.
+    Returns the launch counts and the kernel rows."""
+    import numpy as np
+    from repro_torch.runtime.faults import FAULT_EXIT, FaultPlan
+    from repro_torch.runtime.procworker import load_result
+    root, write_s, nbytes = structures(tmp, dg, fm)
+    spec = dg.spec
+    base = dict(
+        world=PROC_RANKS, num_workers=DIST_WORKERS,
+        graph=dict(scale=scale, edge_factor=16, seed=0, weighted=True),
+        spec=dict(num_partitions=spec.num_partitions,
+                  batch_size=spec.batch_size),
+        store_root=store.root, io_timeout=PROC_TIMEOUT_S,
+        stall_timeout=120.0,
+        engine=dict(compute_backend="block_csr", verify_io=True))
+    if DEVICE == "cpu":
+        base["device"] = "cpu"
+    pagerank = {"name": "pagerank", "args": {"num_iters": PR_ITERS}}
+    bfs = {"name": "bfs", "args": {"source": source}}
+    kill = FaultPlan([FaultPlan.kill(*PROC_KILL)]).to_json()
+    runs = (("pagerank", pagerank, None, ("combine",)),
+            ("bfs", bfs, None, ("combine", "decode", "wire")),
+            ("bfs_recovery", bfs, kill, ()))
+    jobs, dirs = [], {}
+    for name, algo, plan, replays in runs:
+        d = dirs[name] = os.path.join(tmp, "proc", name)
+        for sub in ("rdv", "out"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        jobs.append((dict(base, run_id=f"smoke-{name}",
+                          rendezvous=os.path.join(d, "rdv"),
+                          result_dir=os.path.join(d, "out"),
+                          algorithm=algo, fault_plan=plan), replays))
+
+    import multiprocessing
+    mp = multiprocessing.get_context("spawn")
+    procs = [mp.Process(target=_proc_rank, args=(root, jobs, r),
+                        name=f"proc-rank-{r}") for r in range(PROC_RANKS)]
+    t_spawn, t0 = time.time(), time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, PROC_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    job_s = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    want_codes = [FAULT_EXIT if r == PROC_KILL[0] % PROC_RANKS else 0
+                  for r in range(PROC_RANKS)]
+    if codes != want_codes:
+        raise AssertionError(f"proc_path: rank exit codes {codes}, expected "
+                             f"{want_codes}")
+
+    def stats_of(name, r):
+        with open(os.path.join(dirs[name], "out", f"smoke_r{r}.json")) as f:
+            return json.load(f)
+
+    first = [stats_of("pagerank", r) for r in range(PROC_RANKS)]
+    emit(phase="proc_setup", ranks=PROC_RANKS, workers=DIST_WORKERS,
+         exit_codes=codes,
+         structures_bytes=nbytes, structures_write_s=write_s, job_s=job_s,
+         spawn_s=[st["entered"] - t_spawn for st in first],
+         load_s=[st["load_s"] for st in first],
+         ready_s=[st["ready"] - t_spawn for st in first])
+
+    def check_result(name, res, ref, path):
+        stats = ref["stats"]
+        names = sorted(stats.counters)
+        totals = ref["totals"]
+        if not np.array_equal(res["values"].view(np.int32),
+                              ref["values"].view(np.int32)) \
+                or int(res["iterations"]) != stats.iterations \
+                or not np.array_equal(res["rets"], np.asarray(
+                    stats.per_iter_return, np.float64)) \
+                or [str(n) for n in res["counter_names"]] != names \
+                or not np.array_equal(res["counter_vals"], np.asarray(
+                    [stats.counters[k] for k in names], np.float64)):
+            raise AssertionError(f"{path}: values, iterations, returns or "
+                                 "counters differ from the in-thread run")
+        for key, field in (("wt_disk", "disk_bytes"),
+                           ("wt_net", "net_bytes"),
+                           ("wt_edges", "edges_touched")):
+            if not np.array_equal(res[key], [t[field] for t in totals]):
+                raise AssertionError(f"{path}: {key} differ from the "
+                                     "in-thread run's worker_totals")
+
+    launches, rows = {}, {}
+    for name, algo, plan, _ in runs:
+        ref = dist["results"][algo["name"]]
+        ranks = [r for r in range(PROC_RANKS)
+                 if plan is None or codes[r] == 0]
+        res = {r: load_result(os.path.join(dirs[name], "out"), r)
+               for r in ranks}
+        sts = {r: stats_of(name, r) for r in ranks}
+        for r in ranks:
+            check_result(name, res[r], ref, f"proc {name} rank {r}")
+        c = dict(zip([str(n) for n in res[0]["counter_names"]],
+                     res[0]["counter_vals"]))
+        summed = {k: sum(sts[r]["launches"][k] for r in ranks)
+                  for k in PROC_LAUNCH_KEYS}
+        if plan is None:
+            thread = dist["launches"][algo["name"]]
+            if any(summed[k] != thread[k] for k in PROC_LAUNCH_KEYS):
+                raise AssertionError(
+                    f"proc {name}: launches summed over the ranks {summed} "
+                    f"differ from the in-thread run's {thread}")
+            check_dist_counts(summed, f"proc {name}", algo["name"] == "bfs")
+            wire = sum(sts[r]["socket_payload_bytes"]
+                       + sts[r]["rank_local_wire_bytes"] for r in ranks)
+            if wire != c["measured_net_bytes"] or any(
+                    sts[r]["recoveries"] for r in ranks):
+                raise AssertionError(
+                    f"proc {name}: socket + rank-local wire bytes {wire} != "
+                    f"measured_net_bytes {c['measured_net_bytes']}, or a "
+                    "rank recovered")
+            launches[name] = summed
+        else:
+            st = sts[0]
+            if st["recoveries"] < 1 or st["assign"][PROC_KILL[0]] != 0 \
+                    or int(res[0]["epoch"]) < 1:
+                raise AssertionError(f"proc {name}: no recovery onto rank "
+                                     f"0 ({st['assign']}, "
+                                     f"{st['recoveries']})")
+        replays = sts[0]["replays"]
+        if "combine" in replays:
+            mode = "add" if algo["name"] == "pagerank" else "min"
+            if replays["mode"] != mode:
+                raise AssertionError(f"proc {name}: combine mode "
+                                     f"{replays['mode']}, expected {mode}")
+            rows["combine", mode] = replays["combine"]
+        for key in ("decode", "stencil", "add"):
+            if key in replays:
+                rows[key] = replays[key]
+        emit(phase="proc_path", run=name, ranks=PROC_RANKS,
+             workers_per_rank=[sts[r]["workers"] for r in ranks],
+             fault_plan=plan, iterations=int(res[0]["iterations"]),
+             wall_s=[sts[r]["wall_s"] for r in ranks],
+             in_thread_cold_s=ref["cold_s"],
+             peak_memory=[sts[r]["peak"] for r in ranks],
+             ckpt=[sts[r]["ckpt"] for r in ranks],
+             wire_frames=[sts[r]["wire_frames"] for r in ranks],
+             socket_payload_bytes=[sts[r]["socket_payload_bytes"]
+                                   for r in ranks],
+             rank_local_wire_bytes=[sts[r]["rank_local_wire_bytes"]
+                                    for r in ranks],
+             measured_net_bytes=c["measured_net_bytes"],
+             recoveries=[sts[r]["recoveries"] for r in ranks],
+             recovery_s=[sts[r]["recovery_s"] for r in ranks],
+             assign=sts[0]["assign"],
+             launches_per_rank=[{k: sts[r]["launches"][k]
+                                 for k in PROC_LAUNCH_KEYS} for r in ranks],
+             launches_in_thread=dist["launches"][algo["name"]],
+             wire_round_trip=replays.get("wire_trip"),
+             bit_identical_to_in_thread=True)
+    for name, _, _, _ in runs:
+        for w in range(DIST_WORKERS):
+            shutil.rmtree(os.path.join(store.shards[w].root,
+                                       f"ckpt-smoke-{name}"),
+                          ignore_errors=True)
+    return dict(launches=launches, rows=rows)
 
 
 def kept_pairs(sq, skv, causal, window):

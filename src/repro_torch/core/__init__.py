@@ -10,7 +10,8 @@ ranks, one per partition) and ``sparse_collectives`` its exchanges;
 ``executor`` composes them into the LOCAL, SHARD_MAP, OOC and DIST_OOC
 executors and ``multiquery`` into their Q-query panel twins; ``engine`` is
 the public signal/slot API on top, and ``serve`` the continuous-query
-session.
+session.  ``transport`` carries DIST_OOC's workers across OS processes
+(process mode, with ``repro_torch.runtime`` and ``repro_torch.ckpt``).
 """
 from repro_torch.core.partition import (  # noqa: F401
     TwoLevelSpec, DistGraph, make_spec, build_dist_graph,

@@ -34,7 +34,10 @@ memory-resident (host numpy) in both — control state, not bulk data.
   (``ChunkStore.build_sharded``), one contiguous block of destination
   partitions each, for the distributed out-of-core executor.
 
-The spill's recovery hooks come with the process-mode slice.
+The spill's recovery hooks (:meth:`VertexSpill.attach`,
+:meth:`VertexSpill.on_disk`) and :meth:`ShardedChunkStore.reopen_shard`
+serve process mode: a rank that adopts a dead rank's worker re-opens its
+shard and attaches its spill files in place (DESIGN.md §13).
 """
 from __future__ import annotations
 
@@ -953,6 +956,50 @@ class VertexSpill:
             "arrays": {name: str(mm.dtype)
                        for name, mm in self._mm.items()}})
 
+    def attach(self) -> None:
+        """Re-open existing spill files in place — the recovery path.
+
+        An adopting rank memmaps a dead worker's on-disk arrays exactly
+        as the dead process last wrote them (mode ``r+``: writable, but
+        nothing is written or zeroed here), with names and dtypes from the
+        ``arrays`` record :meth:`load` left in ``spill_meta.json``.
+        Unmeasured, like :meth:`load`: adoption moves ownership, it is not
+        modeled data-plane I/O (DESIGN.md §13)."""
+        with open(self._meta_path) as f:
+            meta = json.load(f)
+        arrays = meta.get("arrays")
+        if not arrays:
+            raise ChunkStoreError(
+                f"vertex spill at {self.root} records no arrays to attach "
+                f"(it was never load()ed)")
+        mm, cm = {}, {}
+        for name, dt in arrays.items():
+            path = self._path(name)
+            if not os.path.exists(path):
+                raise ChunkStoreError(
+                    f"vertex spill at {self.root}: recorded array "
+                    f"{name!r} has no file {path}")
+            mm[name] = np.memmap(path, dtype=np.dtype(dt), mode="r+",
+                                 shape=(self.p_cnt, self.v_pad))
+            cpath = self._crc_path(name)
+            if not os.path.exists(cpath):
+                raise ChunkStoreError(
+                    f"vertex spill at {self.root}: recorded array "
+                    f"{name!r} has no crc sidecar {cpath}")
+            cm[name] = np.memmap(cpath, dtype=np.uint32, mode="r+",
+                                 shape=(self.p_cnt, self.b_cnt))
+        self._mm = mm
+        self._crc = cm
+
+    def on_disk(self) -> bool:
+        """True when an earlier incarnation ``load()``ed arrays under this
+        root (the whole-job resume probe: is there anything to attach?)."""
+        if not os.path.exists(self._meta_path):
+            return False
+        with open(self._meta_path) as f:
+            meta = json.load(f)
+        return bool(meta.get("arrays"))
+
     def names(self) -> list[str]:
         return list(self._mm)
 
@@ -1074,10 +1121,16 @@ class VertexSpill:
 
     # -- offline scrub -------------------------------------------------------
     def verify(self) -> list[str]:
-        """Check every batch of every loaded array, and every bitmap file,
-        against its CRC sidecar.  Returns damage descriptions naming file,
-        array and batch."""
+        """Check every batch of every array (attaching the files a spill
+        opened fresh finds on disk), and every bitmap file, against its CRC
+        sidecar (the fsck primitive).  Returns damage descriptions naming
+        file, array and batch."""
         damage = []
+        if not self._mm and self.on_disk():
+            try:
+                self.attach()
+            except ChunkStoreError as exc:
+                return [str(exc)]
         for name in self._mm:
             try:
                 self._crc_verify(name, self._all_runs())

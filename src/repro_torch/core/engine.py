@@ -33,7 +33,13 @@ executors of :mod:`repro_torch.core.executor` realize them:
     its own vertex spill, exchanging need-list-filtered message batches
     over a measured wire (:mod:`repro_torch.core.exchange`); network bytes
     are audited against the model too.  ``parallel_workers`` runs the
-    workers on thread pools with bit-identical results.
+    workers on thread pools with bit-identical results.  With
+    ``proc_ctx`` (a :class:`~repro_torch.core.transport.ProcContext`,
+    DESIGN.md §13) the engine is one rank of a multi-process run: it runs
+    the logical workers its rank owns, batches for other ranks cross TCP
+    sockets, and every op is a recoverable one (per-op checkpoint,
+    rollback and replay when a rank dies, a durable run log for whole-job
+    restart).
 
 ``process_edges_multi`` / ``process_vertices_multi`` serve
 ``EngineConfig.num_queries`` concurrent queries through one selective pass
@@ -90,12 +96,11 @@ from repro_torch.core.partition import DistGraph
 from repro_torch.core.phases import (
     batch_touched, bitmap_model_bytes, reduce_worker_counters,
 )
-from repro_torch.utils import resolve_device, token_ctx
+from repro_torch.utils import (
+    pack_bools, resolve_device, token_ctx, unpack_bools,
+)
 
 State = Dict[str, torch.Tensor]      # name -> [P, V] stacked vertex arrays
-
-# The slice of the port that brings what this one does not run.
-SLICE_PROCESS = "slice 6 (process mode)"
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +347,11 @@ class Engine:
                  *, device=None):
         if config.executor not in ("auto", "ooc", "dist_ooc"):
             raise ValueError(f"unknown executor: {config.executor!r}")
-        if proc_ctx is not None:
-            raise NotImplementedError(
-                f"process-mode dist_ooc comes with {SLICE_PROCESS}")
+        if proc_ctx is not None and config.executor != "dist_ooc":
+            raise ValueError(
+                "proc_ctx (multi-process transport, DESIGN.md §13) applies "
+                f"only to executor='dist_ooc', got {config.executor!r}")
+        self.proc_ctx = proc_ctx
         if config.num_queries < 1:
             raise ValueError(
                 f"num_queries must be >= 1, got {config.num_queries}")
@@ -496,6 +503,7 @@ class Engine:
         for s in store.shards:
             self.check_store_spec(s.manifest, s.root, fmts)
         self.counter_keys = COUNTER_KEYS + MEASURED_KEYS + DIST_MEASURED_KEYS
+        self.store = store
         self.worker_parts = [tuple(s.partitions) for s in store.shards]
         self.worker_of = store.worker_of
         self.dist_sources = [DiskChunkSource(s, self._host_graph, fmts)
@@ -505,6 +513,30 @@ class Engine:
             spec.batch_size, spec.v_max, num_queries=config.num_queries)
             for s, parts in zip(store.shards, self.worker_parts)]
         self.reset_worker_totals()
+        ctx = self.proc_ctx
+        if ctx is not None:
+            # Process mode: this engine runs only the logical workers ctx
+            # assigns to this rank, the transport carries the other ranks'
+            # batches, and ctx.recoverable() wraps every op with a per-op
+            # block-store checkpoint, so a peer's crash rolls the op back
+            # bit for bit (DESIGN.md §13).
+            if ctx.num_workers != config.num_workers:
+                raise ValueError(
+                    f"proc_ctx has num_workers={ctx.num_workers} but "
+                    f"EngineConfig.num_workers={config.num_workers}")
+            if config.num_queries != 1:
+                raise ValueError(
+                    "process-mode dist_ooc supports num_queries=1 only "
+                    "(the recovery checkpoint covers the single-query "
+                    "spill layout)")
+            self._ckpt_stores = {}
+            self._proc_wt_snap = None
+            # per-op checkpoint cost on this rank (save_s, bytes and blocks
+            # written, blocks reused) and the restores' seconds
+            self.proc_ckpt = dict.fromkeys(
+                ("saves", "save_s", "bytes_written", "blocks_written",
+                 "blocks_reused", "restores", "restore_s"), 0)
+            ctx.register_engine(self)
         # Long-lived pools (parallel_workers): one thread per worker for
         # the phase barriers, and two per worker for the pipelines (one
         # prefetcher + one decode-ahead each); idle threads exit when the
@@ -597,22 +629,190 @@ class Engine:
         arrs = {k: _np(v) for k, v in state.items()}
         valid = _np(self._host_graph.vertex_valid)
         if self._dist_ooc:
-            for spill, parts in zip(self.spills, self.worker_parts):
+            # process mode: only this rank's workers' spills (the others
+            # live on their owners' disks)
+            for w in self._local_workers():
+                parts = self.worker_parts[w]
                 lo, hi = parts[0], parts[-1] + 1
-                spill.load({k: v[lo:hi] for k, v in arrs.items()})
-                spill.write_bitmap(valid[lo:hi])
-                spill.reset_io_counters()
+                self.spills[w].load({k: v[lo:hi] for k, v in arrs.items()})
+                self.spills[w].write_bitmap(valid[lo:hi])
+                self.spills[w].reset_io_counters()
             return
         self.spill.load(arrs)
         self.spill.write_bitmap(valid)
         self.spill.reset_io_counters()
 
+    def _local_workers(self) -> list:
+        """The logical workers this engine runs: all of them, or in
+        process mode those its rank owns now."""
+        if self.proc_ctx is not None:
+            return self.proc_ctx.my_workers()
+        return list(range(self.config.num_workers))
+
     def _dist_state_views(self) -> State:
         """Lazy [P, V] state over the per-worker spills (contiguous
         partition blocks, in order): the per-key concatenation waits for a
         caller that reads it, so intermediate iterations, which only pass
-        the state back by identity, never materialize it."""
-        return _BlockState([sp.state_views() for sp in self.spills])
+        the state back by identity, never materialize it.
+
+        Process mode returns a padded dict instead: only this rank's
+        workers' rows are filled, the rest are zeros that no one reads
+        (drivers pass the state back by identity, and the final values are
+        assembled from each partition's owner)."""
+        if self.proc_ctx is None:
+            return _BlockState([sp.state_views() for sp in self.spills])
+        spec = self._host_graph.spec
+        mine = self.proc_ctx.my_workers()
+        out: dict = {}
+        for name, arr0 in self.spills[mine[0]].state_views().items():
+            out[name] = np.zeros((spec.num_partitions, spec.v_max),
+                                 arr0.dtype)
+        for w in mine:
+            parts = self.worker_parts[w]
+            lo, hi = parts[0], parts[-1] + 1
+            for name, arr in self.spills[w].state_views().items():
+                out[name][lo:hi] = arr
+        return out
+
+    # -- process-mode recovery hooks (DESIGN.md §13) -------------------------
+    def _proc_ckpt_store(self, w: int):
+        """Worker ``w``'s block store under its shard root (shared disk),
+        so an adopting rank reads the checkpoints the dead rank wrote;
+        keyed by the run id, so runs over one store never mix manifests."""
+        store = self._ckpt_stores.get(w)
+        if store is None:
+            from repro_torch.ckpt.blockstore import BlockStore
+            root = os.path.join(self.store.shards[w].root,
+                                f"ckpt-{self.proc_ctx.run_id}")
+            store = self._ckpt_stores[w] = BlockStore(root, keep=2)
+        return store
+
+    def _proc_ckpt_save(self, op: int) -> None:
+        """Checkpoint this rank's spills at the start of op ``op`` (called
+        by ``ProcContext.recoverable`` before the ready barrier, so every
+        injected kill point, all after it, leaves ckpt(op) on shared disk
+        for the adopter).  Content-addressed blocks make unchanged arrays
+        free (paper §3.2).  Also snapshots ``worker_totals``: a failed
+        attempt's partial accumulation must not leak into the replay."""
+        t0 = time.perf_counter()
+        self._proc_wt_snap = [dict(d) for d in self.worker_totals]
+        for w in self.proc_ctx.my_workers():
+            spill = self.spills[w]
+            tree = {"s:" + name: np.array(arr)
+                    for name, arr in spill.state_views().items()}
+            bm = spill.read_bitmap(measured=False)
+            if bm is not None:
+                tree["active"] = bm
+            got = self._proc_ckpt_store(w).save(tree, step=op)
+            for k in ("bytes_written", "blocks_written", "blocks_reused"):
+                self.proc_ckpt[k] += got[k]
+        self.proc_ckpt["saves"] += 1
+        self.proc_ckpt["save_s"] += time.perf_counter() - t0
+
+    def _proc_restore_spill(self, w: int, step: int) -> None:
+        """Load worker ``w``'s spill (arrays and active bitmap) from its
+        checkpoint ``step``, unmeasured."""
+        t0 = time.perf_counter()
+        spill = self.spills[w]
+        tree = self._proc_ckpt_store(w).restore(step)
+        spill.load({k[len("s:"):]: v for k, v in tree.items()
+                    if k.startswith("s:")})
+        if "active" in tree:
+            spill.write_bitmap(tree["active"].astype(bool), measured=False)
+        else:
+            bits = os.path.join(spill.root, "active.bits")
+            if os.path.exists(bits):
+                os.remove(bits)
+        self.proc_ckpt["restores"] += 1
+        self.proc_ckpt["restore_s"] += time.perf_counter() - t0
+
+    def _proc_rollback(self, op: int) -> None:
+        """Restore every owned spill (and ``worker_totals``) to the pre-op
+        checkpoint, so the op replays bit for bit on the re-planned
+        ownership; unmeasured, so the replay issues exactly the measured
+        I/O a failure-free run does.
+
+        The aborted op's device work is drained first: its prefetchers and
+        combines have joined by the time a collective raises, but copies
+        and kernels may still be queued on the card's streams, and none of
+        them may land after the restore."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self._proc_wt_snap is not None:
+            self.worker_totals = [dict(d) for d in self._proc_wt_snap]
+        for w in self.proc_ctx.my_workers():
+            if op in self._proc_ckpt_store(w).steps():
+                self._proc_restore_spill(w, op)
+            else:
+                # an adopted worker whose owner died before saving ckpt(op)
+                # (no injected kill point can) keeps its files as left
+                self.spills[w].attach()
+
+    def _proc_resume_restore(self, resume_op: int) -> None:
+        """Whole-job resume: put this rank's spills in the exact
+        post-``resume_op`` state (``ProcContext.prepare_resume`` calls it
+        before any op replays).
+
+        Per worker, in order of preference: the checkpoint of op
+        ``resume_op + 1`` (its pre-op content is the post-``resume_op``
+        state; the files may hold that op's partial writes); the latest
+        checkpoint of any other uncommitted op; else the spill files as
+        the crashed incarnation last committed them.  A committed op's
+        checkpoint is never restored: it would roll that op back.  A spill
+        never loaded (a crash before the first op) has nothing to
+        restore."""
+        for w in self.proc_ctx.my_workers():
+            spill = self.spills[w]
+            steps = self._proc_ckpt_store(w).steps()
+            target = None
+            if resume_op + 1 in steps:
+                target = resume_op + 1
+            elif steps and max(steps) > resume_op:
+                target = max(steps)
+            if target is not None:
+                self._proc_restore_spill(w, target)
+            elif spill.on_disk():
+                spill.attach()
+            else:
+                continue
+            spill.reset_io_counters()
+
+    def _proc_adopt_workers(self, adopted, in_op: bool) -> None:
+        """Take over the listed workers after recovery re-planned them onto
+        this rank: re-open their chunk shards (immutable files, fresh
+        manifest validation) and rebuild their disk sources.  The engine
+        whose op is being recovered restores the spill in the
+        :meth:`_proc_rollback` that follows; any other registered engine
+        (WCC runs two over one context) attaches the dead rank's spill
+        files, consistent as of its last committed op."""
+        for w in adopted:
+            self.store.reopen_shard(w)
+            self.dist_sources[w] = DiskChunkSource(
+                self.store.shards[w], self._host_graph, self.fmts)
+            if not in_op:
+                self.spills[w].attach()
+
+    def _proc_committed(self, rec: dict):
+        """Whole-job resume: an op already committed by the crashed
+        incarnation, rebuilt from its run-log record without running it
+        (the spills were restored to the resume point, so the state views
+        are exact; ``_sync_ooc_state`` must not run, it would overwrite
+        them with the driver's initial arrays).  Returns (state, total,
+        counters)."""
+        self.worker_totals = [dict(d) for d in rec["wt"]]
+        new_state = self._dist_state_views()
+        self._ooc_last_state = new_state
+        counters = {k: float(v) for k, v in rec["counters"].items()}
+        return new_state, float(rec["total"]), counters
+
+    def _proc_fast_forward_pe(self, rec: dict):
+        """:meth:`_proc_committed` for a ProcessEdges record, whose
+        post-op frontier it unpacks."""
+        new_state, total, counters = self._proc_committed(rec)
+        spec = self._host_graph.spec
+        new_active = unpack_bools(rec["post_active"],
+                                  (spec.num_partitions, spec.v_max))
+        return new_state, new_active, total, counters
 
     def _sync_mq_state(self, state: State) -> None:
         """Multi-query twin of :meth:`_sync_ooc_state`: make the spill(s)
@@ -805,20 +1005,39 @@ class Engine:
 
     def _dist_process_vertices(self, state, work_fn, active):
         """ProcessVertices with each worker serving only its own spill
-        (:meth:`_dist_pv`)."""
+        (:meth:`_dist_pv`); in process mode one recoverable op over this
+        rank's workers."""
+        ctx = self.proc_ctx
+        if ctx is not None:
+            rec = ctx.resume_take("pv")
+            if rec is not None:
+                return self._proc_committed(rec)
         self._sync_ooc_state(state)
         vertex_valid = _np(self._host_graph.vertex_valid)
         amask = (vertex_valid if active is None
                  else _np(active).astype(bool) & vertex_valid)
-        counters, total = self._dist_pv(
-            lambda w, lo, hi, cw: self._spill_process_vertices(
+
+        def body(w, lo, hi, cw):
+            return self._spill_process_vertices(
                 self.spills[w], amask[lo:hi], self.global_id[lo:hi],
-                work_fn, cw))
+                work_fn, cw)
+
+        if ctx is None:
+            counters, total = self._dist_pv(body)
+        else:
+            def record(out):
+                return {"kind": "pv", "total": float(out[1]),
+                        "counters": {k: float(v)
+                                     for k, v in out[0].items()},
+                        "wt": [dict(d) for d in self.worker_totals]}
+
+            counters, total = ctx.recoverable(
+                self, lambda: self._dist_pv(body, ctx), record=record)
         new_state = self._dist_state_views()
         self._ooc_last_state = new_state
         return new_state, total, counters
 
-    def _dist_pv(self, body):
+    def _dist_pv(self, body, ctx=None):
         """The DIST_OOC ProcessVertices loop: ``body(w, lo, hi, cw)`` serves
         worker w's spill (partitions ``lo:hi``) under the compute token,
         accumulating into the worker's private counter dict ``cw``, and
@@ -826,7 +1045,10 @@ class Engine:
         measured bytes written).  The workers run on the ProcessEdges
         phase pool when ``parallel_workers`` is on; their dicts and totals
         reduce in worker order after the join (parallel == sequential, bit
-        for bit).  Returns (the audited counters, the totals' sum)."""
+        for bit).  With ``ctx`` (process mode) only this rank's workers
+        run, and every worker's results are gathered from its owner before
+        the same reduction.  Returns (the audited counters, the totals'
+        sum)."""
         token = threading.Lock() if self.config.parallel_workers else None
         tok = token_ctx(token)
 
@@ -842,10 +1064,18 @@ class Engine:
             self.worker_totals[w]["disk_bytes"] += dr + dw
             return cw, t, time.perf_counter() - t0
 
+        workers = self._local_workers()
         out = _executor.run_worker_pool(
-            [functools.partial(pv_task, w)
-             for w in range(self.config.num_workers)],
+            [functools.partial(pv_task, w) for w in workers],
             self.config.parallel_workers, pool=self.worker_pool)
+        if ctx is not None:
+            rows = ctx.gather_by_worker(
+                {w: o + (dict(self.worker_totals[w]),)
+                 for w, o in zip(workers, out)})
+            out = []
+            for w, (cw, t, dt, wt) in enumerate(rows):
+                self.worker_totals[w] = dict(wt)
+                out.append((cw, t, dt))
         counters = reduce_worker_counters(
             {k: 0.0 for k in self.counter_keys}, [cw for cw, _, _ in out])
         total = 0.0
@@ -939,8 +1169,33 @@ class Engine:
                       mode_meta)
             if cache_key is not None:
                 self._pe_cache[cache_key] = fn
-        self._sync_ooc_state(state)
-        new_state, new_active, total, counters = fn(active)
+        ctx = self.proc_ctx
+        if ctx is None:
+            self._sync_ooc_state(state)
+            new_state, new_active, total, counters = fn(active)
+        else:
+            # one ProcessEdges call = one fault-plan index = one
+            # recoverable op (checkpoint, run, commit or roll back)
+            ctx.pe_seq += 1
+            if ctx.injector is not None:
+                ctx.injector.plan.validate_for_monoid(monoid.name)
+            rec = ctx.resume_take("pe")
+            if rec is not None:
+                return self._proc_fast_forward_pe(rec)
+            self._sync_ooc_state(state)
+
+            def record(out):
+                # the commit gathers left the full [W] worker_totals and
+                # new_active on every rank: one rank's record rebuilds
+                # the op
+                return {"kind": "pe", "total": float(out[2]),
+                        "counters": {k: float(v)
+                                     for k, v in out[3].items()},
+                        "wt": [dict(d) for d in self.worker_totals],
+                        "post_active": pack_bools(out[1])}
+
+            new_state, new_active, total, counters = ctx.recoverable(
+                self, lambda: fn(active), record=record)
         self._check_measured(counters)
         self._ooc_last_state = new_state
         return new_state, new_active, total, counters

@@ -386,8 +386,12 @@ class Exchange:
         # hand-offs, every off-diagonal entry a serialized wire batch
         self.posted = np.zeros((num_workers, num_workers), np.int64)
 
-    def _put_entry(self, dst_worker: int, q: int, p: int,
+    def _put_entry(self, src_worker: int, dst_worker: int, q: int, p: int,
                    entry: tuple) -> None:
+        """File one posted entry in (dst_worker, q)'s inbox.  The process
+        transport (:class:`repro_torch.core.transport.ProcExchange`)
+        overrides it to frame entries for another rank onto a socket;
+        ``src_worker`` keys its sender ledger."""
         with self._lock:
             self._inbox[dst_worker].setdefault(q, []).append((p, entry))
 
@@ -399,7 +403,8 @@ class Exchange:
         if src_worker == dst_worker:
             with self._lock:
                 self.posted[src_worker, dst_worker] += 1
-            self._put_entry(dst_worker, q, p, ("local", mask, values))
+            self._put_entry(src_worker, dst_worker, q, p,
+                            ("local", mask, values))
             return
         if count is None:
             count = int(mask.sum())
@@ -410,7 +415,8 @@ class Exchange:
             self.bytes_by_sender[src_worker] += len(payload)
             self._tally(fmt)
             self.posted[src_worker, dst_worker] += 1
-        self._put_entry(dst_worker, q, p, ("wire", fmt, count, payload))
+        self._put_entry(src_worker, dst_worker, q, p,
+                        ("wire", fmt, count, payload))
 
     def _tally(self, fmt: int) -> None:
         """Count one serialized solo-format batch (caller holds the lock)."""
@@ -438,7 +444,8 @@ class Exchange:
         if src_worker == dst_worker:
             with self._lock:
                 self.posted[src_worker, dst_worker] += 1
-            self._put_entry(dst_worker, q, p, ("local_mq", masks, values))
+            self._put_entry(src_worker, dst_worker, q, p,
+                            ("local_mq", masks, values))
             return
         items = []
         legacy_sum = 0
@@ -458,7 +465,7 @@ class Exchange:
                     self.bytes_by_sender[src_worker] += len(payload)
                     self.mq_batches += 1
                     self.posted[src_worker, dst_worker] += 1
-                self._put_entry(dst_worker, q, p, (
+                self._put_entry(src_worker, dst_worker, q, p, (
                     "wire_mq_panel", cols, int(union.sum()), payload))
                 return
         with self._lock:
@@ -467,7 +474,8 @@ class Exchange:
             for _, fmt, _, _ in items:
                 self._tally(fmt)
             self.posted[src_worker, dst_worker] += 1
-        self._put_entry(dst_worker, q, p, ("wire_mq_legacy", items))
+        self._put_entry(src_worker, dst_worker, q, p,
+                        ("wire_mq_legacy", items))
 
     def take_dest_mq(self, dst_worker: int, q: int, p_cnt: int,
                      num_queries: int, device=None

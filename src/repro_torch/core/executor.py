@@ -1029,7 +1029,15 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
     accumulates in worker-private state (its edges-touched tensor
     included) and is reduced in worker order after the join
     (``phases.reduce_worker_counters``), so parallel runs are
-    bit-identical to sequential ones."""
+    bit-identical to sequential ones.
+
+    In process mode (``engine.proc_ctx``, DESIGN.md §13) this rank runs
+    only the logical workers its :class:`~repro_torch.core.transport.
+    ProcContext` assigns it: batches for another rank's workers travel
+    the socket mesh through a
+    :class:`~repro_torch.core.transport.ProcExchange`, and the phase
+    barriers become allgathers keyed by logical worker, reduced in worker
+    order — so process mode is bit-identical to thread mode."""
     cfg = engine.config
     g = engine._host_graph
     spec = g.spec
@@ -1058,17 +1066,57 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
     parallel = cfg.parallel_workers
     wire_device = dev if engine.device_decode else None
     cross = worker_of[np.newaxis, :] != worker_of[:, np.newaxis]
+    ctx = engine.proc_ctx
+    if ctx is not None:
+        from repro_torch.core import transport as transport_mod
+        merge_op = {"min": np.minimum, "max": np.maximum,
+                    "add": np.add}[monoid.name]
+
+    def _gather_by_worker(payload_mine, extra):
+        """Allgather ``({worker: value}, extra)`` over the ranks; returns
+        (the [W] values in worker order, the extras in rank order).  A
+        worker no live rank reported is its owner's death: an owner that
+        died before the collective began leaves a silent empty slot."""
+        by_w, extras = {}, []
+        for got in ctx.allgather((payload_mine, extra)):
+            if got is None:
+                continue
+            mine_r, extra_r = got
+            for w, o in mine_r.items():
+                if w in by_w:
+                    raise transport_mod.TransportError(
+                        f"logical worker {w} reported by two ranks")
+                by_w[w] = o
+            extras.append(extra_r)
+        missing = [w for w in range(n_workers) if w not in by_w]
+        if missing:
+            with ctx.mesh.cv:
+                dead = ({ctx.assign[w] for w in missing}
+                        & set(ctx.mesh.dead))
+            if dead:
+                raise transport_mod.WorkerDied(dead)
+            raise transport_mod.TransportError(
+                f"no live rank reported workers {missing}")
+        return [by_w[w] for w in range(n_workers)], extras
 
     def step(active):
         counters = {k: 0.0 for k in engine.counter_keys}
+        inj = ctx.injector if ctx is not None else None
+        if inj is not None:
+            inj.maybe_kill(ctx, "start")
+        local_workers = (ctx.my_workers() if ctx is not None
+                         else list(range(n_workers)))
         amask = (vertex_valid if active is None
                  else _np(active).astype(bool) & vertex_valid)
-        arrays_bytes = spills[0].arrays_bytes()
+        arrays_bytes = spills[local_workers[0]].arrays_bytes()
         spill_io0 = [(sp.bytes_read, sp.bytes_written) for sp in spills]
         store_io0 = [(src.store.chunks_read, src.store.bytes_read)
                      for src in sources]
-        ex = exchange_mod.Exchange(n_workers, v_max,
-                                   compression=cfg.compression)
+        ex = (transport_mod.ProcExchange(n_workers, v_max, cfg.compression,
+                                         ctx, merge_op)
+              if ctx is not None else
+              exchange_mod.Exchange(n_workers, v_max,
+                                    compression=cfg.compression))
         # The shared compute token (utils.token_ctx): the host bursts of
         # the W pipelines take turns; queue hand-offs and blocking waits
         # happen outside it.
@@ -1118,14 +1166,24 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
                     time.perf_counter() - t0, post_s)
 
         send_out = run_worker_pool(
-            [functools.partial(send_task, w) for w in range(n_workers)],
+            [functools.partial(send_task, w) for w in local_workers],
             parallel, pool=engine.worker_pool)
+        if ctx is not None:
+            # Send barrier: every rank contributes its workers' routing
+            # columns and its exchange's counters.  TCP is FIFO per link,
+            # so a sender's data frames precede its contribution: once the
+            # gather completes, every expected frame has arrived, was
+            # dropped (the ledger resends it below) or is held (deferred).
+            send_rows, ex_snaps = _gather_by_worker(
+                dict(zip(local_workers, send_out)), ex.counter_snapshot())
+        else:
+            send_rows = send_out
         counts = np.zeros((p_cnt, p_cnt), np.float64)       # [q, p] routing
         gapb = np.zeros((p_cnt, p_cnt), np.float64)
         unib = np.zeros((p_cnt, p_cnt), bool)
         gen_batches_total = 0.0
         for w, (counts_w, gapb_w, unib_w, gen_b_sum, dt, post_s) in \
-                enumerate(send_out):
+                enumerate(send_rows):
             lo, hi = worker_parts[w][0], worker_parts[w][-1] + 1
             counts[:, lo:hi] = counts_w
             gapb[:, lo:hi] = gapb_w
@@ -1148,11 +1206,27 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
             uniform=unib if cfg.compression else None, xp=np)
         counters["net_bytes"] = float(net)
         counters["net_bytes_raw"] = float(net_raw)
-        counters["measured_net_bytes"] = ex.bytes_sent
-        counters["net_pair_batches"] = float(ex.pair_batches)
-        counters["net_slab_batches"] = float(ex.slab_batches)
-        counters["net_vpair_batches"] = float(ex.vpair_batches)
-        counters["net_uval_batches"] = float(ex.uval_batches)
+        snaps = ex_snaps if ctx is not None else [ex.counter_snapshot()]
+        # Wire counters are global: the ranks' integer tallies summed in
+        # rank order (exact, so process mode equals thread mode's one sum)
+        for ck, nk in (("bytes_sent", "measured_net_bytes"),
+                       ("pair_batches", "net_pair_batches"),
+                       ("slab_batches", "net_slab_batches"),
+                       ("vpair_batches", "net_vpair_batches"),
+                       ("uval_batches", "net_uval_batches")):
+            counters[nk] = float(sum(sn[ck] for sn in snaps))
+        if ctx is not None:
+            posted_total = np.zeros((n_workers, n_workers), np.int64)
+            for sn in ex_snaps:
+                posted_total += np.asarray(sn["posted"], np.int64)
+            # Receive barrier: every frame for this rank's workers has
+            # arrived, been redelivered from its sender's ledger (a drop)
+            # or been acknowledged as held (a delay, merged next op).  The
+            # receive pipelines below start only after it, so no
+            # DecodeAhead drains an inbox this op's frames still fill.
+            if inj is not None:
+                inj.maybe_kill(ctx, "recv")
+            ctx.resolve_arrivals(posted_total)
 
         # Phases 3 + 4 + apply per worker, against its own shard.  The
         # send pool has joined, so every batch is posted before a receive
@@ -1253,8 +1327,29 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
                     time.perf_counter() - t0, wall)
 
         recv_out = run_worker_pool(
-            [functools.partial(recv_task, w) for w in range(n_workers)],
+            [functools.partial(recv_task, w) for w in local_workers],
             parallel, pool=engine.worker_pool)
+        pending = 0
+        if ctx is not None:
+            if inj is not None:
+                inj.maybe_kill(ctx, "apply")
+            # Final collective: per-worker results, new-active rows and the
+            # authoritative worker_totals, by logical worker; each rank's
+            # deferred count rides along, so a round with held (delayed)
+            # frames cannot read as converged.
+            mine = {w: out + (new_active[worker_parts[w][0]:
+                                         worker_parts[w][-1] + 1].copy(),
+                              dict(engine.worker_totals[w]))
+                    for w, out in zip(local_workers, recv_out)}
+            recv_rows, deferred = _gather_by_worker(
+                mine, ctx.pending_deferred())
+            recv_out = []
+            for w, row in enumerate(recv_rows):
+                lo, hi = worker_parts[w][0], worker_parts[w][-1] + 1
+                new_active[lo:hi] = np.asarray(row[5], bool)
+                engine.worker_totals[w] = dict(row[6])
+                recv_out.append(row[:5])
+            pending = int(sum(int(d) for d in deferred))
         # Deterministic reduction: every float above accumulated in
         # worker-private state; summing in worker order after the join
         # makes parallel runs bit-identical to sequential ones.
@@ -1267,6 +1362,10 @@ def make_dist_ooc_pe(engine, signal_fn, slot_fn, monoid, apply_fn, backend,
             engine.worker_times[w]["recv_s"] += dt
             for k, v in wall.items():
                 engine.worker_times[w][k] += v
+        # Held (delayed) frames apply next op through the slot monoid; the
+        # promise keeps fixpoint drivers (they stop on total == 0) going
+        # until the deferred contributions land.
+        total += float(pending)
 
         # Modeled vertex I/O: the formulas of the other executors (the
         # per-worker bitmaps sum to the full [P, V] bitmap's bytes).

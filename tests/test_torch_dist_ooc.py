@@ -358,18 +358,35 @@ def test_build_sharded_needs_a_divisor(problem, tmp_path):
 
 
 def test_later_slices_raise_on_dist(problem, tmp_path):
-    """Process mode still raises; the multi-query half of DIST_OOC runs:
-    a Q = 2 engine builds on a fresh sharded store, and a one-query
-    ``multi_bfs`` equals the solo BFS."""
+    """Process mode takes only what the reference takes; the multi-query
+    half of DIST_OOC runs: a Q = 2 engine builds on a fresh sharded store,
+    and a one-query ``multi_bfs`` equals the solo BFS.
+
+    Until process mode was ported this test asserted the
+    ``NotImplementedError`` that refused any ``proc_ctx``.  The port now
+    runs it (tests/test_torch_transport.py), so the same cases hold the
+    reference's checks instead: a ``ValueError`` for a ``proc_ctx`` off
+    ``executor="dist_ooc"``, for a worker count the context does not
+    share, and for more than one query."""
     p = problem["fwd"]
     mq_store = ChunkStore.build_sharded(p.dg, p.fm, str(tmp_path / "mq"), 2)
     mq = Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc", num_workers=2,
                                          num_queries=2),
                 store=mq_store, device="cpu")
     assert [sp.num_queries for sp in mq.spills] == [2, 2]
-    with pytest.raises(NotImplementedError, match="process mode"):
+    with pytest.raises(ValueError, match="only to executor='dist_ooc'"):
+        Engine(p.dg, p.fm, EngineConfig(executor="ooc"),
+               store=ChunkStore.build(p.dg, p.fm, str(tmp_path / "ooc")),
+               proc_ctx=types.SimpleNamespace(num_workers=2), device="cpu")
+    with pytest.raises(ValueError, match="num_workers"):
         Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc", num_workers=2),
-               store=p.stores["port", 2], proc_ctx=object(), device="cpu")
+               store=p.stores["port", 2],
+               proc_ctx=types.SimpleNamespace(num_workers=4), device="cpu")
+    with pytest.raises(ValueError, match="num_queries=1"):
+        Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc", num_workers=2,
+                                        num_queries=2),
+               store=mq_store, proc_ctx=types.SimpleNamespace(num_workers=2),
+               device="cpu")
     eng = Engine(p.dg, p.fm, EngineConfig(executor="dist_ooc",
                                           num_workers=2),
                  store=ChunkStore.build_sharded(p.dg, p.fm,
