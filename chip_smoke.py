@@ -11,7 +11,9 @@ phase, then drives the port's three graph paths on a Graph500 R-MAT graph
 PageRank (5 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
 BFS, in threads and as 2 OS ranks over sockets (process mode, with one
 rank killed and recovered), multi-query serving on LOCAL, OOC and
-DIST_OOC, and the SHARD_MAP executor on 8 ranks sharing the card.
+DIST_OOC, the SHARD_MAP executor on 8 ranks sharing the card, and the
+Chaos- and GridGraph-like baselines; then the kernel entry point and LM
+serving (Gemma2-9B and Zamba2-1.2B at full width).
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -45,6 +47,24 @@ PageRank's cold run).  For each algorithm it
     1e-5 (the plain version sums in another order), and times the kernel,
     the plain version and one PyTorch library call computing the same
     function, beside the least time the card could take.
+
+Baselines (``baselines_path``: ``repro_torch.core.baselines`` on the same
+graph, after LOCAL).  The Chaos-like engine on 4 nodes (the setting of
+``benchmarks/table45_engines.py``) runs PageRank (5), BFS and SSSP from the
+source; the Grid-like engine (grid 8) runs PageRank (5) and SSSP with an
+unbounded memory budget and with one below two vertex windows (every
+active block re-reads both).  It
+  * records each step's active mask (one host copy a step, inside the
+    timed run) and requires every counter to equal an exact numpy count
+    of those masks on the graph (Chaos: streamed edges, updates and
+    messages per active out-edge, remote updates at 12 B; Grid: the
+    active blocks' edges and vertex windows);
+  * holds the values against LOCAL's (BFS and SSSP bit for bit, PageRank
+    within 1e-5) and the oracles, and the iteration counts against
+    LOCAL's;
+  * prints setup seconds, per run seconds, peak device memory, and LOCAL
+    DFOGraph's edge and vertex bytes, messages and net bytes beside the
+    baseline's (the Fig. 5 / Table 4 ratios); then the phase's seconds.
 
 OOC (fully out of core: ``executor="ooc"``, ``block_csr``, chunks decoded
 on the card).  It
@@ -89,7 +109,7 @@ source above).  It
     0–7, each column bit-equal to its solo BFS with equal iteration
     counts; ``pairwise_reachability`` of the pairs s_k -> s_(k+1 mod 8),
     each answer equal to the solo levels' finiteness;
-    ``personalized_pagerank`` of sources 0–7 (2 iterations), query 0
+    ``personalized_pagerank`` of sources 0–7 (one iteration), query 0
     within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
   * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
     a fresh spill): a ``GraphServeSession`` with 8 slots takes the first
@@ -98,7 +118,7 @@ source above).  It
     logical counter equal to the sum of the 6 solo runs' (rtol 1e-5) and
     every shared-stream counter at most that sum (its counters after each
     step are kept for the DIST_OOC session); then
-    ``personalized_pagerank`` of sources 0–7 (2 iterations), values
+    ``personalized_pagerank`` of sources 0–7 (one iteration), values
     within 1e-5 of LOCAL serving's and every
     counter LOCAL reports within rtol 1e-5 of LOCAL's;
   * counts the launches of ``block_csr_combine_mq`` (set to 0 before the
@@ -153,7 +173,7 @@ fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
   * runs ``multi_bfs`` of sources 0–7 for two iterations, sequential and
     then with ``parallel_workers``: bit-identical (levels as int32
     patterns, per-iteration returns, every counter, ``worker_totals``);
-  * runs ``personalized_pagerank`` of sources 0–7 (2 iterations),
+  * runs ``personalized_pagerank`` of sources 0–7 (one iteration),
     sequential: within 1e-5 of LOCAL serving's, every counter but the two
     network ones within rtol 1e-5 of LOCAL's;
   * requires in every run measured == model for disk and network, every
@@ -279,6 +299,30 @@ computes the same function, that call:
 ``--scale`` below 21 shrinks the spmv graph with the main one, and the
 sequences and the GLA batch by the same factor (heads and widths stay).
 
+LM serving (``lm_serve``, last, on a card freed of the earlier phases;
+``repro_torch.models`` and ``repro_torch.serve``, plain torch: the
+reference's models call no Pallas kernel).  It
+  * builds Gemma2-9B (42 layers, local / global alternation, softcaps,
+    post-norms, tied 256k vocabulary, head dim 256; 9.24 B parameters,
+    18.5 GB in bf16) and Zamba2-1.2B (38 Mamba2 layers and the shared
+    attention block every 6) at full width and depth in bf16, drawing the
+    weights on the card from a seeded ``torch.Generator``;
+  * serves each with a ``ServeSession`` of batch 4: a 32-token prompt fed
+    through the cache, then 16 greedy steps; requires the tokens' shape
+    and range and one more step's logits finite of shape [4, padded
+    vocabulary]; prints init seconds, the session's steps and tokens per
+    second (its first step included), peak device memory, 3 more steps'
+    steady wall milliseconds a step, and from ``torch.profiler`` over 3
+    more the device milliseconds and launches a step, the heaviest kernels
+    and the device's idle share of a steady step;
+  * cuts each to its first cycle (Gemma2: 2 layers, its local window cut
+    to 16 so that the local layer's 16-slot ring buffer wraps and the
+    forward masks the window; Zamba2: 6 Mamba2 layers and the shared
+    block) in float32 with TF32 off, and requires
+    the cached decode's logits at each of 64 positions (batch 2) within
+    rtol = atol = 1e-3 of the teacher-forced forward's; prints the
+    largest difference, then the phase's seconds.
+
 Every phase prints one JSON line; the line before the last holds the
 kernel table (each combine once per mode and path, each row measured on
 that path's inputs beside that path's launches), the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -356,7 +400,7 @@ SERVE_SOURCES = 8              # solo references (10 before PR 23)
 SESSION_SOURCES = 6            # queries each session submits (OOC 8 and
                                # DIST_OOC 10 before PR 23)
 SERVE_Q = 8                    # concurrent query slots
-PPR_ITERS = 2
+PPR_ITERS = 1
 
 
 def emit(**obj):
@@ -1317,6 +1361,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 4b. the Chaos- and GridGraph-like baselines against LOCAL ---------
+    run_baselines_path(g, source=source, checks=checks,
+                       local_results=local_results)
+
     tmp_root = os.path.join(REPO, ".smoke_tmp")
     os.makedirs(tmp_root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="stores-", dir=tmp_root)
@@ -1344,6 +1392,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ops_rows = run_kernel_ops(opts.scale)
+
+    # -- 10b. the LM serving path at full width, on a freed card -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_lm_serve()
 
     # -- 11. the kernel table: combine rows per mode and path, each measured
     # on one call of that path and beside that path's launches only ------
@@ -2447,6 +2500,355 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
 
 
 # ---------------------------------------------------------------------------
+# baselines_path: the Chaos- and GridGraph-like engines on the smoke's graph
+# ---------------------------------------------------------------------------
+
+BASELINE_NODES = 4             # Chaos: benchmarks/table45_engines.py's nodes
+BASELINE_GRID = 8              # Grid: table45's grid
+BASELINE_COUNTERS = ("edge_read_bytes", "vertex_read_bytes",
+                     "vertex_write_bytes", "net_bytes", "updates_generated",
+                     "messages_sent")
+
+
+def recorded_actives(engine):
+    """Wrap ``engine._step`` to keep a copy of each step's active mask on
+    the card (one 1-byte-per-vertex device copy a step, no host sync);
+    returns the list it fills, copied to the host after the timed run."""
+    masks = []
+    step = engine._step
+
+    def rec(values, active, *args):
+        masks.append(active.clone())
+        return step(values, active, *args)
+    engine._step = rec
+    return masks
+
+
+def baseline_tables(g):
+    """Per-vertex tables of the smoke's graph for :func:`baseline_counts`:
+    out-degrees, out-edges whose update crosses Chaos's nodes, Grid's edges
+    per block and the destination blocks each vertex has an edge into."""
+    import numpy as np
+    n, e = g.num_vertices, g.num_edges
+    src, dst = np.asarray(g.src), np.asarray(g.dst)
+    cross = ((np.arange(e, dtype=np.int64) * BASELINE_NODES) // e
+             != dst % BASELINE_NODES)
+    q = BASELINE_GRID
+    rng = -(-n // q)
+    into = np.zeros((n, q), bool)
+    into[src, dst // rng] = True
+    return dict(n=n, e=e, outdeg=np.bincount(src, minlength=n),
+                cross_deg=np.bincount(src[cross], minlength=n),
+                sizes=np.bincount(src // rng * q + dst // rng,
+                                  minlength=q * q),
+                into=into, v_blk=np.arange(n) // rng, win=rng * 4)
+
+
+def baseline_counts(tab, masks, engine, budget=None):
+    """The exact counters a Chaos-like (``engine="chaos"``) or Grid-like
+    run (under ``budget``) must report for the active masks it recorded,
+    counted with numpy from :func:`baseline_tables` (integers; the engines
+    must match them exactly)."""
+    import numpy as np
+    n, e, win, q = tab["n"], tab["e"], tab["win"], BASELINE_GRID
+    out = dict.fromkeys(BASELINE_COUNTERS, 0)
+    for a in masks:
+        if engine == "chaos":
+            upd = int(tab["outdeg"][a].sum())
+            out["edge_read_bytes"] += e * 8
+            out["updates_generated"] += upd
+            out["messages_sent"] += upd
+            out["net_bytes"] += int(tab["cross_deg"][a].sum()) * 12
+            out["vertex_read_bytes"] += n * 4
+            out["vertex_write_bytes"] += n * 4
+            continue
+        cells = (tab["v_blk"][a][:, None] * q
+                 + np.arange(q))[tab["into"][a]]
+        blk = np.bincount(cells, minlength=q * q) > 0
+        out["edge_read_bytes"] += int(tab["sizes"][blk].sum()) * 8
+        b2 = blk.reshape(q, q)
+        if 2 * win <= budget:
+            cols, rows = int(b2.any(0).sum()), int(b2.any(1).sum())
+            out["vertex_read_bytes"] += (rows + cols) * win
+            out["vertex_write_bytes"] += cols * win
+        else:
+            out["vertex_read_bytes"] += 2 * int(blk.sum()) * win
+            out["vertex_write_bytes"] += int(blk.sum()) * win
+    return out
+
+
+def run_baselines_path(g, *, source, checks, local_results):
+    """Phase ``baselines_path``: Chaos (4 nodes) PageRank (5), BFS and SSSP
+    and Grid (8 x 8) PageRank (5) and SSSP, unbounded and under a budget
+    below two vertex windows, on the card; values against LOCAL's (BFS and
+    SSSP bit-equal, PageRank within 1e-5) and the oracles, iterations
+    against LOCAL's, every counter against an exact numpy count of the
+    active masks each step recorded."""
+    import numpy as np
+    import torch
+    from repro_torch.core.baselines import ChaosLikeEngine, GridLikeEngine
+    t_phase = time.perf_counter()
+    n = g.num_vertices
+    win = -(-n // BASELINE_GRID) * 4
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chaos = ChaosLikeEngine(g, BASELINE_NODES)
+    torch.cuda.synchronize()
+    chaos_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = GridLikeEngine(g, BASELINE_GRID)
+    torch.cuda.synchronize()
+    grid_setup = time.perf_counter() - t0
+    thrash = 2 * win - 1                 # below two vertex windows
+    emit(phase="baselines_setup", chaos_nodes=BASELINE_NODES,
+         grid=BASELINE_GRID, chaos_setup_s=chaos_setup,
+         grid_setup_s=grid_setup, thrash_budget_bytes=thrash,
+         max_memory_allocated=torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    tab = baseline_tables(g)
+    tables_s = time.perf_counter() - t0
+
+    runs = [("chaos", "pagerank", chaos, None), ("chaos", "bfs", chaos, None),
+            ("chaos", "sssp", chaos, None)]
+    for name, budget in (("unbounded", float("inf")), ("thrash", thrash)):
+        runs += [(f"grid[{name}]", "pagerank", grid, budget),
+                 (f"grid[{name}]", "sssp", grid, budget)]
+    out = {}
+    for engine_name, algo, eng, budget in runs:
+        if budget is not None:
+            eng.memory_budget = budget
+        masks = recorded_actives(eng)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if algo == "pagerank":
+            vals, c = eng.run_pagerank(PR_ITERS)
+            iters = PR_ITERS
+        else:
+            vals, c, iters = getattr(eng, f"run_{algo}")(source)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del eng._step                    # back to the class's method
+        masks = [m.cpu().numpy() for m in masks]
+        local_vals, local_stats = local_results[algo]
+        checks[algo](vals)
+        if algo == "pagerank":
+            np.testing.assert_allclose(vals, local_vals, rtol=0, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(vals, local_vals)
+        if iters != local_stats.iterations or len(masks) != iters:
+            raise AssertionError(
+                f"{engine_name} {algo}: {iters} iterations ({len(masks)} "
+                f"steps recorded), LOCAL {local_stats.iterations}")
+        t0 = time.perf_counter()
+        want = baseline_counts(tab, masks, engine_name[:5], budget)
+        count_s = time.perf_counter() - t0
+        got = c.as_dict()
+        if got != {k: float(v) for k, v in want.items()}:
+            raise AssertionError(f"{engine_name} {algo}: counters {got}, "
+                                 f"numpy count {want}")
+        lc = local_stats.counters
+        emit(phase="baselines_path", engine=engine_name, algorithm=algo,
+             iterations=iters, seconds=seconds, counters=got,
+             numpy_count_s=count_s, numpy_tables_s=tables_s,
+             exact_count_over_2_24=any(v > 2 ** 24 for v in want.values()),
+             max_abs_diff_vs_local=float(np.abs(vals - local_vals).max()),
+             dfograph_local=dict(
+                 edge_read_bytes=lc["edge_read_bytes"],
+                 vertex_read_bytes=lc["vertex_read_bytes"],
+                 vertex_write_bytes=lc["vertex_write_bytes"],
+                 msgs_sent=lc["msgs_sent"], net_bytes=lc["net_bytes"]),
+             dfograph_over_baseline={
+                 k: lc[k] / got[b] for k, b in (
+                     ("edge_read_bytes", "edge_read_bytes"),
+                     ("msgs_sent", "messages_sent"),
+                     ("net_bytes", "net_bytes")) if got[b]},
+             max_memory_allocated=peak)
+        out[engine_name, algo] = dict(seconds=seconds, iterations=iters)
+    del chaos, grid, tab
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="baselines_total", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lm_serve: the LM stack's serving path at full width
+# ---------------------------------------------------------------------------
+
+LM_MODELS = ("gemma2-9b", "zamba2-1.2b")
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 32, 16
+LM_PARITY_LAYERS = {"gemma2-9b": 2,      # one local / global cycle
+                    "zamba2-1.2b": 6}    # one Mamba2 cycle + the shared block
+LM_PARITY_BATCH, LM_PARITY_SEQ = 2, 64
+# Gemma2's local window (4,096) cut below LM_PARITY_SEQ in the parity check
+# only, so that its local layer decodes through the ring buffer past the
+# wrap and the forward applies the window mask, at full width
+LM_PARITY_WINDOW = {"gemma2-9b": 16}
+LM_PARITY_TOL = 1e-3
+LM_PROFILE_STEPS = 3           # profiled decode steps after the session
+
+
+def decode_profile(step, reps=LM_PROFILE_STEPS, top=6):
+    """(device ms per call of ``step``, device operations per call, the
+    ``top`` kernels by device ms per call) from one ``torch.profiler``
+    session over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in ops:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    heavy = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (sum(by_name.values()) / reps / 1e3, len(ops) / reps,
+            [[name[:80], us / reps / 1e3] for name, us in heavy])
+
+
+def run_lm_serve():
+    """Phase ``lm_serve``: Gemma2-9B and Zamba2-1.2B at full width and
+    depth in bf16, weights drawn on the card from a seeded generator, each
+    serving a ``ServeSession`` (batch 4, prompt 32, 16 greedy steps); then
+    each cut to its first cycle in float32 (TF32 off; Gemma2's local
+    window to 16, below the 64 positions), cached decode held against the
+    teacher-forced forward at every position."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.models.model import make_model
+    from repro_torch.serve.engine import ServeSession
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.utils import tree_bytes, tree_params
+    t_phase = time.perf_counter()
+    rules = make_rules(None)
+    out = {}
+    for arch in LM_MODELS:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = make_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = tree_params(params)
+        session = ServeSession(model, params, rules, batch=LM_BATCH,
+                               cache_len=LM_PROMPT + LM_STEPS + 1)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=np.int32)
+        t0 = time.perf_counter()
+        toks = session.generate(prompts, LM_STEPS)
+        gen_s = time.perf_counter() - t0
+        steps = LM_PROMPT + LM_STEPS - 1
+        if toks.shape != (LM_BATCH, LM_STEPS) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise AssertionError(f"{arch}: tokens {toks.shape} out of range")
+        last = {"tokens": torch.as_tensor(toks[:, -1:], device="cuda"),
+                "pos": torch.full((LM_BATCH,), steps, dtype=torch.int32,
+                                  device="cuda")}
+        with torch.inference_mode():     # one more step: the logits
+            logits, _ = model.decode_step(params, session.cache, last, rules)
+            def step():
+                model.decode_step(params, session.cache, last, rules)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LM_PROFILE_STEPS):
+                step()
+            torch.cuda.synchronize()
+            steady_ms = (time.perf_counter() - t0) / LM_PROFILE_STEPS * 1e3
+            busy_ms, launches, top = decode_profile(step)
+        if logits.shape != (LM_BATCH, padded_vocab(cfg)) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
+                                 "not finite")
+        emit(phase="lm_serve", arch=arch, dtype=cfg.dtype,
+             layers=cfg.num_layers, d_model=cfg.d_model, params=n_params,
+             param_bytes=tree_bytes(params), init_s=init_s,
+             batch=LM_BATCH, prompt=LM_PROMPT, generated=LM_STEPS,
+             decode_steps=steps, generate_s=gen_s, steps_per_s=steps / gen_s,
+             tokens_per_s=LM_BATCH * steps / gen_s,
+             steady_ms_per_step=steady_ms,
+             device_ms_per_step=busy_ms, launches_per_step=launches,
+             device_idle_share=1 - busy_ms / steady_ms,
+             top_device_ops_ms_per_step=top,
+             weight_bytes_bound_ms=tree_bytes(params) / HBM_BYTES_PER_S * 1e3,
+             first_tokens=toks[0].tolist(),
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        out[arch] = dict(params=n_params, init_s=init_s, generate_s=gen_s)
+        del model, params, session, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # cache parity in float32, TF32 off, on the first cycle of each model
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in LM_MODELS:
+            cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                      num_layers=LM_PARITY_LAYERS[arch])
+            if arch in LM_PARITY_WINDOW:
+                cfg = dataclasses.replace(cfg, attn=dataclasses.replace(
+                    cfg.attn, window=LM_PARITY_WINDOW[arch]))
+            model = make_model(cfg)
+            params = model.init(torch.Generator(device="cuda").manual_seed(1))
+            b, s = LM_PARITY_BATCH, LM_PARITY_SEQ
+            toks = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(2))
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                full, _ = model.apply(params, {"tokens": toks}, rules)
+                cache = model.init_cache(b, s)
+                slots = sorted({c["self"]["k"].shape[2]
+                                for st in cache
+                                for c in (st if isinstance(st, list)
+                                          else st[0] + [st[1]])
+                                if "self" in c})
+                if arch in LM_PARITY_WINDOW and slots != sorted(
+                        {cfg.attn.window, s}):
+                    raise AssertionError(
+                        f"{arch}: cache slots {slots}, expected a ring "
+                        f"buffer of {cfg.attn.window} beside {s}")
+                worst = 0.0
+                for i in range(s):
+                    logits, cache = model.decode_step(params, cache, {
+                        "tokens": toks[:, i:i + 1],
+                        "pos": torch.full((b,), i, dtype=torch.int32,
+                                          device="cuda")}, rules)
+                    want = full[:, i]
+                    diff = (logits - want).abs()
+                    worst = max(worst, float(diff.max()))
+                    if not bool((diff <= LM_PARITY_TOL
+                                 + LM_PARITY_TOL * want.abs()).all()):
+                        raise AssertionError(
+                            f"{arch}: cached decode differs from the forward "
+                            f"at position {i} by {float(diff.max())}")
+            torch.cuda.synchronize()
+            emit(phase="lm_parity", arch=arch, layers=cfg.num_layers,
+                 stages=[(len(st.cycle), st.n, st.shared_attn)
+                         for st in model.stages],
+                 dtype="float32", tf32=False, batch=b, positions=s,
+                 window=cfg.attn.window, cache_slots=slots,
+                 rtol=LM_PARITY_TOL, atol=LM_PARITY_TOL,
+                 max_abs_diff=worst, seconds=time.perf_counter() - t0)
+            out[arch]["parity_max_abs_diff"] = worst
+            del model, params, full, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    emit(phase="lm_total", seconds=time.perf_counter() - t_phase)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The kernel entry point (repro_torch.kernels.ops) at full width
 # ---------------------------------------------------------------------------
 
@@ -2886,6 +3288,7 @@ def _proc_rank(root, jobs, rank):
             rank_local_wire_bytes=int(ctx.stats["rank_local_wire_bytes"]),
             recoveries=int(ctx.stats["recoveries"]),
             recovery_s=ctx.recovery_s, assign=list(ctx.assign),
+            stall_reports=ctx.mesh.stall_reports,
             workers=ctx.my_workers(), replays={})
         if rank == 0:
             if "combine" in replays:
@@ -2973,7 +3376,7 @@ def run_proc_path(tmp, *, dg, fm, store, source, scale, dist):
     codes = [p.exitcode for p in procs]
     want_codes = [FAULT_EXIT if r == PROC_KILL[0] % PROC_RANKS else 0
                   for r in range(PROC_RANKS)]
-    if codes != want_codes:
+    if codes != want_codes:             # a stall's report is on stderr
         raise AssertionError(f"proc_path: rank exit codes {codes}, expected "
                              f"{want_codes}")
 
@@ -3072,6 +3475,7 @@ def run_proc_path(tmp, *, dg, fm, store, source, scale, dist):
              measured_net_bytes=c["measured_net_bytes"],
              recoveries=[sts[r]["recoveries"] for r in ranks],
              recovery_s=[sts[r]["recovery_s"] for r in ranks],
+             stall_reports=[sts[r]["stall_reports"] for r in ranks],
              assign=sts[0]["assign"],
              launches_per_rank=[{k: sts[r]["launches"][k]
                                  for k in PROC_LAUNCH_KEYS} for r in ranks],

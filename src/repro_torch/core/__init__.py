@@ -10,7 +10,8 @@ ranks, one per partition) and ``sparse_collectives`` its exchanges;
 ``executor`` composes them into the LOCAL, SHARD_MAP, OOC and DIST_OOC
 executors and ``multiquery`` into their Q-query panel twins; ``engine`` is
 the public signal/slot API on top, and ``serve`` the continuous-query
-session.  ``transport`` carries DIST_OOC's workers across OS processes
+session; ``baselines`` holds the Chaos- and GridGraph-like engines the
+paper measures DFOGraph against.  ``transport`` carries DIST_OOC's workers across OS processes
 (process mode, with ``repro_torch.runtime`` and ``repro_torch.ckpt``).
 """
 from repro_torch.core.partition import (  # noqa: F401
@@ -20,7 +21,7 @@ from repro_torch.core.partition import (  # noqa: F401
 )
 from repro_torch.core.formats import (  # noqa: F401
     BlockTiles, BlockTilesHost, ChunkFormats, build_block_tiles,
-    build_formats,
+    build_formats, storage_summary,
 )
 from repro_torch.core import codec  # noqa: F401
 from repro_torch.core.chunkstore import (  # noqa: F401
@@ -41,4 +42,7 @@ from repro_torch.core.engine import (  # noqa: F401
 )
 from repro_torch.core.serve import (  # noqa: F401
     GraphServeSession, QueryResult,
+)
+from repro_torch.core.baselines import (  # noqa: F401
+    BaselineCounters, ChaosLikeEngine, GridLikeEngine,
 )

@@ -17,9 +17,11 @@ run, and are tested, without a process group.  The scatters mirror the
 reference's (adds into zeros, maxima into -1), so every buffer is
 bit-identical to the reference's.
 
-The MoE and embedding half of the reference module (``topk_routing``,
-``dense_dispatch``, ``dense_combine``, ``vocab_sharded_embed``,
-``take_embed``) belongs to the LM stack and is not here.
+The MoE and embedding half (``topk_routing``, ``dense_dispatch``,
+``dense_combine``, ``vocab_sharded_embed``, ``take_embed``) serves the LM
+stack: tokens are the messages, experts the vertex partitions, the router
+the signal and the capacity the need-list bound.  On one card the dispatch
+is a position-addressed scatter into per-expert capacity buffers.
 """
 from __future__ import annotations
 
@@ -270,3 +272,132 @@ def compacted_scatter_back_mq(recv_vals: torch.Tensor,
     maskp = torch.zeros((p * v_max, q), dtype=torch.bool, device=dev)
     maskp[cell] = recv_maskp.reshape(p * cap, q)[sel]
     return vals.reshape(p, v_max, q), maskp.reshape(p, v_max, q)
+
+
+# ---------------------------------------------------------------------------
+# MoE routing and dispatch (the LM stack's "signal" and push phases)
+# ---------------------------------------------------------------------------
+
+def _top_k(x: torch.Tensor, k: int):
+    """Top-k along the last axis with ties to the lower index, as
+    ``jax.lax.top_k`` (``torch.topk`` promises no tie order): a stable
+    descending sort keeps equal entries in index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def topk_routing(router_logits: torch.Tensor, k: int, capacity: int,
+                 *, renormalize: bool = True, block: int | None = None,
+                 groups: int | None = None):
+    """Top-k token->expert routing with per-expert capacity (need-list bound).
+
+    router_logits: [T, E].  Returns:
+      dispatch: bool [T, k] valid slot flag (token kept by its c-th choice)
+      expert_idx: int64 [T, k]
+      position:   int32 [T, k] slot within the expert's capacity buffer
+      weights:    float32 [T, k] combine weights (softmax over chosen logits)
+      group_id:   int32 [T, k] or None — token's capacity group
+    Tokens beyond capacity are dropped, in global token order (the first
+    ``capacity`` claims of an expert win).  ``block`` takes the two-level
+    position scan (the same positions); ``groups`` gives each of ``groups``
+    contiguous token ranges capacity/groups slots per expert.
+    """
+    t, e = router_logits.shape
+    weights_full = torch.softmax(router_logits.float(), dim=-1)
+    top_w, top_i = _top_k(weights_full, k)                   # [T, k]
+    if renormalize:
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    flat_e = top_i.reshape(-1)                               # [T*k]
+    onehot = torch.nn.functional.one_hot(flat_e, e).to(I32)  # [T*k, E]
+    rows = t * k
+    if groups:
+        assert rows % groups == 0, (rows, groups)
+        per = rows // groups
+        oh = onehot.reshape(groups, per, e)
+        if block and block < per:
+            pos_g = torch.stack([blocked_cumsum(o, block) for o in oh]) - 1
+        else:
+            pos_g = torch.cumsum(oh, dim=1, dtype=I32) - 1
+        pos_in_expert = pos_g.reshape(rows, e)
+        cap_g = -(-capacity // groups)
+        position = torch.gather(pos_in_expert, 1,
+                                flat_e[:, None]).reshape(t, k)
+        dispatch = position < cap_g
+        group_id = torch.repeat_interleave(
+            torch.arange(groups, dtype=I32, device=router_logits.device),
+            per).reshape(t, k)
+        return dispatch, top_i, position.to(I32), top_w, group_id
+    if block:
+        pos_in_expert = blocked_cumsum(onehot, block) - 1
+    else:
+        pos_in_expert = torch.cumsum(onehot, dim=0, dtype=I32) - 1
+    position = torch.gather(pos_in_expert, 1, flat_e[:, None]).reshape(t, k)
+    dispatch = position < capacity
+    return dispatch, top_i, position.to(I32), top_w, None
+
+
+def dense_dispatch(x: torch.Tensor, dispatch, expert_idx, position,
+                   num_experts: int, capacity: int,
+                   group_id=None, groups: int = 1) -> torch.Tensor:
+    """Push tokens into per-expert capacity buffers (the CSR-analogue:
+    position-addressed scatter).
+
+    Without groups: x [T, D] -> [E, C, D].
+    With groups (per-source-group capacity): -> [E, G, C/G, D]; group g's
+    tokens land only in the g-slice.  Kept slots are distinct, so the
+    scatter adds each into zeros, as the reference's."""
+    d = x.shape[1]
+    k = expert_idx.shape[1]
+    ok = dispatch.reshape(-1)
+    src = torch.repeat_interleave(x, k, dim=0)                    # [T*k, D]
+    if group_id is None:
+        slots = num_experts * capacity
+        flat_idx = (expert_idx * capacity + position).reshape(-1)
+        shape = (num_experts, capacity, d)
+    else:
+        cap_g = -(-capacity // groups)
+        slots = num_experts * groups * cap_g
+        flat_idx = ((expert_idx * groups + group_id) * cap_g
+                    + position).reshape(-1)
+        shape = (num_experts, groups, cap_g, d)
+    buf = x.new_zeros((slots, d))
+    buf.index_add_(0, flat_idx[ok].long(), src[ok])
+    return buf.reshape(shape)
+
+
+def dense_combine(expert_out: torch.Tensor, dispatch, expert_idx, position,
+                  weights, seq_len: int, group_id=None) -> torch.Tensor:
+    """Pull expert outputs back to token order with combine weights.
+    expert_out: [E, C, D] or [E, G, Cg, D] -> [T, D]."""
+    if group_id is None:
+        e, c, d = expert_out.shape
+        flat = expert_out.reshape(e * c, d)
+        flat_idx = expert_idx * c + position                     # [T, k]
+    else:
+        e, g, cg, d = expert_out.shape
+        flat = expert_out.reshape(e * g * cg, d)
+        flat_idx = (expert_idx * g + group_id) * cg + position
+    n = flat.shape[0]
+    gathered = flat[torch.clamp(flat_idx, 0, n - 1).long()]      # [T, k, D]
+    w = torch.where(dispatch, weights, 0.0).to(flat.dtype)
+    return torch.einsum("tkd,tk->td", gathered, w)
+
+
+# ---------------------------------------------------------------------------
+# Vocab-sharded embedding push (huge-vocab archs)
+# ---------------------------------------------------------------------------
+
+def vocab_sharded_embed(tokens: torch.Tensor, embedding: torch.Tensor,
+                        vocab_size: int) -> torch.Tensor:
+    """One-hot-matmul lookup: with the table sharded over vocab, each shard
+    contributes only the rows it owns (the reference's pjit form of the DFO
+    push).  tokens: int [...]; embedding: [vocab, D]."""
+    onehot = torch.nn.functional.one_hot(tokens.long(), vocab_size).to(
+        embedding.dtype)
+    return onehot @ embedding
+
+
+def take_embed(tokens: torch.Tensor, embedding: torch.Tensor) -> torch.Tensor:
+    """Gather-form lookup (better when the table is replicated or
+    row-sharded with small vocab)."""
+    return embedding[tokens.long()]

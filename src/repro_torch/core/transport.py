@@ -60,6 +60,7 @@ import pickle
 import select
 import socket
 import struct
+import sys
 import threading
 import time
 import zlib
@@ -267,6 +268,23 @@ class _Peer:
         # wedged (stalled mid-frame, livelocked, paused) even though the
         # socket is still open.
         self.last_recv = time.monotonic()
+        # The receiver thread's reader state, for stall reports: the
+        # bytes it waits for (0 between reads) since ``rx_since``, and
+        # the frames and bytes it has read so far.
+        self.rx_want = 0
+        self.rx_since = self.last_recv
+        self.rx_frames = 0
+        self.rx_bytes = 0
+        self.thread: threading.Thread | None = None
+
+    def read(self, n: int) -> bytes:
+        """The receiver thread's read of ``n`` bytes from the buffered
+        reader, its state kept for :meth:`ProcMesh.stall_report`."""
+        self.rx_want, self.rx_since = n, time.monotonic()
+        data = self.rfile.read(n)
+        self.rx_want, self.rx_since = 0, time.monotonic()
+        self.rx_bytes += len(data)
+        return data
 
     def send(self, data: bytes) -> None:
         with self.send_lock:
@@ -337,12 +355,16 @@ class ProcMesh:
         self.resend_handler = None          # set by ProcContext
         self._threads: list[threading.Thread] = []
         self._hb_stop = threading.Event()
+        self._hb_last = time.monotonic()    # the heartbeat loop's last pass
+        # one report per peer this rank declared dead for a stall
+        self.stall_reports: list[dict] = []
         if world > 1:
             self._rendezvous(rendezvous_dir, connect_timeout)
             for peer in self.peers.values():
                 t = threading.Thread(target=self._recv_loop, args=(peer,),
                                      daemon=True)
                 t.start()
+                peer.thread = t
                 self._threads.append(t)
             t = threading.Thread(target=self._heartbeat_loop, daemon=True)
             t.start()
@@ -432,7 +454,7 @@ class ProcMesh:
     def _recv_loop(self, peer: _Peer) -> None:
         while True:
             try:
-                frame = read_frame(peer.rfile.read)
+                frame = read_frame(peer.read)
             except FrameIntegrityError as exc:
                 peer.last_recv = time.monotonic()
                 if exc.frame.kind == K_DATA:
@@ -457,6 +479,7 @@ class ProcMesh:
                 self._mark_dead(peer.rank)
                 return
             peer.last_recv = time.monotonic()
+            peer.rx_frames += 1
             self._dispatch(peer, frame)
 
     def _mark_dead(self, rank: int) -> None:
@@ -508,6 +531,7 @@ class ProcMesh:
         interval = max(0.05, self.stall_timeout / 4.0)
         beat = pack_frame(K_HEART, src_w=self.rank)
         while not self._hb_stop.wait(interval):
+            self._hb_last = time.monotonic()
             for peer in list(self.peers.values()):
                 if not peer.alive:
                     continue
@@ -524,6 +548,33 @@ class ProcMesh:
         blocking until ``io_timeout``."""
         with self.cv:
             self._check_stalls_locked(ranks)
+
+    def stall_report(self, peer: _Peer, now: float) -> dict:
+        """What this rank knows of ``peer`` when its silence passes the
+        stall timeout: how long since its last whole frame, the receiver
+        thread's reader state (blocked in a read of ``rx_want`` bytes, or
+        between reads, for ``rx_state_s``; a stale frame with the reader
+        between reads means the receiver thread has not run), and
+        whether this rank's own heartbeat loop and sender to the peer
+        are running."""
+        thread = peer.thread
+        return dict(
+            rank=self.rank, peer=peer.rank,
+            silent_s=now - peer.last_recv, stall_timeout=self.stall_timeout,
+            rx_want=peer.rx_want, rx_state_s=now - peer.rx_since,
+            rx_frames=peer.rx_frames, rx_bytes=peer.rx_bytes,
+            receiver_alive=thread is not None and thread.is_alive(),
+            own_heartbeat_age_s=now - self._hb_last,
+            send_lock_held=peer.send_lock.locked())
+
+    def _report_stall(self, peer: _Peer, now: float) -> None:
+        """Keep :meth:`stall_report` in ``stall_reports`` and write it to
+        stderr as one JSON line, so that a stall is diagnosable from the
+        rank's log alone."""
+        report = self.stall_report(peer, now)
+        self.stall_reports.append(report)
+        print("transport stall: " + json.dumps(report), file=sys.stderr,
+              flush=True)
 
     def _check_stalls_locked(self, ranks) -> None:
         """:meth:`check_stalls` body for callers already holding ``cv``
@@ -543,6 +594,7 @@ class ProcMesh:
                 if peer.readable():
                     peer.last_recv = now
                     continue
+                self._report_stall(peer, now)
                 self.dead.add(r)
                 peer.alive = False
                 hit = True

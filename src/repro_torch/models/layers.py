@@ -1,0 +1,370 @@
+"""Core transformer layers: norms, RoPE/M-RoPE, GQA attention (global /
+sliding-window, softcap, qk-norm, bias), SwiGLU/GeGLU MLP, embeddings.
+
+The port's copy of ``repro.models.layers``: pure functions on tensors,
+parameters in dicts laid out as the reference's (``interop.
+lm_params_from_jax`` carries them across unchanged).  ``init_*`` take an
+:class:`Init` — a seeded ``torch.Generator`` on the target device plus a
+leading shape, ``(n,)`` for a stage of n stacked layers — and allocate on
+that device.
+
+Attention uses a dense path for short sequences and a query-block loop
+with online-softmax structure for long ones (``CHUNKED_ATTN_THRESHOLD``, or
+``flags.ATTN_CHUNK_THRESHOLD``).  Scores are float32 whatever the
+parameters' dtype: q and k are upcast before the product, softcap, mask
+and softmax run in float32, and only the probabilities are cast back — the
+reference's ``preferred_element_type=float32``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import flags
+from repro_torch.models.config import AttnSpec, ModelConfig
+from repro_torch.sharding.rules import ShardingRules
+
+# Threshold above which attention switches to the query-chunked path.
+CHUNKED_ATTN_THRESHOLD = 8192
+Q_CHUNK = 1024
+NEG = -1e30          # masked score
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class Init:
+    """Where and how parameters are drawn: ``gen`` (its device is the
+    target), and ``lead``, the shape prefixed to every leaf."""
+    gen: torch.Generator
+    lead: tuple = ()
+
+    def normal(self, shape, dtype, std: float) -> torch.Tensor:
+        return torch.randn(self.lead + tuple(shape), generator=self.gen,
+                           device=self.gen.device, dtype=dtype).mul_(std)
+
+    def full(self, shape, value, dtype) -> torch.Tensor:
+        return torch.full(self.lead + tuple(shape), value, dtype=dtype,
+                          device=self.gen.device)
+
+    def zeros(self, shape, dtype) -> torch.Tensor:
+        return self.full(shape, 0.0, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rms_norm(init: Init, d: int, dtype) -> dict:
+    return {"scale": init.zeros((d,), dtype)}
+
+
+def rms_norm(x, params, eps: float = 1e-6):
+    """RMSNorm with (1 + scale) parameterization (gemma/llama compatible)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + params["scale"].float())).to(x.dtype)
+
+
+def init_layer_norm(init: Init, d: int, dtype) -> dict:
+    return {"scale": init.full((d,), 1.0, dtype),
+            "bias": init.zeros((d,), dtype)}
+
+
+def layer_norm(x, params, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ---------------------------------------------------------------------------
+
+def _freq(half: int, theta: float, device) -> torch.Tensor:
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
+def _rotate(x, sin, cos):
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _heads_expand(t, ndim):
+    """[B, S, D/2] -> [B, S, 1, ..., D/2] for an x of ``ndim`` axes."""
+    return t.reshape(t.shape[:2] + (1,) * (ndim - 3) + t.shape[2:])
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [B, S, ..., D] (any number of head axes); positions: [B, S]."""
+    ang = positions.float()[..., None] * _freq(x.shape[-1] // 2, theta,
+                                                x.device)
+    return _rotate(x, _heads_expand(torch.sin(ang), x.ndim),
+                   _heads_expand(torch.cos(ang), x.ndim))
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Qwen2-VL multimodal RoPE.  positions3: [B, S, 3] (t, h, w ids);
+    ``sections`` splits the half-dim across the three id streams.
+    x: [B, S, ..., D] (any number of head axes)."""
+    half = x.shape[-1] // 2
+    assert sum(sections) == half, (sections, half)
+    # choose which positional stream drives each frequency band
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(list(sections), device=x.device)) % 3   # [half]
+    pos = positions3.float()[..., sec_id]                     # [B, S, half]
+    ang = pos * _freq(half, theta, x.device)[None, None, :]
+    return _rotate(x, _heads_expand(torch.sin(ang), x.ndim),
+                   _heads_expand(torch.cos(ang), x.ndim))
+
+
+def sinusoidal_embedding(length: int, dim: int, device=None):
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / dim)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.as_tensor(emb.astype(np.float32), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def init_attention(init: Init, cfg: ModelConfig, dtype) -> dict:
+    """Grouped layout: wq/wo carry explicit (kv_heads, q_group) axes, as
+    the reference's (whose sharding picks either axis)."""
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // kv
+    std = d ** -0.5
+    params = {
+        "wq": init.normal((d, kv, g, hd), dtype, std),
+        "wk": init.normal((d, kv, hd), dtype, std),
+        "wv": init.normal((d, kv, hd), dtype, std),
+        "wo": init.normal((kv, g, hd, d), dtype, (h * hd) ** -0.5),
+    }
+    if cfg.attn.qkv_bias:
+        params.update(bq=init.zeros((kv, g, hd), dtype),
+                      bk=init.zeros((kv, hd), dtype),
+                      bv=init.zeros((kv, hd), dtype))
+    if cfg.attn.qk_norm:
+        params.update(q_norm=init.zeros((hd,), dtype),
+                      k_norm=init.zeros((hd,), dtype))
+    return params
+
+
+def _softcap(scores, cap: float):
+    if cap and cap > 0:
+        return torch.tanh(scores / cap) * cap
+    return scores
+
+
+def _scores(q, k, scale):
+    """float32 scores [B, KV, G, Sq, Sk] of q [B,Sq,KV,G,D] and k [B,Sk,KV,D]."""
+    return torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+
+
+def _mix(scores, mask, v, dtype):
+    """Masked softmax in float32, probabilities cast to ``dtype``, times v."""
+    scores = torch.where(mask, scores, NEG)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+
+
+def _mask(qpos, kpos, *, causal, window, kv_valid_len=None):
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    if kv_valid_len is not None:
+        mask &= kpos[None, :] < kv_valid_len
+    return mask
+
+
+def _attn_dense(q, k, v, *, causal, window, softcap, q_offset, kv_valid_len,
+                scale):
+    """q: [B, Sq, KV, G, Dh]; k/v: [B, Sk, KV, Dh].  Mask semantics:
+    query global position = q_offset + row; kv position = column index."""
+    sq, sk = q.shape[1], k.shape[1]
+    scores = _softcap(_scores(q, k, scale), softcap)
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    mask = _mask(qpos, kpos, causal=causal, window=window,
+                 kv_valid_len=kv_valid_len)
+    return _mix(scores, mask, v, q.dtype)
+
+
+def _attn_chunked(q, k, v, *, causal, window, softcap, scale):
+    """Query-block loop (flash structure): one [Q_CHUNK, Sk] score block at
+    a time, so peak memory is bounded by the block."""
+    sq, sk = q.shape[1], k.shape[1]
+    assert sq % Q_CHUNK == 0, (sq, Q_CHUNK)
+    kpos = torch.arange(sk, device=q.device)
+    outs = []
+    for q0 in range(0, sq, Q_CHUNK):
+        qblk = q[:, q0:q0 + Q_CHUNK]
+        qpos = q0 + torch.arange(Q_CHUNK, device=q.device)
+        scores = _softcap(_scores(qblk, k, scale), softcap)
+        mask = _mask(qpos, kpos, causal=causal, window=window)
+        outs.append(_mix(scores, mask, v, qblk.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
+              *, kind: str = "global", cache=None, decode_pos=None,
+              cross_kv=None, causal: bool = True, rope: bool = True,
+              theta_override: Optional[float] = None):
+    """Self- or cross-attention with GQA.
+
+    cache: optional dict(k=[B, Sc, KV, Dh], v=...) — decode mode writes the
+    current token at ``decode_pos`` ([B] int) into the cache IN PLACE and
+    attends over it.  A local-attention cache sized exactly to the window
+    is a ring buffer: slot ``pos % window``.
+    Returns (out [B, S, d_model], the cache or None).
+    """
+    spec: AttnSpec = cfg.attn
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    window = spec.window if kind == "local" else 0
+
+    kv_in = x if cross_kv is None else cross_kv
+    q = torch.einsum("bsd,dkgh->bskgh", x, params["wq"])      # [B,S,KV,G,HD]
+    k = torch.einsum("bsd,dkh->bskh", kv_in, params["wk"])
+    v = torch.einsum("bsd,dkh->bskh", kv_in, params["wv"])
+    if spec.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    if spec.qk_norm:
+        q = rms_norm(q, {"scale": params["q_norm"]}, cfg.norm_eps)
+        k = rms_norm(k, {"scale": params["k_norm"]}, cfg.norm_eps)
+    if rope and spec.rope and cross_kv is None:
+        theta = theta_override if theta_override is not None else (
+            spec.rope_theta_local
+            if (kind == "local" and spec.rope_theta_local) else spec.rope_theta)
+        if cfg.mrope and positions.ndim == 3:
+            q = apply_mrope(q, positions, theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions, theta, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+    scale = hd ** -0.5
+
+    if cache is not None:
+        sc = cache["k"].shape[1]
+        rolling = bool(kind == "local" and window and sc == window)
+        widx = (decode_pos % sc if rolling else decode_pos).long()
+        bidx = torch.arange(b, device=x.device)
+        cache["k"][bidx, widx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, widx] = v[:, 0].to(cache["v"].dtype)
+        kpos = torch.arange(sc, device=x.device)
+        if rolling:
+            # Slot j holds the most recent position = j (mod sc); once
+            # decode_pos >= sc every slot is within the window.  Earlier,
+            # only slots <= decode_pos have been written.
+            valid = (kpos[None, :] <= decode_pos[:, None]) | (
+                decode_pos[:, None] >= sc)
+        else:
+            valid = kpos[None, :] <= decode_pos[:, None]
+            if window:
+                valid &= kpos[None, :] > decode_pos[:, None] - window
+        scores = _softcap(_scores(q, cache["k"], scale), spec.softcap)
+        out = _mix(scores, valid[:, None, None, None, :], cache["v"],
+                   x.dtype)
+    else:
+        threshold = flags.ATTN_CHUNK_THRESHOLD or CHUNKED_ATTN_THRESHOLD
+        if s >= threshold and s % Q_CHUNK == 0 and cross_kv is None:
+            out = _attn_chunked(q, k, v, causal=causal, window=window,
+                                softcap=spec.softcap, scale=scale)
+        else:
+            out = _attn_dense(q, k, v, causal=causal and cross_kv is None,
+                              window=window, softcap=spec.softcap,
+                              q_offset=0, kv_valid_len=None, scale=scale)
+    out = torch.einsum("bskgh,kghd->bsd", out, params["wo"])
+    return rules.shard(out, "batch", "seq", "act_d_model"), cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(init: Init, d: int, d_ff: int, dtype, *, gated: bool = True):
+    std_in, std_out = d ** -0.5, d_ff ** -0.5
+    if gated:
+        return {"wi_gate": init.normal((d, d_ff), dtype, std_in),
+                "wi_up": init.normal((d, d_ff), dtype, std_in),
+                "wo": init.normal((d_ff, d), dtype, std_out)}
+    return {"wi": init.normal((d, d_ff), dtype, std_in),
+            "wo": init.normal((d_ff, d), dtype, std_out)}
+
+
+def _act(x, kind: str):
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def mlp(params, x, act: str, rules: ShardingRules):
+    if "wi_gate" in params:
+        hidden = _act(x @ params["wi_gate"], act) * (x @ params["wi_up"])
+    else:
+        hidden = _act(x @ params["wi"], act)
+    out = hidden @ params["wo"]
+    return rules.shard(out, "batch", "seq", "act_d_model")
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding (vocab padded to a multiple of 2048, as the
+# reference's: whisper's 51865 pads to 53248)
+# ---------------------------------------------------------------------------
+
+def padded_vocab(cfg: ModelConfig, multiple: int = 2048) -> int:
+    return -(-cfg.vocab_size // multiple) * multiple
+
+
+def init_embedding(init: Init, cfg: ModelConfig, dtype) -> dict:
+    pv = padded_vocab(cfg)
+    params = {"table": init.normal((pv, cfg.d_model), dtype,
+                                   cfg.d_model ** -0.5)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = init.normal((cfg.d_model, pv), dtype,
+                                        cfg.d_model ** -0.5)
+    return params
+
+
+def embed(params, tokens, cfg: ModelConfig, rules: ShardingRules,
+          *, scale: bool = False):
+    x = params["table"][tokens.long()]
+    if scale:    # gemma multiplies by sqrt(d_model), rounded to the dtype
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return rules.shard(x, "batch", "seq", "act_d_model")
+
+
+def unembed(params, x, cfg: ModelConfig, rules: ShardingRules):
+    if "unembed" in params:
+        logits = x @ params["unembed"]
+    else:
+        logits = x @ params["table"].T
+    logits = _softcap(logits.float(), cfg.final_logit_softcap)
+    return rules.shard(logits, "batch", "seq", "vocab")

@@ -22,8 +22,11 @@ against the reference's ``repro.core.transport``.
 The JAX package is imported inside the tests that compare with it, so
 ``pytest -m cuda`` loads this module on a machine without jax."""
 import io
+import json
 import os
 import socket
+import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -337,6 +340,43 @@ def test_stall_check_spares_a_peer_with_unread_bytes():
         b.close()
 
 
+def test_stall_report_names_the_reader_state(capsys):
+    """A peer declared dead for a stall leaves one report, kept on the
+    mesh and written to stderr: silence, the receiver's reader state
+    (here blocked mid-frame, waiting for the payload), frames and bytes
+    read, and this rank's own heartbeat age."""
+    mesh = tp.ProcMesh(0, 1, "unused", stall_timeout=0.05)
+    a, b = socket.socketpair()
+    try:
+        peer = mesh.peers[1] = tp._Peer(1, a)
+        raw = tp.pack_frame(tp.K_DATA, op=4, payload=b"z" * 64)
+        b.sendall(raw[:len(raw) // 2])
+        t = threading.Thread(target=lambda: pytest.raises(
+            tp.TransportError, tp.read_frame, peer.read), daemon=True)
+        peer.thread = t
+        t.start()
+        deadline = time.monotonic() + 10.0
+        while not (peer.rx_want and peer.rx_bytes and not peer.readable()):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        peer.last_recv -= 10.0
+        mesh.check_stalls([1])
+        assert not peer.alive and 1 in mesh.dead
+        (rep,) = mesh.stall_reports
+        assert (rep["rank"], rep["peer"], rep["rx_frames"]) == (0, 1, 0)
+        assert rep["silent_s"] >= 10.0 and rep["stall_timeout"] == 0.05
+        assert 0 < rep["rx_bytes"] < len(raw) and rep["rx_want"] > 0
+        assert rep["receiver_alive"] and not rep["send_lock_held"]
+        assert rep["own_heartbeat_age_s"] >= 0
+        line = capsys.readouterr().err.strip().splitlines()[-1]
+        assert json.loads(line.split("transport stall: ", 1)[1]) == \
+            json.loads(json.dumps(rep))
+    finally:
+        b.close()
+        t.join(10.0)
+        mesh.close()
+
+
 # ---------------------------------------------------------------------------
 # Loopback parity: port ranks == port threads == JAX, bit for bit
 # ---------------------------------------------------------------------------
@@ -381,6 +421,30 @@ def test_loopback_process_parity(prob, jprob, tmp_path, algname):
                                              str(tmp_path / "jax"))
     assert jcodes == [0, 0]
     tph.assert_matches_jax(results[0], jresults[0], algname)
+
+
+def test_a_loaded_host_does_not_silence_a_rank(prob, tmp_path):
+    """Two ranks' PageRank with the fault tests' ``stall_timeout`` (1.5 s)
+    while as many spinning processes as the host has cores compete for
+    it: no rank is declared dead, none writes a stall report, and the
+    values equal the threads' run.  CPU oversubscription alone does not
+    starve a rank's heartbeat and receiver threads for a stall timeout."""
+    base = tph.run_threads(prob, 2, "pagerank")
+    hogs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(os.cpu_count() or 1)]
+    try:
+        spec, codes, results = tph.run_procs(
+            prob, 2, "pagerank", str(tmp_path / "run"), stall_timeout=1.5)
+    finally:
+        for h in hogs:
+            h.kill()
+            h.wait()
+    logs = [tph.rank_log(spec, r) for r in (0, 1)]
+    assert codes == [0, 0], logs
+    assert not any("transport stall" in log for log in logs), logs
+    for r in (0, 1):
+        tph.assert_result_equal(results[r], base)
+        assert int(results[r]["recoveries"]) == 0
 
 
 def test_socket_bytes_are_the_measured_wire(prob):
