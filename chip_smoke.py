@@ -13,7 +13,8 @@ BFS, in threads and as 2 OS ranks over sockets (process mode, with one
 rank killed and recovered), multi-query serving on LOCAL, OOC and
 DIST_OOC, the SHARD_MAP executor on 8 ranks sharing the card, and the
 Chaos- and GridGraph-like baselines; then the kernel entry point and LM
-serving (Gemma2-9B and Zamba2-1.2B at full width).
+serving (Gemma2-9B and Zamba2-1.2B at full width) and LM training
+(Zamba2-1.2B at full width and depth).
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -170,9 +171,11 @@ fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
     sum of the 6 solo runs' and shared-stream ones at most that sum, and
     every counter but the two network ones equal to the OOC session's
     after as many steps (rtol 1e-5);
-  * runs ``multi_bfs`` of sources 0–7 for two iterations, sequential and
-    then with ``parallel_workers``: bit-identical (levels as int32
-    patterns, per-iteration returns, every counter, ``worker_totals``);
+  * runs ``multi_bfs`` of sources 0–7 for one iteration
+    (``DIST_MQ_ITERS``, cut from two to make room for ``lm_train``),
+    sequential and then with ``parallel_workers``: bit-identical
+    (levels as int32 patterns, per-iteration returns, every counter,
+    ``worker_totals``);
   * runs ``personalized_pagerank`` of sources 0–7 (one iteration),
     sequential: within 1e-5 of LOCAL serving's, every counter but the two
     network ones within rtol 1e-5 of LOCAL's;
@@ -323,6 +326,31 @@ reference's models call no Pallas kernel).  It
     rtol = atol = 1e-3 of the teacher-forced forward's; prints the
     largest difference, then the phase's seconds.
 
+LM training (``lm_train``, after LM serving; ``repro_torch.train``, plain
+torch under autograd, as the reference's training path reaches no Pallas
+kernel).  It
+  * trains Zamba2-1.2B at full width and depth in bf16 with remat (each
+    step of a stage's loop checkpointed), weights from a seed: 3 AdamW
+    steps (float32 moments and masters, warmup 1) of ``TokenPipeline``
+    batches of 8 sequences of 4,096 tokens as 4 microbatches of 2;
+    requires every loss and grad norm finite, parameters moved and none
+    NaN; prints seconds a step (the first apart), tokens per second, peak
+    device memory, the losses and an estimate of the model's FLOP/s
+    (6 x parameters x tokens over the step) beside the card's name and
+    power limit;
+  * cuts it to its first 6 Mamba2 layers and the shared block (full
+    width): saves the state through ``CheckpointManager`` after step 2,
+    restores it into a fresh state (``checkpoint_template``) and requires
+    step 3's loss and every leaf of the new state bit-equal to the
+    uninterrupted run's; times one more step and profiles another
+    (device milliseconds, operations, heaviest kernels, idle share);
+  * at that depth in float32 with TF32 off, requires 2 microbatches of a
+    batch of 4 x 1,024 tokens to equal the whole batch: loss, ce and grad
+    norm within rtol 1e-5, each first-moment leaf within rtol 1e-5 (Mamba2's
+    ``A_log`` and ``dt_bias`` within 1e-5 x their conditioning over the
+    per-token gradient terms), the parameters within the reference test's
+    5e-2 / 5e-3.
+
 Every phase prints one JSON line; the line before the last holds the
 kernel table (each combine once per mode and path, each row measured on
 that path's inputs beside that path's launches), the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -401,6 +429,8 @@ SESSION_SOURCES = 6            # queries each session submits (OOC 8 and
                                # DIST_OOC 10 before PR 23)
 SERVE_Q = 8                    # concurrent query slots
 PPR_ITERS = 1
+DIST_MQ_ITERS = 1              # DIST serving's multi_bfs depth (cut from
+                               # 2 to make room for the lm_train phase)
 
 
 def emit(**obj):
@@ -1398,6 +1428,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_lm_serve()
 
+    # -- 10c. LM training at full width and depth ---------------------------
+    run_lm_train(smi, tmp_root)
+
     # -- 11. the kernel table: combine rows per mode and path, each measured
     # on one call of that path and beside that path's launches only ------
     table = []
@@ -2062,7 +2095,8 @@ def run_dist_serve(store, *, dg, fm, serving):
     (:func:`check_session`, :func:`check_session_counters`, and every
     counter but the network's equal to the OOC session's over the steps
     before the first query joins); (b) ``multi_bfs`` of sources 0–7 for
-    two iterations, sequential and then with ``parallel_workers``,
+    ``DIST_MQ_ITERS`` iterations, sequential and then with
+    ``parallel_workers``,
     bit-identical; (c) ``personalized_pagerank`` of sources 0–7 within
     1e-5 of LOCAL serving's, every counter but the network's within rtol
     1e-5 of LOCAL's.  Every run checks measured == model for disk and
@@ -2212,7 +2246,7 @@ def run_dist_serve(store, *, dg, fm, serving):
     largest_panel = gaps["largest_panel"]
     del sess, results
 
-    # -- (b) multi_bfs, two iterations: sequential, then parallel ----------
+    # -- (b) multi_bfs, DIST_MQ_ITERS: sequential, then parallel -----------
     runs = {}
     for parallel in (False, True):
         e = eng if not parallel else engine(True)
@@ -2220,7 +2254,7 @@ def run_dist_serve(store, *, dg, fm, serving):
         copies0 = reset()
         t0 = time.perf_counter()
         with recorded_gap_streams() as bgaps:
-            levels, st = alg.multi_bfs(e, first, max_iters=2)
+            levels, st = alg.multi_bfs(e, first, max_iters=DIST_MQ_ITERS)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         name = "multi_bfs_parallel" if parallel else "multi_bfs"
@@ -2241,12 +2275,13 @@ def run_dist_serve(store, *, dg, fm, serving):
         raise AssertionError("dist multi_bfs: the parallel run is not "
                              "bit-identical to the sequential one")
     for j, s in enumerate(first):
-        want_it = min(2, solo[s][1].iterations)
+        want_it = min(DIST_MQ_ITERS, solo[s][1].iterations)
         if st.iterations[j] != want_it:
             raise AssertionError(f"dist multi_bfs: query {j} ran "
                                  f"{st.iterations[j]} iterations, want "
                                  f"{want_it}")
-    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q, max_iters=2,
+    emit(phase="dist_ooc_serve_multi_bfs", queries=SERVE_Q,
+         max_iters=DIST_MQ_ITERS,
          iterations=st.iterations, sequential_s=seq_s, parallel_s=par_s,
          launches=launches["multi_bfs"],
          parallel_launches=launches["multi_bfs_parallel"],
@@ -2846,6 +2881,341 @@ def run_lm_serve():
         torch.set_float32_matmul_precision(prev)
     emit(phase="lm_total", seconds=time.perf_counter() - t_phase)
     return out
+
+
+# ---------------------------------------------------------------------------
+# lm_train: single-card LM training at full width and depth
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "zamba2-1.2b"
+LM_TRAIN_SEQ = 4096            # the train_4k cell's sequence
+LM_TRAIN_BATCH = 8             # train_4k's global batch 256, cut to 8 ...
+LM_TRAIN_MICRO = 4             # ... as 4 microbatches of 2
+LM_TRAIN_STEPS = 3
+LM_TRAIN_CUT_LAYERS = 6        # resume and accumulation checks: the first
+                               # Mamba2 cycle and the shared block
+LM_ACCUM_BATCH, LM_ACCUM_SEQ = 4, 1024
+LM_ACCUM_RTOL = 1e-5           # tests/test_torch_train_loop.py's
+
+
+@contextlib.contextmanager
+def mamba_terms():
+    """Keeps, for each Mamba2 layer a train step runs, the per-token terms
+    whose sums over the tokens are its ``A_log`` and ``dt_bias``
+    gradients: dL/d(decay) x decay (decay = -exp(A_log) dt) and
+    dL/d(softplus input).  Yields ``{"A_log": [...], "dt_bias": [...]}``,
+    one ``[B, T, H]`` tensor a layer call, in call order."""
+    import torch.nn.functional as F
+    from repro_torch.models import mamba2
+    calls = {"A_log": [], "dt_bias": []}
+
+    def keep(kind, x, term):
+        slot = len(calls[kind])
+        calls[kind].append(None)
+
+        def hook(g):
+            calls[kind][slot] = term(g).detach()
+        x.register_hook(hook)
+
+    def chunked_gla(q, k, v, w, **kw):             # w: [B, H, T, 1]
+        keep("A_log", w, lambda g: (g * w.detach())[..., 0].transpose(1, 2))
+        return gla(q, k, v, w, **kw)
+
+    class Functional:
+        def __getattr__(self, name):
+            return getattr(F, name)
+
+        @staticmethod
+        def softplus(x, *args, **kw):
+            keep("dt_bias", x, lambda g: g)
+            return F.softplus(x, *args, **kw)
+
+    gla = mamba2.chunked_gla
+    mamba2.chunked_gla, mamba2.F = chunked_gla, Functional()
+    try:
+        yield calls
+    finally:
+        mamba2.chunked_gla, mamba2.F = gla, F
+
+
+def mamba_term_stats(model, names, mu1, calls):
+    """For each ``A_log`` and ``dt_bias`` leaf, from the terms ``mamba_terms``
+    kept over a step at one microbatch and then one at two: its
+    ``conditioning`` (|the sum of |terms| over the tokens| / |their sum|,
+    the first step's), ``term_rel_diff`` (sum |term difference| / sum
+    |term|, the two steps' terms of each token), ``bound`` (|the sum of
+    |term differences|| / |the sum|: the largest relative difference the
+    leaves can show from the terms alone) and ``witness_rel`` (the sum's
+    direction against the first moment's, which checks the mapping)."""
+    import torch
+    order = [(si, c) for si, st in enumerate(model.stages)
+             for _ in range(st.n) for c in range(len(st.cycle))]
+    n = len(order)
+    out = {}
+    for kind, kept in calls.items():
+        if len(kept) != 3 * n or any(t is None for t in kept):
+            raise AssertionError(f"lm_train accumulation: {len(kept)} "
+                                 f"{kind} term calls for {n} layers x 3")
+        for si, st in enumerate(model.stages):
+            for c in range(len(st.cycle)):
+                js = [j for j, o in enumerate(order) if o == (si, c)]
+                one = torch.stack([kept[j].double() for j in js])
+                two = torch.stack([torch.cat([kept[n + j], kept[2 * n + j]])
+                                   .double() / 2 for j in js])
+                total = one.sum(dim=(1, 2))               # [n, H]
+                size = float(torch.linalg.vector_norm(total))
+                name = f"stages/{si}/{c}/{kind}"
+                mu = mu1[name].double()
+                out[name] = dict(
+                    conditioning=float(torch.linalg.vector_norm(
+                        one.abs().sum(dim=(1, 2)))) / size,
+                    term_rel_diff=float((one - two).abs().sum()
+                                        / one.abs().sum()),
+                    bound=float(torch.linalg.vector_norm(
+                        (one - two).abs().sum(dim=(1, 2)))) / size,
+                    witness_rel=float(torch.linalg.vector_norm(
+                        total / size - mu / torch.linalg.vector_norm(mu))))
+                if out[name]["witness_rel"] > 1e-4:
+                    raise AssertionError(f"lm_train accumulation: the terms "
+                                         f"of {name} do not sum to its "
+                                         f"gradient ({out[name]})")
+    if set(out) - set(names):
+        raise AssertionError(f"lm_train accumulation: no leaves "
+                             f"{sorted(set(out) - set(names))}")
+    return out
+
+
+def run_lm_train(smi, tmp_root):
+    """Phase ``lm_train``: ``LM_TRAIN_ARCH`` at full width and depth in
+    bf16 with remat, weights from a seed, ``LM_TRAIN_STEPS`` AdamW steps
+    of ``LM_TRAIN_BATCH`` sequences of ``LM_TRAIN_SEQ`` tokens as
+    ``LM_TRAIN_MICRO`` microbatches (``TokenPipeline`` batches, warmup
+    1); then at ``LM_TRAIN_CUT_LAYERS`` layers (the first cycle and the
+    shared block, full width): resume through ``CheckpointManager`` after
+    step 2 into a fresh state, bit-equal to the uninterrupted step 3, and
+    in float32 with TF32 off two microbatches equal to one batch."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model import make_model
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train.loop import (
+        checkpoint_template, init_train_state, make_train_step,
+    )
+    from repro_torch.train.optimizer import OptConfig, flatten
+    from repro_torch.utils import tree_params
+    t_phase = time.perf_counter()
+    arch, seq, batch = LM_TRAIN_ARCH, LM_TRAIN_SEQ, LM_TRAIN_BATCH
+    micro, steps, cut_layers = LM_TRAIN_MICRO, LM_TRAIN_STEPS, \
+        LM_TRAIN_CUT_LAYERS
+    device = DEVICE
+    rules = make_rules(None)
+    opt_cfg = OptConfig(warmup_steps=1)
+    cfg = get_config(arch)
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch, seed=0)
+
+    def batch_at(i, p=pipe):
+        toks, tgt = p.batch_at(i)
+        return {"tokens": torch.from_numpy(toks).to(device),
+                "targets": torch.from_numpy(tgt).to(device)}
+
+    # -- full width and depth, bf16, remat --------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_model(cfg, remat=True, device=device)
+    t0 = time.perf_counter()
+    state = init_train_state(model, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tree_params(state["params"])
+    params0 = state["params"]
+    step = make_train_step(model, opt_cfg, rules, microbatches=micro)
+    step_s, losses, gnorms = [], [], []
+    for i in range(steps):
+        b = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))     # syncs with the device
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses + gnorms)):
+        raise AssertionError(f"lm_train: loss {losses}, grad norm {gnorms}")
+    leaves = flatten(state["params"])
+    if not all(bool(torch.isfinite(x).all()) for x in leaves):
+        raise AssertionError("lm_train: a parameter leaf holds NaN or inf")
+    moved = sum(not torch.equal(a.to(b.dtype), b)
+                for a, b in zip(flatten(params0), leaves))
+    if moved == 0 or int(state["step"]) != steps:
+        raise AssertionError(f"lm_train: {moved} leaves moved, step "
+                             f"{int(state['step'])}")
+    tokens = batch * seq
+    steady = step_s[1:] or step_s
+    steady_s = sum(steady) / len(steady)
+    emit(phase="lm_train", arch=arch, dtype=cfg.dtype, remat=True,
+         layers=cfg.num_layers, d_model=cfg.d_model, params=n_params,
+         seq=seq, global_batch=batch, microbatches=micro, steps=steps,
+         opt=dataclasses.asdict(opt_cfg), init_s=init_s,
+         first_step_s=step_s[0], steady_s_per_step=steady_s,
+         step_s=step_s, tokens_per_step=tokens,
+         tokens_per_s=tokens / steady_s, losses=losses, grad_norms=gnorms,
+         leaves_moved=moved, leaves=len(leaves),
+         model_flops_per_s_estimate=6 * n_params * tokens / steady_s,
+         max_memory_allocated=peak, max_memory_gb=peak / 1e9,
+         nvidia_smi=smi)
+    print(f"lm_train {arch}: {steady_s:.3f} s/step after a first step of "
+          f"{step_s[0]:.3f} s, {tokens / steady_s:.0f} tokens/s, peak "
+          f"{peak / 1e9:.1f} GB, losses {losses}, model FLOP/s (estimate, "
+          f"6 N tokens / step) {6 * n_params * tokens / steady_s:.3e} "
+          f"[{smi}]", flush=True)
+    del model, state, params0, step, leaves, m, b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- resume at the cut depth: save after step 2, restore into a fresh
+    # state, step 3 bit-equal to the uninterrupted run's ------------------
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(cfg, num_layers=cut_layers)
+    model = make_model(cut, remat=True, device=device)
+    step = make_train_step(model, opt_cfg, rules, microbatches=micro)
+    state = init_train_state(model, seed=0)
+    for i in range(2):
+        state, _ = step(state, batch_at(i))
+    ckpt = tempfile.mkdtemp(prefix="lm-ckpt-", dir=tmp_root)
+    try:
+        mgr = CheckpointManager(ckpt)
+        t1 = time.perf_counter()
+        saved = mgr.save(state, step=2)
+        save_s = time.perf_counter() - t1
+        whole, m3 = step(state, batch_at(2))
+        del state
+        fresh = init_train_state(model, seed=1)
+        t1 = time.perf_counter()
+        got_step, restored = mgr.restore_into(checkpoint_template(fresh,
+                                                                  model))
+        restore_s = time.perf_counter() - t1
+        del fresh
+        again, m3b = step(restored, batch_at(2))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    loss_equal = bool(torch.equal(m3["loss"], m3b["loss"]))
+    fw, fa = flatten(whole), flatten(again)
+    state_equal = len(fw) == len(fa) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(fw, fa))
+    if got_step != 2 or not loss_equal or not state_equal:
+        raise AssertionError(
+            f"lm_train resume: step {got_step}, loss {float(m3['loss'])} vs "
+            f"{float(m3b['loss'])}, states equal {state_equal}")
+    # where a step's time goes, at the cut depth: the wall time of one
+    # step beside the card's busy time in a profiled one
+    b3 = batch_at(2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    step(whole, b3)
+    torch.cuda.synchronize()
+    cut_step_s = time.perf_counter() - t1
+    busy_ms, ops, top = decode_profile(lambda: step(whole, b3), reps=1)
+    emit(phase="lm_train_resume", arch=arch, layers=cut_layers,
+         stages=[(len(st.cycle), st.n, st.shared_attn)
+                 for st in model.stages], params=tree_params(whole["params"]),
+         checkpoint_bytes=saved["bytes_written"],
+         blocks_written=saved["blocks_written"], save_s=save_s,
+         restore_s=restore_s, step3_loss=float(m3["loss"]),
+         loss_bit_equal=loss_equal, state_bit_equal=state_equal,
+         step_s=cut_step_s, device_ms_per_step=busy_ms,
+         device_ops_per_step=ops, device_idle_share=1 - busy_ms / 1e3
+         / cut_step_s, top_device_ops_ms_per_step=top,
+         seconds=time.perf_counter() - t0)
+    del model, step, whole, again, restored, m3, m3b, b3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_lm_train_accum(cut, opt_cfg, rules, device)
+    emit(phase="lm_train_total", seconds=time.perf_counter() - t_phase)
+
+
+def run_lm_train_accum(cut, opt_cfg, rules, device):
+    """``lm_train``'s accumulation check: ``cut`` in float32 with TF32
+    off, one step of ``LM_ACCUM_BATCH`` x ``LM_ACCUM_SEQ`` tokens as two
+    microbatches against the same step as one; loss, ce and grad norm
+    within ``LM_ACCUM_RTOL``, each first-moment leaf within it (Mamba2's
+    ``A_log`` and ``dt_bias`` within it times their conditioning, measured
+    by ``mamba_terms``), the parameters within the reference test's
+    5e-2 / 5e-3."""
+    import dataclasses
+    import torch
+    from repro_torch.ckpt.blockstore import _leaves_with_paths
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model import make_model
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import flatten
+    t0 = time.perf_counter()
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = make_model(dataclasses.replace(cut, dtype="float32"),
+                           device=device)
+        state = init_train_state(model, seed=2)
+        toks, tgt = TokenPipeline(cut.vocab_size, LM_ACCUM_SEQ,
+                                  LM_ACCUM_BATCH, seed=3).batch_at(0)
+        b = {"tokens": torch.from_numpy(toks).to(device),
+             "targets": torch.from_numpy(tgt).to(device)}
+        with mamba_terms() as term_calls:
+            out = [make_train_step(model, opt_cfg, rules, microbatches=n)(
+                state, b) for n in (1, 2)]
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    (s1, m1), (s2, m2) = out
+    worst = {}
+    for k in ("loss", "ce", "grad_norm"):
+        a, c = float(m1[k]), float(m2[k])
+        worst[k] = abs(a - c) / max(abs(a), 1e-30)
+        if worst[k] > LM_ACCUM_RTOL:
+            raise AssertionError(f"lm_train accumulation: {k} {a} vs {c}")
+    # the first moments are (1 - b1) x the clipped gradients, each leaf
+    # within rtol; a leaf whose gradient is a sum over tokens that cancels
+    # (Mamba2's A_log and dt_bias) within rtol x its measured conditioning
+    names = [k for k, _ in _leaves_with_paths(s1["opt"]["mu"])]
+    mu1 = dict(zip(names, flatten(s1["opt"]["mu"])))
+    mu2 = dict(zip(names, flatten(s2["opt"]["mu"])))
+    terms = mamba_term_stats(model, names, mu1, term_calls)
+    leaf_diff, bad = {}, []
+    for name in names:
+        a, c = mu1[name].double(), mu2[name].double()
+        d = float(torch.linalg.vector_norm(a - c)
+                  / max(float(torch.linalg.vector_norm(a)), 1e-30))
+        leaf_diff[name] = d
+        tol = LM_ACCUM_RTOL * terms.get(name, {}).get("conditioning", 1.0)
+        if d > tol:
+            bad.append((name, d, tol))
+        if name in terms:
+            terms[name]["mu_rel_diff"], terms[name]["tol"] = d, tol
+    if bad:
+        raise AssertionError(f"lm_train accumulation: first moments differ "
+                             f"(leaf, relative difference, tolerance): "
+                             f"{bad[:8]}")
+    plain = {k: v for k, v in leaf_diff.items() if k not in terms}
+    worst_plain = max(plain, key=plain.get)
+    # parameters to accumulation-order tolerance (the reference's test's)
+    for a, c in zip(flatten(s1["params"]), flatten(s2["params"])):
+        if not torch.allclose(a, c, rtol=5e-2, atol=5e-3):
+            raise AssertionError("lm_train accumulation: parameters differ")
+    emit(phase="lm_train_accum", arch=cut.name, layers=cut.num_layers,
+         dtype="float32", tf32=False, batch=LM_ACCUM_BATCH,
+         seq=LM_ACCUM_SEQ,
+         microbatches=[1, 2], rtol=LM_ACCUM_RTOL, rel_diff=worst,
+         mu_leaves=len(names),
+         mu_worst_plain_leaf=[worst_plain, plain[worst_plain]],
+         mamba_terms=terms, seconds=time.perf_counter() - t0)
+    del model, state, out, s1, s2, mu1, mu2, term_calls
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

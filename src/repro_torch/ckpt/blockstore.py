@@ -20,7 +20,10 @@ Trees are nested dicts, lists and tuples (named tuples too) of numpy
 arrays, torch tensors or scalars.  Their flattened keys are the
 reference's: dict keys visited in sorted order, path parts joined with
 ``/`` (a named-tuple field is ``.name``), so either package restores the
-other's checkpoints.
+other's checkpoints.  A bfloat16 leaf is stored as its bits under the
+dtype name ``"bfloat16"``, as the reference stores it; ``restore`` gives
+it back as a torch bfloat16 tensor, since numpy has no bfloat16 of its
+own.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import hashlib
 import json
 import os
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -36,6 +40,14 @@ import torch
 from repro_torch.utils import IntegrityError, atomic_write_json, json_crc
 
 DEFAULT_BLOCK_BYTES = 1 << 22       # 4 MiB
+BF16 = "bfloat16"
+# blocks hashed, written and read by this many threads (hashlib and file
+# I/O release the GIL); the files and the counts are one thread's
+IO_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _digest(data) -> str:
+    return hashlib.sha256(data).hexdigest()[:32]
 
 
 def _children(node):
@@ -62,9 +74,22 @@ def _leaves_with_paths(tree, prefix=()):
 
 
 def _as_array(leaf) -> np.ndarray:
+    """The leaf's bytes as a numpy array; a bfloat16 tensor's are its
+    bits as uint16 (numpy has no bfloat16 of its own)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(leaf, arr: np.ndarray) -> str:
+    """The manifest's dtype: the reference's ``str(arr.dtype)``, which is
+    ``"bfloat16"`` for a bfloat16 leaf."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return BF16
+    return str(arr.dtype)
 
 
 def _flatten_with_paths(tree: Any) -> dict[str, np.ndarray]:
@@ -79,9 +104,12 @@ def _rebuild(template, flat, prefix=()):
     if kids is None:
         arr = flat["/".join(prefix)]
         if isinstance(template, torch.Tensor):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                dtype=template.dtype, device=template.device).reshape(
-                template.shape)
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.ascontiguousarray(arr))
+            return arr.to(dtype=template.dtype,
+                          device=template.device).reshape(template.shape)
+        if isinstance(arr, torch.Tensor):     # bfloat16: exact in float32
+            arr = arr.float().numpy()
         dtype = getattr(template, "dtype", np.asarray(template).dtype)
         shape = getattr(template, "shape", np.shape(template))
         return arr.astype(dtype).reshape(shape)
@@ -124,16 +152,11 @@ class BlockStore:
     def _block_path(self, digest: str) -> str:
         return os.path.join(self.root, "blocks", digest + ".blk")
 
-    def _put_block(self, data: bytes) -> tuple[str, bool]:
-        digest = hashlib.sha256(data).hexdigest()[:32]
-        path = self._block_path(digest)
-        if os.path.exists(path):
-            return digest, False          # COW reuse — no I/O
-        fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path))
+    def _write_block(self, digest: str, data) -> None:
+        fd, tmp = tempfile.mkstemp(dir=os.path.join(self.root, "blocks"))
         with os.fdopen(fd, "wb") as f:
             f.write(data)
-        os.replace(tmp, path)             # atomic
-        return digest, True
+        os.replace(tmp, self._block_path(digest))    # atomic
 
     def _get_block(self, digest: str) -> bytes:
         path = self._block_path(digest)
@@ -141,7 +164,7 @@ class BlockStore:
             data = f.read()
         # The stored name IS the expected digest, so re-hashing on read
         # detects a flipped byte before it can reach a restore.
-        got = hashlib.sha256(data).hexdigest()[:32]
+        got = _digest(data)
         if got != digest:
             raise IntegrityError(
                 f"checkpoint block {path} failed its content hash "
@@ -151,24 +174,31 @@ class BlockStore:
     # -- checkpoint level ----------------------------------------------------
     def save(self, tree: Any, step: int) -> dict:
         """Write a checkpoint; returns stats (blocks written vs reused)."""
-        flat = _flatten_with_paths(tree)
         manifest = {"step": step, "arrays": {}}
         written = reused = bytes_written = 0
-        for key, arr in flat.items():
-            raw = np.ascontiguousarray(arr).tobytes()
-            hashes = []
-            for off in range(0, max(len(raw), 1), self.block_bytes):
-                digest, new = self._put_block(raw[off:off + self.block_bytes])
-                hashes.append(digest)
-                if new:
-                    written += 1
-                    bytes_written += min(self.block_bytes, len(raw) - off)
-                else:
-                    reused += 1
-            manifest["arrays"][key] = {
-                "shape": list(arr.shape), "dtype": str(arr.dtype),
-                "blocks": hashes,
-            }
+        with ThreadPoolExecutor(IO_THREADS) as pool:
+            for key, leaf in _leaves_with_paths(tree):
+                arr = _as_array(leaf)
+                raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+                blocks = [raw[off:off + self.block_bytes] for off in
+                          range(0, max(raw.size, 1), self.block_bytes)]
+                hashes = list(pool.map(_digest, blocks))
+                # a block is new at its first occurrence when its file is
+                # missing; a repeat, here or in an earlier leaf, is reused
+                fresh = {}
+                for digest, block in zip(hashes, blocks):
+                    if digest in fresh or os.path.exists(
+                            self._block_path(digest)):
+                        reused += 1                # COW reuse — no I/O
+                    else:
+                        fresh[digest] = block
+                        written += 1
+                        bytes_written += block.size
+                list(pool.map(self._write_block, fresh, fresh.values()))
+                manifest["arrays"][key] = {
+                    "shape": list(arr.shape),
+                    "dtype": _dtype_name(leaf, arr), "blocks": hashes,
+                }
         manifest["crc"] = json_crc({k: v for k, v in manifest.items()
                                     if k != "crc"})
         mpath = os.path.join(self.root, "manifests", f"{step:012d}.json")
@@ -196,14 +226,20 @@ class BlockStore:
                     f"(stored crc {want}, computed {got})")
         return manifest
 
-    def restore(self, step: int) -> dict[str, np.ndarray]:
+    def restore(self, step: int) -> dict[str, np.ndarray | torch.Tensor]:
         manifest = self._load_manifest(step)
         out = {}
-        for key, meta in manifest["arrays"].items():
-            raw = b"".join(self._get_block(h) for h in meta["blocks"])
-            out[key] = np.frombuffer(
-                raw, dtype=np.dtype(meta["dtype"])).reshape(
-                meta["shape"]).copy()
+        with ThreadPoolExecutor(IO_THREADS) as pool:
+            for key, meta in manifest["arrays"].items():
+                raw = bytearray().join(pool.map(self._get_block,
+                                                meta["blocks"]))
+                if meta["dtype"] == BF16:  # bits into a torch bfloat16 tensor
+                    out[key] = torch.from_numpy(np.frombuffer(
+                        raw, dtype=np.int16).reshape(meta["shape"])).view(
+                        torch.bfloat16)
+                    continue
+                out[key] = np.frombuffer(
+                    raw, dtype=np.dtype(meta["dtype"])).reshape(meta["shape"])
         return out
 
     def restore_latest(self) -> tuple[int, dict[str, np.ndarray]] | None:

@@ -63,8 +63,15 @@ def filter_sendmask(amask, need, need_counts, m, cfg, xp=torch):
     if not cfg.enable_filtering:
         return base
     filtered = amask[..., None, :] & need
-    skip = _f32(need_counts, xp) >= (
-        cfg.filter_skip_threshold * xp.asarray(m)[..., None])
+    if xp is np and isinstance(m, (int, float)) and \
+            not isinstance(m, np.generic):
+        # A Python number stays a weak scalar, as in the reference: the
+        # compare then runs in float32 (DIST_OOC); a numpy scalar or array
+        # m keeps its own precision (OOC's float64).
+        bound = cfg.filter_skip_threshold * m
+    else:
+        bound = cfg.filter_skip_threshold * xp.asarray(m)[..., None]
+    skip = _f32(need_counts, xp) >= bound
     return xp.where(skip[..., None], base, filtered)
 
 

@@ -438,6 +438,14 @@ class ProcMesh:
                     ("127.0.0.1", peer_port),
                     timeout=max(0.1, min(5.0,
                                          deadline - time.monotonic())))
+                # The timeout bounds the connect only.  Kept, it would
+                # also bound every later read and send, and a peer quiet
+                # for longer than that between heartbeats (a quarter of
+                # the stall timeout) would be declared dead while alive;
+                # the accepted side is blocking already, and liveness is
+                # the heartbeats' and the stall detector's job.  (The
+                # reference keeps the timeout.)
+                sock.settimeout(None)
                 sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
                 sock.sendall(pack_frame(K_HELLO, src_w=self.rank))
                 return sock
@@ -472,8 +480,10 @@ class ProcMesh:
                 # A corrupt control/fail/hello frame cannot be trusted to
                 # have parsed its own length correctly — kill the link
                 # and let recovery own it.
+                self._report_link_lost(peer, "read", exc)
                 frame = None
-            except (TransportError, OSError, ValueError):
+            except (TransportError, OSError, ValueError) as exc:
+                self._report_link_lost(peer, "read", exc)
                 frame = None
             if frame is None:
                 self._mark_dead(peer.rank)
@@ -537,7 +547,8 @@ class ProcMesh:
                     continue
                 try:
                     peer.send(beat)
-                except OSError:
+                except OSError as exc:
+                    self._report_link_lost(peer, "heartbeat", exc)
                     self._mark_dead(peer.rank)
 
     def check_stalls(self, ranks) -> None:
@@ -576,6 +587,18 @@ class ProcMesh:
         print("transport stall: " + json.dumps(report), file=sys.stderr,
               flush=True)
 
+    def _report_link_lost(self, peer: _Peer, where: str, exc) -> None:
+        """A link that fails with an error (not a clean EOF at a frame
+        boundary, a peer's normal exit) marks the peer dead without a
+        stall report: write what failed to stderr as one JSON line, so
+        that a live peer declared dead is diagnosable from the log."""
+        print("transport link lost: " + json.dumps(dict(
+            rank=self.rank, peer=peer.rank, where=where,
+            error=f"{type(exc).__name__}: {exc}",
+            silent_s=time.monotonic() - peer.last_recv,
+            rx_frames=peer.rx_frames, rx_bytes=peer.rx_bytes)),
+            file=sys.stderr, flush=True)
+
     def _check_stalls_locked(self, ranks) -> None:
         """:meth:`check_stalls` body for callers already holding ``cv``
         (the Condition's lock is not re-entrant).
@@ -611,7 +634,8 @@ class ProcMesh:
                 peer.send_stalled(data, stall[0], stall[1])
             else:
                 peer.send(data)
-        except OSError:
+        except OSError as exc:
+            self._report_link_lost(peer, "send", exc)
             self._mark_dead(rank)
             if not ignore_dead:
                 raise WorkerDied({rank})

@@ -5,7 +5,8 @@ Python values for the static ones, as taken from a ``repro`` structure with
 ``np.asarray`` — into the port's structure on a device.  For this system
 the graph, its formats and its tiles play the part weights play for a
 model: the tests hand both packages identical structures through here;
-:func:`lm_params_from_jax` carries an LM parameter tree across.
+:func:`lm_params_from_jax` carries an LM parameter tree across and
+:func:`train_state_from_jax` a training state.
 Nothing in this module imports ``repro`` or ``jax``; the caller does the
 taking.
 """
@@ -110,3 +111,14 @@ def lm_params_from_jax(tree: Mapping, cfg, device=None) -> dict:
                              f"stages {[(len(s.cycle), s.n) for s in stages]}")
     return out
 
+
+def train_state_from_jax(state: Mapping, cfg, device=None) -> dict:
+    """The reference's training state (``init_train_state``'s
+    ``{"params", "opt": {mu, nu, master}, "step"}``, leaves taken with
+    ``np.asarray``) as the port's on ``device``: each of the four trees
+    through :func:`lm_params_from_jax`, the step a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    return {"params": lm_params_from_jax(state["params"], cfg, dev),
+            "opt": {k: lm_params_from_jax(state["opt"][k], cfg, dev)
+                    for k in ("mu", "nu", "master")},
+            "step": _leaf_to(state["step"], dev)}

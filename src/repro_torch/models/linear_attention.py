@@ -17,9 +17,12 @@ before the exp.  Scalar decay uses a cheap [L, L] outer form instead of the
 [L, L, Dk] per-channel tensor.
 
 The port's plain-torch copy of ``repro.models.linear_attention`` (jnp
-there, not a Pallas kernel): a loop over chunks in place of ``lax.scan``,
-float32 inside.  The hand-written ``kernels/gla_chunk`` computes the same
-chunked form; the models call this one, as the reference's do.
+there, not a Pallas kernel), float32 inside, differentiable by autograd
+(the training path's), with ``ref_recurrent_gla`` the step-by-step
+oracle.  Where the reference scans the chunks, the port computes every
+chunk's terms at once and loops only over the carried state.  The
+hand-written ``kernels/gla_chunk`` computes the same chunked form; the
+models call this one, as the reference's do.
 """
 from __future__ import annotations
 
@@ -28,59 +31,70 @@ import torch
 F32 = torch.float32
 
 
+def _intra_per_channel(qi, ki, lq, lc, tri):
+    """One chunk's intra-chunk scores under per-channel decay: the
+    [B, H, L, L, Dk] tensor a chunk at a time bounds its memory."""
+    diff = lq[:, :, :, None, :] - lc[:, :, None, :, :]        # [B,H,L,L,Dk]
+    diff = torch.where(tri[:, :, None], diff, -torch.inf)
+    return torch.einsum("bhld,bhmd,bhlmd->bhlm", qi, ki, torch.exp(diff))
+
+
 def chunked_gla(q, k, v, log_decay, *, chunk: int, state=None,
                 include_current: bool = True, bonus=None):
     """q, k: [B, H, T, Dk]; v: [B, H, T, Dv];
     log_decay: [B, H, T, Dk] (per-channel) or [B, H, T, 1] (scalar).
     bonus: [H, Dk] current-token bonus (RWKV u) or None.
-    Returns (y [B, H, T, Dv], final_state [B, H, Dk, Dv])."""
+    Returns (y [B, H, T, Dv], final_state [B, H, Dk, Dv]).
+
+    Every chunk's intra-chunk terms and state contribution are computed
+    at once (a chunk axis N beside the batch); only the carried state
+    walks the chunks, two operations a chunk.  Under autograd that keeps
+    a layer's operations near constant in T / chunk."""
     b, h, t, dk = q.shape
     dv = v.shape[-1]
     assert t % chunk == 0, (t, chunk)
+    nc = t // chunk
     scalar_decay = log_decay.shape[-1] == 1
+
+    def split(x):                                             # [B,H,N,L,D]
+        return x.reshape(b, h, nc, chunk, x.shape[-1]).to(F32)
+    qc, kc, vc, wc = split(q), split(k), split(v), split(log_decay)
     if state is None:
         state = torch.zeros((b, h, dk, dv), dtype=F32, device=q.device)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=q.device),
                      0 if include_current else -1)
-    eye = torch.eye(chunk, dtype=F32, device=q.device)
-    bonus32 = None if bonus is None else bonus.to(F32)
-    s_in = state
-    ys = []
-    for c0 in range(0, t, chunk):
-        sl = slice(c0, c0 + chunk)
-        qi, ki, vi = q[:, :, sl].to(F32), k[:, :, sl].to(F32), v[:, :, sl].to(F32)
-        wi = log_decay[:, :, sl].to(F32)
-        lc = torch.cumsum(wi, dim=2)                          # [B,H,L,{Dk|1}]
-        lq = lc if include_current else lc - wi               # Lq_t
-        l_last = lc[:, :, -1:, :]                             # [B,H,1,{Dk|1}]
+    lc = torch.cumsum(wc, dim=3)                      # [B,H,N,L,{Dk|1}]
+    lq = lc if include_current else lc - wc                   # Lq_t
+    l_last = lc[:, :, :, -1:, :]                      # [B,H,N,1,{Dk|1}]
 
-        # inter-chunk
-        y = torch.einsum("bhld,bhdv->bhlv", qi * torch.exp(lq), s_in)
+    # intra-chunk
+    if scalar_decay:
+        diff = lq[..., :, None, 0] - lc[..., None, :, 0]      # [B,H,N,L,L]
+        diff = torch.where(tri, diff, -torch.inf)
+        a = torch.einsum("bhnld,bhnmd->bhnlm", qc, kc) * torch.exp(diff)
+    else:
+        a = torch.stack([_intra_per_channel(qc[:, :, n], kc[:, :, n],
+                                            lq[:, :, n], lc[:, :, n], tri)
+                         for n in range(nc)], dim=2)
+    if bonus is not None:
+        diag = (qc * bonus.to(F32)[None, :, None, None, :] * kc).sum(-1)
+        a = a + torch.eye(chunk, dtype=F32, device=q.device) * diag[..., None]
 
-        # intra-chunk
-        if scalar_decay:
-            diff = lq[:, :, :, None, 0] - lc[:, :, None, :, 0]    # [B,H,L,L]
-            diff = torch.where(tri, diff, -torch.inf)
-            a = torch.einsum("bhld,bhmd->bhlm", qi, ki) * torch.exp(diff)
-        else:
-            diff = lq[:, :, :, None, :] - lc[:, :, None, :, :]    # [B,H,L,L,Dk]
-            diff = torch.where(tri[:, :, None], diff, -torch.inf)
-            a = torch.einsum("bhld,bhmd,bhlmd->bhlm", qi, ki,
-                             torch.exp(diff))
-        if bonus32 is not None:
-            diag = (qi * bonus32[None, :, None, :] * ki).sum(-1)  # [B,H,L]
-            a = a + eye[None, None] * diag[:, :, :, None]
-        y = y + torch.einsum("bhlm,bhmv->bhlv", a, vi)
+    # each chunk's state contribution, then the carried state
+    kv = torch.einsum("bhnld,bhnlv->bhndv", kc * torch.exp(l_last - lc), vc)
+    decay = torch.exp(l_last.transpose(3, 4) if not scalar_decay
+                      else l_last[:, :, :, 0, :, None])   # [B,H,N,{Dk|1},1]
+    s_in, starts = state, []
+    for dec_n, kv_n in zip(decay.unbind(2), kv.unbind(2)):
+        starts.append(s_in)
+        s_in = dec_n * s_in + kv_n
 
-        # state update
-        k_scaled = ki * torch.exp(l_last - lc)
-        decay = (l_last.transpose(2, 3) if not scalar_decay
-                 else l_last[:, :, 0, :, None])
-        s_in = torch.exp(decay) * s_in + torch.einsum(
-            "bhld,bhlv->bhdv", k_scaled, vi)
-        ys.append(y.to(q.dtype))
-    return torch.cat(ys, dim=2), s_in
+    # inter-chunk, then intra
+    y = torch.einsum("bhnld,bhndv->bhnlv", qc * torch.exp(lq),
+                     torch.stack(starts, dim=2))
+    y = y + torch.einsum("bhnlm,bhnmv->bhnlv", a, vc)
+    return y.reshape(b, h, t, dv).to(q.dtype), s_in
 
 
 def gla_decode_step(q1, k1, v1, w1, state, *, include_current: bool = True,
@@ -100,3 +114,19 @@ def gla_decode_step(q1, k1, v1, w1, state, *, include_current: bool = True,
             y = y + (q1 * bonus.to(F32) * k1).sum(-1, keepdim=True) * v1
         new_state = decay * state + kv
     return y, new_state
+
+
+def ref_recurrent_gla(q, k, v, log_decay, *, state=None,
+                      include_current=True, bonus=None):
+    """O(T) reference recurrence (oracle for tests and the kernel)."""
+    b, h, t, dk = q.shape
+    dv = v.shape[-1]
+    if state is None:
+        state = torch.zeros((b, h, dk, dv), dtype=F32, device=q.device)
+    ys = []
+    for i in range(t):
+        y, state = gla_decode_step(
+            q[:, :, i], k[:, :, i], v[:, :, i], log_decay[:, :, i], state,
+            include_current=include_current, bonus=bonus)
+        ys.append(y)
+    return torch.stack(ys, dim=2).to(q.dtype), state

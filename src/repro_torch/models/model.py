@@ -26,6 +26,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -219,12 +220,14 @@ def _init_block_cache(desc: Desc, cfg: ModelConfig, lead: tuple, batch: int,
 
 class Model:
     """One architecture on one device (``"cuda"`` unless ``device`` says
-    otherwise).  ``remat`` is the reference's compile-time option,
-    accepted and ignored until the training port."""
+    otherwise).  ``remat`` checkpoints each step of a stage's loop on the
+    forward (training) path, as the reference's ``jax.checkpoint`` of its
+    scan body does; decode ignores it."""
 
     def __init__(self, cfg: ModelConfig, remat: bool = False, *,
                  device=None):
         self.cfg = cfg
+        self.remat = remat
         self.device = resolve_device(device)
         self.stages = _group_stages(_layer_descs(cfg), len(cfg.attn.pattern),
                                     cfg.shared_attn_every)
@@ -276,10 +279,14 @@ class Model:
         """The stage's layers in order; with ``cache`` (the stage's stacked
         cache) each layer reads and advances its slice.  ``shared`` is
         zamba2's shared block, applied after each cycle when the stage
-        says so, with its own per-invocation cache in decode."""
+        says so, with its own per-invocation cache in decode.  Without a
+        cache and with ``remat``, each step of the loop (the cycle's
+        blocks plus the shared block) is checkpointed: its activations
+        are recomputed in the backward pass, as ``jax.checkpoint`` of the
+        reference's scan body."""
         cfg = self.cfg
-        aux = x.new_zeros((), dtype=torch.float32)
-        for i in range(stage.n):
+
+        def body(i, x, aux):
             for j, desc in enumerate(stage.cycle):
                 cj = None if cache is None else _index(cache[j], i)
                 x, a, nc = _apply_block(
@@ -295,6 +302,15 @@ class Model:
                     shared, SHARED, x, cfg, rules, positions=positions,
                     cache=sc, decode_pos=decode_pos, causal=causal)
                 aux = aux + a
+            return x, aux
+
+        remat = self.remat and cache is None
+        aux = x.new_zeros((), dtype=torch.float32)
+        for i in range(stage.n):
+            if remat:
+                x, aux = checkpoint(body, i, x, aux, use_reentrant=False)
+            else:
+                x, aux = body(i, x, aux)
         return x, aux
 
     # -- forward (train / prefill) --------------------------------------------

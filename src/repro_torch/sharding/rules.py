@@ -4,8 +4,8 @@
 Model code annotates arrays with *logical* axis names; a ``ShardingRules``
 object maps those to mesh axes.  On one card there is no mesh: the rules
 are a no-op (``shard`` returns its input), and every model signature keeps
-its ``rules`` argument so the training slice can hand in a mesh-backed
-table without touching the models.
+its ``rules`` argument so the mesh half of training (slice 8b) can hand
+in a mesh-backed table without touching the models.
 
 Logical axes used across the stack:
   batch, seq, d_model, heads, kv_heads, head_dim, d_ff, vocab, experts,
@@ -42,10 +42,10 @@ class ShardingRules:
 
 def make_rules(mesh=None, **overrides: AxisVal) -> ShardingRules:
     """The rules for one card (``mesh=None``); keyword overrides fill the
-    table as in the reference.  A device mesh is the training slice's."""
+    table as in the reference.  A device mesh is slice 8b's."""
     if mesh is not None:
         raise NotImplementedError(
             "make_rules(mesh): mesh-backed sharding rules come with the LM "
-            "training port (slice 8); the port serves on one card with "
-            "make_rules(None)")
+            "training port's mesh half (slice 8b); the port serves and "
+            "trains on one card with make_rules(None)")
     return ShardingRules(None, dict(overrides))

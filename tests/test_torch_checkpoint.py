@@ -180,6 +180,27 @@ def test_checkpoints_byte_identical_to_the_references(tmp_path):
         _tree_files(str(tmp_path / "jax"))
 
 
+def test_repeated_blocks_counted_as_the_references(tmp_path):
+    """A leaf of identical blocks (a fresh state's zero moments) writes one
+    block and reuses the rest, as one thread would: the counts and the
+    files equal the reference's, save after save."""
+    from repro.ckpt import BlockStore as RefStore
+    zeros = np.zeros(64 * 16, np.float32)          # 16 blocks of 256 bytes
+    trees = [{"mu": zeros, "nu": zeros.copy(),
+              "w": np.tile(np.arange(64, dtype=np.float32), 16)},
+             {"mu": zeros + 1, "nu": zeros.copy(),
+              "w": np.arange(64 * 16, dtype=np.float32)}]
+    stats = {}
+    for cls, name in ((BlockStore, "port"), (RefStore, "jax")):
+        store = cls(str(tmp_path / name), keep=2, block_bytes=256)
+        stats[name] = [store.save(t, step=s) for s, t in enumerate(trees)]
+    assert stats["port"] == stats["jax"]
+    assert stats["port"][0] == dict(blocks_written=2, blocks_reused=46,
+                                    bytes_written=512)
+    assert _tree_files(str(tmp_path / "port")) == \
+        _tree_files(str(tmp_path / "jax"))
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_each_package_restores_the_others(tmp_path, writer):
     from repro.ckpt import BlockStore as RefStore
@@ -200,3 +221,93 @@ def test_each_package_restores_the_others(tmp_path, writer):
     assert step == 5
     np.testing.assert_array_equal(back["s:rank"], t["s:rank"])
     assert reader(str(tmp_path)).verify() == []
+
+
+# ---------------------------------------------------------------------------
+# Training states (bfloat16 params, float32 moments and masters, the step)
+# ---------------------------------------------------------------------------
+
+def _bits(x):
+    """A leaf's raw bytes (a bfloat16 tensor's or ml_dtypes array's bits)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        return x.numpy().tobytes(), tuple(x.shape)
+    a = np.asarray(x)
+    return a.tobytes(), a.shape
+
+
+@pytest.fixture(scope="module")
+def train_states():
+    """The reference's fresh reduced zamba2 state (bfloat16 params) and the
+    port's copy of it."""
+    import jax
+    from repro.configs import get_reduced as j_get_reduced
+    from repro.models.model import make_model as j_make_model
+    from repro.train.loop import init_train_state as j_init
+    from repro_torch.configs import get_reduced
+    from repro_torch.interop import train_state_from_jax
+    jstate = jax.tree_util.tree_map(
+        np.asarray, j_init(j_make_model(j_get_reduced("zamba2-1.2b")),
+                           jax.random.PRNGKey(0)))
+    assert jstate["params"]["embed"]["table"].dtype.name == "bfloat16"
+    state = train_state_from_jax(jstate, get_reduced("zamba2-1.2b"),
+                                 device="cpu")
+    return jstate, state
+
+
+def test_train_state_checkpoints_byte_identical(tmp_path, train_states):
+    from repro.ckpt import CheckpointManager as RefManager
+    jstate, state = train_states
+    RefManager(str(tmp_path / "jax")).save(jstate, step=3)
+    CheckpointManager(str(tmp_path / "port")).save(state, step=3)
+    assert _tree_files(str(tmp_path / "port")) == \
+        _tree_files(str(tmp_path / "jax"))
+    with open(tmp_path / "port" / "manifests" / f"{3:012d}.json") as f:
+        dtypes = {m["dtype"] for m in json.load(f)["arrays"].values()}
+    assert dtypes == {"bfloat16", "float32", "int32"}
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_train_state_crosses_between_packages(tmp_path, train_states,
+                                              writer):
+    """A training state saved by either package's ``CheckpointManager``
+    restores into the other's template bit for bit (the port's template:
+    tensors; the reference's: numpy arrays)."""
+    from repro.ckpt import CheckpointManager as RefManager
+    from repro_torch.ckpt.blockstore import _leaves_with_paths
+    jstate, state = train_states
+    if writer == "jax":
+        RefManager(str(tmp_path)).save(jstate, step=3)
+        step, got = CheckpointManager(str(tmp_path)).restore_into(
+            _zeros_like(state))
+    else:
+        CheckpointManager(str(tmp_path)).save(state, step=3)
+        step, got = RefManager(str(tmp_path)).restore_into(
+            _zeros_like(jstate))
+    assert step == 3
+    want = dict(_leaves_with_paths(state if writer == "port" else jstate))
+    have = dict(_leaves_with_paths(got))
+    assert have.keys() == want.keys()
+    for k in want:
+        assert _bits(have[k]) == _bits(want[k]), k
+        if writer == "jax":
+            assert isinstance(have[k], torch.Tensor)
+            assert have[k].dtype == state_leaf(state, k).dtype, k
+
+
+def state_leaf(tree, key):
+    for part in key.split("/"):
+        tree = tree[int(part)] if isinstance(tree, list) else tree[part]
+    return tree
+
+
+def _zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_zeros_like(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return torch.zeros_like(tree)
+    return np.zeros_like(tree)

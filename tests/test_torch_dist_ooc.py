@@ -30,6 +30,7 @@ from repro_torch.core import (
     ChunkStore, ChunkStoreError, Engine, EngineConfig, ShardedChunkStore,
 )
 from repro_torch.core import algorithms as alg
+from repro_torch.core import phases
 from repro_torch.core.chunkstore import MANIFEST_VERSION, REP_DCSR
 from repro_torch.core.engine import DIST_MEASURED_PAIRS
 from repro_torch.data.graphs import rmat_graph
@@ -355,6 +356,69 @@ def test_build_sharded_needs_a_divisor(problem, tmp_path):
     with pytest.raises(ValueError, match="divide"):
         ChunkStore.build_sharded(p.dg, p.fm, str(tmp_path / "never"), 3)
     assert not (tmp_path / "never").exists()
+
+
+@pytest.mark.parametrize("threshold", [1.5, 0.5000000000000001])
+@pytest.mark.parametrize("algo", ["pagerank", "bfs"])
+def test_filter_threshold_counters_match_jax(problem, monkeypatch, algo,
+                                             threshold):
+    """At a filter threshold other than the default 2.0 the DIST_OOC
+    filter decides as the reference's does: every counter, ``msgs_sent``
+    and the measured wire bytes included, equals JAX's.  The callers pass
+    the active count m as a Python number, which the compare keeps weak
+    (float32), as the reference does; every call the port makes is also
+    held against the reference's ``filter_sendmask`` on the same inputs,
+    and the run must see an odd m."""
+    from repro.core import phases as jphases
+    ref = _ref()
+    seen = []
+    port_filter = phases.filter_sendmask
+
+    def recorded(amask, need, need_counts, m, cfg, xp=torch):
+        out = port_filter(amask, need, need_counts, m, cfg, xp=xp)
+        if xp is np:
+            np.testing.assert_array_equal(out, jphases.filter_sendmask(
+                amask, need, need_counts, m, cfg, xp=np))
+            seen.append(m)
+        return out
+
+    monkeypatch.setattr(phases, "filter_sendmask", recorded)
+
+    def make_jax(name):
+        p = problem[name]
+        return ref.core.Engine(p.jdg, p.jfm, ref.core.EngineConfig(
+            executor="dist_ooc", num_workers=2,
+            filter_skip_threshold=threshold), store=p.stores["jax", 2])
+    port = run(problem, algo, lambda name: port_engine(
+        problem, name, 2, filter_skip_threshold=threshold))
+    jax = run(problem, algo, make_jax, ref.alg)
+    _assert_matches_jax(port, jax, algo, False)
+    assert port[1].counters["msgs_sent"] == jax[1].counters["msgs_sent"]
+    assert port[1].counters["measured_net_bytes"] == \
+        jax[1].counters["measured_net_bytes"]
+    assert all(type(m) is float for m in seen)
+    assert any(int(m) % 2 == 1 for m in seen)
+
+
+def test_filter_compare_follows_the_references_promotion():
+    """The numpy path's skip test: a Python-number m compares in float32
+    (weak, as in the reference), a numpy scalar or array m in its own
+    precision.  Need count 1 against m = 2 at a threshold just above 1/2:
+    1 >= float32(1.0000000000000002) holds, the float64 compare does not."""
+    from repro.core import phases as jphases
+    cfg = EngineConfig(enable_filtering=True,
+                       filter_skip_threshold=0.5000000000000001)
+    amask = np.array([True, True, False, False])
+    need = np.array([[False, True, False, False], [True, True, True, True]])
+    need_counts = np.array([1, 4], np.int32)
+    for m, skips in ((2.0, True), (2, True), (np.float64(2.0), False),
+                     (np.asarray(2.0), False)):
+        got = phases.filter_sendmask(amask, need, need_counts, m, cfg, xp=np)
+        want = jphases.filter_sendmask(amask, need, need_counts, m, cfg,
+                                       xp=np)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got[0], amask if skips
+                                      else amask & need[0])
 
 
 def test_later_slices_raise_on_dist(problem, tmp_path):

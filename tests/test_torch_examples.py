@@ -27,6 +27,9 @@ EXAMPLES = {
     "serve_lm_torch.py": ("serve_lm OK", [
         "yi-6b          generated (4, 12)",
         "zamba2-1.2b    generated (4, 12)"]),
+    "train_lm_torch.py": ("train_lm OK", [
+        "-- checkpoint at step 100; simulating restart --",
+        "step  200 loss"]),
 }
 
 

@@ -15,7 +15,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings, strategies as st
+from hypothesis import example, given, settings, strategies as st
 
 from repro_torch.core import (
     EngineConfig, build_dist_graph, codec, make_spec,
@@ -262,6 +262,12 @@ def graphs(draw, max_n=48, max_e=200):
 @settings(max_examples=15, deadline=None)
 @given(graphs(), st.integers(2, 4), st.integers(0, 2**16),
        st.floats(0.5, 4.0), st.booleans(), st.sampled_from(["one", "P"]))
+# A threshold just above 1/2 against m = 2 active vertices: 1 >= 2t holds
+# in float32 (the reference's compare, a Python-float m kept weak) and not
+# in float64.
+@example(GraphData(4, np.array([3]), np.array([1]),
+                   np.array([0.5], np.float32)),
+         2, 0, 0.5000000000000001, True, "one")
 def test_filter_and_wire_deliver_every_active_message(
         g, p, seed, threshold, filtering, workers):
     """Every edge with an active source is delivered to the partition

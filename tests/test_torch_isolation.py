@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` (every subpackage: the graph
 engine, ``configs``, ``models``, ``serve``, ``sharding``, ``data``,
-``runtime``, ``ckpt``), ``chip_smoke`` and the port's examples import with
-jax made unimportable, and load no module of the JAX package."""
+``runtime``, ``ckpt``, ``train``, ``launch``), ``chip_smoke`` and the
+port's examples import with jax made unimportable, and load no module of
+the JAX package."""
 import os
 import subprocess
 import sys
@@ -23,9 +24,10 @@ for path in sorted(glob.glob(os.path.join("examples", "*_torch.py"))):
         os.path.basename(path)[:-3], path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(path)
-for sub in ("configs", "models", "serve", "sharding", "data"):
+for sub in ("configs", "models", "serve", "sharding", "data", "train",
+            "launch"):
     assert any(n.startswith(f"repro_torch.{sub}.") for n in names), sub
-assert sum(n.endswith("_torch.py") for n in names) >= 3, names
+assert sum(n.endswith("_torch.py") for n in names) >= 4, names
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m in ("repro", "jax") or m.startswith(("repro.", "jax."))))
 assert not bad, bad

@@ -340,6 +340,65 @@ def test_stall_check_spares_a_peer_with_unread_bytes():
         b.close()
 
 
+def test_a_quiet_peer_outlives_the_connect_timeout(tmp_path):
+    """Rank 1 dials rank 0 with a connect timeout of at most 5 s; the
+    dialed socket must not keep it.  At a stall timeout of 120 s the
+    heartbeats come every 30 s, and with the timeout kept rank 1's
+    receiver raised after 5 s of silence from a live rank 0 and declared
+    it dead (the intermittent ``proc_path`` failure: ``transport link
+    lost: ... TimeoutError``).  Both ranks stay alive through 6 s of
+    silence, and every link blocks."""
+    meshes = {}
+
+    def make(r):
+        meshes[r] = tp.ProcMesh(r, 2, str(tmp_path), connect_timeout=30.0,
+                                stall_timeout=120.0)
+    threads = [threading.Thread(target=make, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60.0)
+    try:
+        assert sorted(meshes) == [0, 1]
+        socks = [p.sock for m in meshes.values() for p in m.peers.values()]
+        assert len(socks) == 2
+        assert all(s.gettimeout() is None for s in socks)
+        time.sleep(6.0)
+        for m in meshes.values():
+            assert not m.dead and all(p.alive for p in m.peers.values())
+    finally:
+        for m in meshes.values():
+            m.close()
+
+
+def test_a_link_lost_with_an_error_is_reported(capsys):
+    """A peer whose link fails with an error (here it closes mid-frame)
+    is marked dead with one ``transport link lost:`` line on stderr
+    naming the error; a clean EOF at a frame boundary (a peer's normal
+    exit) writes nothing."""
+    mesh = tp.ProcMesh(0, 1, "unused", stall_timeout=60.0)
+    pairs = [socket.socketpair() for _ in range(2)]
+    try:
+        for r, ((a, b), cut) in enumerate(zip(pairs, (True, False)), 1):
+            peer = mesh.peers[r] = tp._Peer(r, a)
+            raw = tp.pack_frame(tp.K_DATA, op=4, payload=b"z" * 64)
+            b.sendall(raw[:len(raw) // 2] if cut else raw)
+            b.close()
+            t = threading.Thread(target=mesh._recv_loop, args=(peer,),
+                                 daemon=True)
+            t.start()
+            t.join(10.0)
+            assert not peer.alive and r in mesh.dead
+        lines = [ln for ln in capsys.readouterr().err.splitlines()
+                 if ln.startswith("transport link lost: ")]
+        (line,) = lines
+        rep = json.loads(line.split("transport link lost: ", 1)[1])
+        assert (rep["rank"], rep["peer"], rep["where"]) == (0, 1, "read")
+        assert rep["error"].startswith("TransportError: truncated frame")
+    finally:
+        mesh.close()
+
+
 def test_stall_report_names_the_reader_state(capsys):
     """A peer declared dead for a stall leaves one report, kept on the
     mesh and written to stderr: silence, the receiver's reader state
