@@ -14,7 +14,8 @@ rank killed and recovered), multi-query serving on LOCAL, OOC and
 DIST_OOC, the SHARD_MAP executor on 8 ranks sharing the card, and the
 Chaos- and GridGraph-like baselines; then the kernel entry point and LM
 serving (Gemma2-9B and Zamba2-1.2B at full width) and LM training
-(Zamba2-1.2B at full width and depth).
+(Zamba2-1.2B at full width and depth, on one card and on a (2, 2) device
+mesh of 4 ranks sharing it).
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -71,9 +72,10 @@ OOC (fully out of core: ``executor="ooc"``, ``block_csr``, chunks decoded
 on the card).  It
   * builds the forward and reversed chunk stores of the same graph in a
     temporary directory under ``.smoke_tmp/`` (removed at exit);
-  * decodes every chunk of the forward store in every representation it
-    stores on the card through the fused decode (``chunk_decode``, one chunk an
-    item) and with the host codec, and requires bit-equality;
+  * decodes every chunk of the forward store, in one of the
+    representations it stores taken in turn, on the card through the fused
+    decode (``chunk_decode``, one chunk an item) and with the host codec,
+    and requires bit-equality;
   * holds the varint stencil and both scan modes against their plain
     versions (bit-equal) on the largest chunk's streams and on one long
     stream (partition 1's whole dst-residue section), and times them
@@ -114,9 +116,9 @@ source above).  It
     within rtol 1e-4 / atol 1e-7 of the numpy oracle ``ref_ppr``;
   * serves them on OOC (``block_csr``, chunks decoded on the card, Q = 8,
     a fresh spill): a ``GraphServeSession`` with 8 slots takes the first
-    6 sources and drains — every result bit-equal to its solo BFS with
+    4 sources and drains — every result bit-equal to its solo BFS with
     its run and wait iterations those the solo counts imply, every
-    logical counter equal to the sum of the 6 solo runs' (rtol 1e-5) and
+    logical counter equal to the sum of the 4 solo runs' (rtol 1e-5) and
     every shared-stream counter at most that sum (its counters after each
     step are kept for the DIST_OOC session); then
     ``personalized_pagerank`` of sources 0–7 (one iteration), values
@@ -164,7 +166,7 @@ and wire gap streams decoded on the card, ``verify_io``).  It
 DIST_OOC serving (``dist_ooc_serve``: the same W = 4 sharded store with
 fresh Q = 8 spills, ``block_csr``, chunks and wire decoded on the card,
 ``verify_io``).  It
-  * runs a ``GraphServeSession`` of 8 slots over the first 6 sources (the
+  * runs a ``GraphServeSession`` of 8 slots over the first 4 sources (the
     OOC session's queries, all admitted at once), workers in sequence:
     every result bit-equal to its solo BFS with its run and wait
     iterations those of the OOC session, logical counters equal to the
@@ -330,7 +332,7 @@ LM training (``lm_train``, after LM serving; ``repro_torch.train``, plain
 torch under autograd, as the reference's training path reaches no Pallas
 kernel).  It
   * trains Zamba2-1.2B at full width and depth in bf16 with remat (each
-    step of a stage's loop checkpointed), weights from a seed: 3 AdamW
+    step of a stage's loop checkpointed), weights from a seed: 2 AdamW
     steps (float32 moments and masters, warmup 1) of ``TokenPipeline``
     batches of 8 sequences of 4,096 tokens as 4 microbatches of 2;
     requires every loss and grad norm finite, parameters moved and none
@@ -339,7 +341,8 @@ kernel).  It
     (6 x parameters x tokens over the step) beside the card's name and
     power limit;
   * cuts it to its first 6 Mamba2 layers and the shared block (full
-    width): saves the state through ``CheckpointManager`` after step 2,
+    width), batches of 4 as 2 microbatches of 2: saves the state through
+    ``CheckpointManager`` after step 2,
     restores it into a fresh state (``checkpoint_template``) and requires
     step 3's loss and every leaf of the new state bit-equal to the
     uninterrupted run's; times one more step and profiles another
@@ -350,6 +353,31 @@ kernel).  It
     ``A_log`` and ``dt_bias`` within 1e-5 x their conditioning over the
     per-token gradient terms), the parameters within the reference test's
     5e-2 / 5e-3.
+
+LM training on a device mesh (``lm_train_mesh``, after ``lm_train``;
+``repro_torch.sharding``, ``launch.mesh``, ``runtime.elastic``, DTensor on
+a ('data', 'model') = (2, 2) ``DeviceMesh`` of 4 gloo ranks sharing the
+card, ``run_mesh``).  Before the ranks start, the one-card loss of the
+seed-0 weights on the first batch (a forward pass).  Then it
+  * trains Zamba2-1.2B at full width and depth in bf16 with remat under
+    ``plan_for(cfg, "train", mesh)`` (FSDP over 'data', the SSM heads,
+    attention heads, FFN and vocab over 'model'): 2 AdamW steps of
+    ``TokenPipeline`` batches of 4 sequences of 1,024 tokens (2 a data
+    shard, one microbatch); requires step 1's loss within 1e-2 relative
+    of the one-card loss and every loss and local shard finite; prints
+    seconds a step, tokens per second, each rank's peak memory and each
+    step's collectives (calls by kind, bytes, seconds:
+    ``sharding.wire``), and the placements of a few leaves;
+  * at its first 6 Mamba2 layers and the shared block in float32 with TF32
+    off: step 1 on the mesh against the same step on one card (run by rank
+    0 alone; loss and ce within rtol 1e-5, each first-moment leaf within
+    1e-5 relative in its norm, ``A_log`` and ``dt_bias`` within 1e-5 x
+    their conditioning, the grad norm within the bound those leaf
+    tolerances imply, the parameters within 5e-2 / 5e-3); the state of
+    step 1 saved logically unsharded, ``elastic_restart`` onto a (1, 2)
+    mesh with ranks 2 and 3 idle, and step 2 there against the
+    uninterrupted (2, 2) step 2 under the same tolerances; prints the
+    largest difference per leaf class.
 
 Every phase prints one JSON line; the line before the last holds the
 kernel table (each combine once per mode and path, each row measured on
@@ -425,8 +453,9 @@ GLA_MODELS = {   # name -> (heads, Dk, Dv, include_current, bonus)
 }
 PR_ITERS = 5
 SERVE_SOURCES = 8              # solo references (10 before PR 23)
-SESSION_SOURCES = 6            # queries each session submits (OOC 8 and
-                               # DIST_OOC 10 before PR 23)
+SESSION_SOURCES = 4            # queries each session submits (cut from 6,
+                               # and before that OOC 8 and DIST_OOC 10, to
+                               # make room for later phases)
 SERVE_Q = 8                    # concurrent query slots
 PPR_ITERS = 1
 DIST_MQ_ITERS = 1              # DIST serving's multi_bfs depth (cut from
@@ -927,8 +956,10 @@ def store_stats(store):
 
 
 def decode_check(store, device):
-    """Every chunk, every representation it stores: the decode on the card
-    (the fused decode, one chunk an item) bit-equal to the host codec.
+    """Every chunk in one of the representations it stores, taken in turn
+    (cut from every representation to make room for lm_train_mesh): the
+    decode on the card (the fused decode, one chunk an item) bit-equal to
+    the host codec.
     Returns the number of decodes checked and the fused decode's
     launches."""
     import torch
@@ -937,11 +968,11 @@ def decode_check(store, device):
     chunk_decode.reset_launches()
     varint.reset_launches()
     checked = 0
-    for q, p, k in store.nonempty_chunks():
+    for i, (q, p, k) in enumerate(store.nonempty_chunks()):
         lay = store._layout_of(q)
         reps = (REP_DCSR, REP_DCSR_DELTA) + (
             (REP_CSR,) if lay.has_csr[p, k] else ())
-        for rep in reps:
+        for rep in (reps[i % len(reps)],):
             index, payload, _ = store.read_chunk_bytes(q, p, k, rep)
             host = store.decode_chunk(q, p, k, rep, index, payload)
             dev = store.decode_chunk_device(q, p, k, rep, index, payload,
@@ -1428,8 +1459,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     run_lm_serve()
 
-    # -- 10c. LM training at full width and depth ---------------------------
+    # -- 10c. LM training at full width and depth, on one card and on a
+    # device mesh of 4 ranks sharing it -----------------------------------
     run_lm_train(smi, tmp_root)
+    run_lm_train_mesh(smi, tmp_root)
 
     # -- 11. the kernel table: combine rows per mode and path, each measured
     # on one call of that path and beside that path's launches only ------
@@ -2891,9 +2924,11 @@ LM_TRAIN_ARCH = "zamba2-1.2b"
 LM_TRAIN_SEQ = 4096            # the train_4k cell's sequence
 LM_TRAIN_BATCH = 8             # train_4k's global batch 256, cut to 8 ...
 LM_TRAIN_MICRO = 4             # ... as 4 microbatches of 2
-LM_TRAIN_STEPS = 3
+LM_TRAIN_STEPS = 2             # cut from 3 to make room for lm_train_mesh
 LM_TRAIN_CUT_LAYERS = 6        # resume and accumulation checks: the first
                                # Mamba2 cycle and the shared block
+LM_RESUME_BATCH, LM_RESUME_MICRO = 4, 2   # the resume check's batch, cut
+                               # from 8 as 4 x 2 (room for lm_train_mesh)
 LM_ACCUM_BATCH, LM_ACCUM_SEQ = 4, 1024
 LM_ACCUM_RTOL = 1e-5           # tests/test_torch_train_loop.py's
 
@@ -3082,7 +3117,14 @@ def run_lm_train(smi, tmp_root):
     t0 = time.perf_counter()
     cut = dataclasses.replace(cfg, num_layers=cut_layers)
     model = make_model(cut, remat=True, device=device)
-    step = make_train_step(model, opt_cfg, rules, microbatches=micro)
+    step = make_train_step(model, opt_cfg, rules,
+                           microbatches=LM_RESUME_MICRO)
+    resume_pipe = TokenPipeline(cfg.vocab_size, seq, LM_RESUME_BATCH, seed=0)
+
+    def batch_at(i, p=resume_pipe):
+        toks, tgt = p.batch_at(i)
+        return {"tokens": torch.from_numpy(toks).to(device),
+                "targets": torch.from_numpy(tgt).to(device)}
     state = init_train_state(model, seed=0)
     for i in range(2):
         state, _ = step(state, batch_at(i))
@@ -3121,6 +3163,7 @@ def run_lm_train(smi, tmp_root):
     cut_step_s = time.perf_counter() - t1
     busy_ms, ops, top = decode_profile(lambda: step(whole, b3), reps=1)
     emit(phase="lm_train_resume", arch=arch, layers=cut_layers,
+         batch=LM_RESUME_BATCH, microbatches=LM_RESUME_MICRO,
          stages=[(len(st.cycle), st.n, st.shared_attn)
                  for st in model.stages], params=tree_params(whole["params"]),
          checkpoint_bytes=saved["bytes_written"],
@@ -3216,6 +3259,377 @@ def run_lm_train_accum(cut, opt_cfg, rules, device):
     del model, state, out, s1, s2, mu1, mu2, term_calls
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# lm_train_mesh: LM training on a ('data', 'model') mesh of 4 ranks sharing
+# the card
+# ---------------------------------------------------------------------------
+
+LM_MESH_SHAPE = (2, 2)         # ('data', 'model'): 4 gloo ranks on one card
+LM_MESH_SEQ = 1024
+LM_MESH_BATCH = 4              # global batch: 2 sequences a data shard
+LM_MESH_STEPS = 2
+LM_MESH_LOSS_RTOL = 1e-2       # bf16 step-1 loss against the one-card one
+LM_MESH_TIMEOUT_S = 900        # the rank job's deadline (and gloo's timeout)
+LM_MESH_LEAVES = ("embed/table", "stages/0/0/in_proj", "stages/0/0/A_log",
+                  "stages/0/0/out_proj", "shared_attn/attn/wq",
+                  "shared_attn/mlp/wi_gate", "shared_attn/mlp/wo")
+LM_MESH_PARAM_TOL = (5e-2, 5e-3)   # the reference test's accumulation order
+
+
+def mamba_conditioning(model, calls):
+    """Per ``A_log`` / ``dt_bias`` leaf, from the per-token terms
+    ``mamba_terms`` kept over one step: |the sum of |terms| over the tokens|
+    / |their sum| — how far the leaf's gradient cancels, so how much a
+    change of summation order can move it relative to its size."""
+    import torch
+    order = [(si, c) for si, st in enumerate(model.stages)
+             for _ in range(st.n) for c in range(len(st.cycle))]
+    out = {}
+    for kind, kept in calls.items():
+        if len(kept) != len(order) or any(t is None for t in kept):
+            raise AssertionError(f"lm_train_mesh: {len(kept)} {kind} term "
+                                 f"calls for {len(order)} layers")
+        for si, st in enumerate(model.stages):
+            for c in range(len(st.cycle)):
+                one = torch.stack([kept[j].double() for j, o
+                                   in enumerate(order) if o == (si, c)])
+                out[f"stages/{si}/{c}/{kind}"] = float(
+                    torch.linalg.vector_norm(one.abs().sum(dim=(1, 2)))
+                    / torch.linalg.vector_norm(one.sum(dim=(1, 2))))
+    return out
+
+
+def compare_states(name, a, b, cond, rtol=LM_ACCUM_RTOL):
+    """``a`` and ``b``: {"metrics", "mu", "params"} of one step (tensors by
+    leaf path).  Loss and ce within ``rtol``; each first-moment
+    leaf within ``rtol`` relative in its norm, times its conditioning for
+    the leaves in ``cond``; the grad norm within the bound those leaf
+    tolerances imply (|sum over leaves of (tolerance x |mu|)^2|^(1/2) /
+    |mu|, at least ``rtol``: the first moments are the clipped gradients
+    times 0.1); parameters within the reference test's
+    accumulation-order tolerance.  Returns the differences (largest per
+    leaf class, the five leaves that move the most) and ``failures``."""
+    import math
+    import torch
+    failures, rel, classes, moved = [], {}, {}, []
+    implied = total = 0.0
+    for leaf, x in a["mu"].items():
+        y = b["mu"][leaf]
+        size = float(torch.linalg.vector_norm(x.double()))
+        diff = float(torch.linalg.vector_norm((x - y).double()))
+        d = diff / max(size, 1e-30)
+        tol = rtol * cond.get(leaf, 1.0)
+        implied += (tol * size) ** 2
+        total += size ** 2
+        if d > tol:
+            failures.append(f"first moment {leaf}: {d} > {tol}")
+        kind = leaf.rsplit("/", 1)[-1]
+        if leaf in cond:
+            kind += " (x conditioning)"
+        classes[kind] = max(classes.get(kind, 0.0), d)
+        moved.append((diff, leaf, d))
+    gn_tol = max(rtol, math.sqrt(implied / max(total, 1e-300)))
+    for k, tol in (("loss", rtol), ("ce", rtol), ("grad_norm", gn_tol)):
+        x, y = a["metrics"][k], b["metrics"][k]
+        rel[k] = abs(x - y) / max(abs(x), 1e-30)
+        if rel[k] > tol:
+            failures.append(f"{k}: {x} vs {y} ({rel[k]} > {tol})")
+    p_abs = 0.0
+    for leaf, x in a["params"].items():
+        y = b["params"][leaf]
+        if not torch.allclose(x, y, rtol=LM_MESH_PARAM_TOL[0],
+                              atol=LM_MESH_PARAM_TOL[1]):
+            failures.append(f"parameter {leaf}")
+        p_abs = max(p_abs, float((x - y).abs().max()))
+    return dict(name=name, metrics_rel=rel, grad_norm_tol=gn_tol,
+                mu_rel_by_leaf_class=classes,
+                mu_most_moved=[[leaf, d] for _, leaf, d in
+                               sorted(moved, reverse=True)[:5]],
+                params_max_abs=p_abs, failures=failures)
+
+
+def _lm_mesh_rank(pm, ckpt_dir, single_loss):
+    """One rank of ``lm_train_mesh``: (1) ``LM_TRAIN_ARCH`` at full width
+    and depth, bf16, remat, ``LM_MESH_STEPS`` steps on the
+    ``LM_MESH_SHAPE`` mesh under ``plan_for(cfg, "train", mesh)``; (2) at
+    ``LM_TRAIN_CUT_LAYERS`` layers in float32, TF32 off: step 1, saved
+    logically unsharded, step 2; (3) ``elastic_restart`` of the step-1
+    checkpoint onto a (1, 2) mesh (ranks 2 and 3 idle) and step 2 there;
+    (4) rank 0 alone runs step 1 on one card (with ``mamba_terms``) and
+    holds the mesh's step 1 against it, and the elastic step 2 against the
+    uninterrupted one.  Returns per step seconds, losses and the wire
+    (calls, bytes, seconds), peak memory, placements and the checks."""
+    entered = time.time()
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.ckpt.blockstore import _leaves_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.model import make_model
+    from repro_torch.runtime.elastic import elastic_restart
+    from repro_torch.sharding import wire
+    from repro_torch.sharding.rules import full, make_rules
+    from repro_torch.sharding.strategy import plan_for
+    from repro_torch.train.loop import (
+        init_train_state, make_train_step, save_checkpoint, state_specs,
+    )
+    from repro_torch.train.optimizer import OptConfig, flatten
+    rank = dist.get_rank()
+    device = "cpu" if DEVICE == "cpu" else None
+    cuda = DEVICE != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if cuda else 0
+
+    mesh = make_device_mesh(LM_MESH_SHAPE, ("data", "model"), device=device)
+    out = dict(rank=rank, entered=entered,
+               mesh_s=time.time() - entered)
+    cfg = get_config(LM_TRAIN_ARCH)
+    opt_cfg = OptConfig(warmup_steps=1)
+
+    def batch_at(pipe, i):
+        toks, tgt = pipe.batch_at(i)
+        dev = pm.device
+        return {"tokens": torch.from_numpy(toks).to(dev),
+                "targets": torch.from_numpy(tgt).to(dev)}
+
+    # -- (1) full width and depth, bf16, remat ------------------------------
+    plan = plan_for(cfg, "train", mesh)
+    model = make_model(cfg, remat=True, device=device)
+    t0 = time.perf_counter()
+    state = init_train_state(model, seed=0, rules=plan.rules)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    named = dict(_leaves_with_paths(state["params"]))
+    out["placements"] = {
+        k: [str(tuple(named[k].placements)), list(named[k].shape),
+            list(named[k].to_local().shape)] for k in LM_MESH_LEAVES}
+    out["notes"] = list(plan.notes)
+    step = make_train_step(model, opt_cfg, plan.rules)
+    pipe = TokenPipeline(cfg.vocab_size, LM_MESH_SEQ, LM_MESH_BATCH, seed=0)
+    steps = []
+    for i in range(LM_MESH_STEPS):
+        b = batch_at(pipe, i)
+        sync()
+        dist.barrier()
+        wire.WIRE.reset()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])             # syncs with the device
+        steps.append(dict(s=time.perf_counter() - t0, loss=loss,
+                          grad_norm=float(m["grad_norm"]),
+                          wire=wire.WIRE.snapshot()))
+        if rank == 0:
+            print(f"lm_train_mesh rank 0 step {i + 1}: {steps[-1]['s']:.3f} "
+                  f"s, loss {loss}", flush=True)
+    out["steps"] = steps
+    out["peak"] = peak()
+    local = [x.to_local() for x in flatten(state["params"])]
+    out["local_params"] = sum(x.numel() for x in local)
+    out["finite"] = all(bool(torch.isfinite(x).all()) for x in local)
+    if abs(steps[0]["loss"] - single_loss) > LM_MESH_LOSS_RTOL * abs(
+            single_loss) or not out["finite"]:
+        raise AssertionError(f"lm_train_mesh: step-1 loss {steps[0]['loss']} "
+                             f"vs one card {single_loss}; finite "
+                             f"{out['finite']}")
+    del model, state, step, local, named, m, b
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (2) the cut depth in float32, TF32 off: step 1, save, step 2 ------
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cut = dataclasses.replace(cfg, num_layers=LM_TRAIN_CUT_LAYERS,
+                              dtype="float32")
+    model = make_model(cut, device=device)
+    rules = plan_for(cut, "train", mesh).rules
+    step = make_train_step(model, opt_cfg, rules)
+    pipe = TokenPipeline(cut.vocab_size, LM_MESH_SEQ, LM_MESH_BATCH, seed=3)
+    b0, b1 = batch_at(pipe, 0), batch_at(pipe, 1)
+
+    gather_s = []
+
+    def kept(st, m):
+        """The step's metrics, first moments and params, whole on rank 0
+        (every rank of the state's mesh takes part)."""
+        t0 = time.perf_counter()
+        got = {"metrics": {k: float(v) for k, v in m.items()}}
+        for tree in ("mu", "params"):
+            node = st["opt"]["mu"] if tree == "mu" else st["params"]
+            got[tree] = {}
+            for k, x in _leaves_with_paths(node):
+                whole = full(x)
+                if rank == 0:
+                    got[tree][k] = whole
+                del whole
+        gather_s.append(time.perf_counter() - t0)
+        return got
+
+    t0 = time.perf_counter()
+    s1 = init_train_state(model, seed=2, rules=rules)
+    s1, m1 = step(s1, b0)
+    mesh1 = kept(s1, m1)
+    t1 = time.perf_counter()
+    save_checkpoint(CheckpointManager(ckpt_dir), s1, 1)
+    out["cut_save_s"] = time.perf_counter() - t1
+    s2, m2 = step(s1, b1)
+    mesh2 = kept(s2, m2)
+    del s2
+    out["cut_s"] = time.perf_counter() - t0
+
+    # -- (3) elastic restart onto (1, 2): ranks 2 and 3 idle ----------------
+    t0 = time.perf_counter()
+
+    def factory(new_mesh):
+        r = plan_for(cut, "train", new_mesh).rules
+        return r, r.tree_shardings(state_specs(model))
+
+    got_step, el_state, el_mesh, el_plan = elastic_restart(
+        ckpt_dir, s1, available=2, model_axis=2, rules_factory=factory,
+        device=device)
+    del s1
+    out["elastic"] = dict(step=got_step, shape=list(el_plan.shape),
+                          idle=el_plan.idle_devices,
+                          notes=list(el_plan.notes),
+                          active=el_state is not None)
+    elastic2 = None
+    if el_state is not None:
+        el_step = make_train_step(model, opt_cfg, factory(el_mesh)[0])
+        s2e, m2e = el_step(el_state, b1)
+        elastic2 = kept(s2e, m2e)
+        del s2e, el_state
+    out["elastic"]["s"] = time.perf_counter() - t0
+    out["gather_s"] = gather_s
+    dist.barrier()
+
+    # -- (4) rank 0: the one-card step 1 and both comparisons ---------------
+    if rank == 0:
+        t0 = time.perf_counter()
+        st = init_train_state(model, seed=2)
+        with mamba_terms() as calls:
+            ss1, sm1 = make_train_step(model, opt_cfg, make_rules(None))(
+                st, b0)
+        cond = mamba_conditioning(model, calls)
+        single1 = {"metrics": {k: float(v) for k, v in sm1.items()},
+                   "mu": dict(_leaves_with_paths(ss1["opt"]["mu"])),
+                   "params": dict(_leaves_with_paths(ss1["params"]))}
+        del st, ss1, sm1, calls
+        out["parity"] = compare_states("mesh step 1 vs one card", single1,
+                                       mesh1, cond)
+        out["elastic"]["check"] = compare_states(
+            "elastic step 2 on (1, 2) vs (2, 2)", mesh2, elastic2, cond)
+        out["conditioning"] = cond
+        out["check_s"] = time.perf_counter() - t0
+    dist.barrier()
+    out["peak_total"] = peak()
+    out["wire_total"] = wire.WIRE.snapshot()
+    return out
+
+
+def run_lm_train_mesh(smi, tmp_root):
+    """Phase ``lm_train_mesh``: LM training on a ``LM_MESH_SHAPE``
+    ('data', 'model') mesh of gloo ranks sharing the card
+    (:func:`_lm_mesh_rank`).  Before the ranks start, the one-card loss of
+    the full model's seed-0 weights on the mesh run's first batch (a
+    forward pass), so two copies of the state never share the card."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import run_mesh
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model import make_model
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train.loop import loss_fn
+    from repro_torch.utils import tree_params
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_TRAIN_ARCH)
+    toks, tgt = TokenPipeline(cfg.vocab_size, LM_MESH_SEQ, LM_MESH_BATCH,
+                              seed=0).batch_at(0)
+    model = make_model(cfg, device=DEVICE)
+    params = model.init(seed=0)
+    n_params = tree_params(params)
+    with torch.no_grad():
+        loss, _ = loss_fn(model, params, {
+            "tokens": torch.from_numpy(toks).to(DEVICE),
+            "targets": torch.from_numpy(tgt).to(DEVICE)}, make_rules(None))
+    single_loss = float(loss)
+    del model, params, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    single_s = time.perf_counter() - t_phase
+    ckpt = tempfile.mkdtemp(prefix="lm-mesh-ckpt-", dir=tmp_root)
+    world = int(np.prod(LM_MESH_SHAPE))
+    try:
+        t_spawn, t0 = time.time(), time.perf_counter()
+        ranks = run_mesh(_lm_mesh_rank, world, timeout_s=LM_MESH_TIMEOUT_S,
+                         device="cpu" if DEVICE == "cpu" else None,
+                         args=(ckpt, single_loss))
+        job_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    r0 = ranks[0]
+    tokens = LM_MESH_BATCH * LM_MESH_SEQ
+    step_s = [max(r["steps"][i]["s"] for r in ranks)
+              for i in range(LM_MESH_STEPS)]
+    steady = step_s[1:] or step_s
+    steady_s = sum(steady) / len(steady)
+    losses = [s["loss"] for s in r0["steps"]]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lm_train_mesh: losses {losses}")
+    wire_by_rank = [[dict(s["wire"], step=i + 1) for i, s in
+                     enumerate(r["steps"])] for r in ranks]
+    emit(phase="lm_train_mesh", arch=LM_TRAIN_ARCH, dtype=cfg.dtype,
+         remat=True, layers=cfg.num_layers, params=n_params,
+         mesh=dict(zip(("data", "model"), LM_MESH_SHAPE)), ranks=world,
+         backend="gloo", plan_notes=r0["notes"], seq=LM_MESH_SEQ,
+         global_batch=LM_MESH_BATCH, microbatches=1, steps=LM_MESH_STEPS,
+         single_card_loss=single_loss, single_card_forward_s=single_s,
+         losses=losses, grad_norms=[s["grad_norm"] for s in r0["steps"]],
+         step1_loss_rel_diff=abs(losses[0] - single_loss) / abs(single_loss),
+         step_s=step_s, first_step_s=step_s[0], steady_s_per_step=steady_s,
+         tokens_per_step=tokens, tokens_per_s=tokens / steady_s,
+         model_flops_per_s_estimate=6 * n_params * tokens / steady_s,
+         peak_bytes_by_rank=[r["peak"] for r in ranks],
+         local_params_by_rank=[r["local_params"] for r in ranks],
+         wire_by_rank=wire_by_rank, placements=r0["placements"],
+         init_s=max(r["init_s"] for r in ranks),
+         spawn_s=max(r["entered"] for r in ranks) - t_spawn,
+         job_s=job_s, nvidia_smi=smi)
+    emit(phase="lm_train_mesh_checks", layers=LM_TRAIN_CUT_LAYERS,
+         dtype="float32", tf32=False, rtol=LM_ACCUM_RTOL,
+         param_tol=LM_MESH_PARAM_TOL, parity=r0["parity"],
+         elastic=r0["elastic"], conditioning=r0["conditioning"],
+         elastic_idle_ranks=[r["rank"] for r in ranks
+                             if not r["elastic"]["active"]],
+         cut_s=max(r["cut_s"] for r in ranks),
+         cut_save_s=max(r["cut_save_s"] for r in ranks),
+         elastic_s=max(r["elastic"]["s"] for r in ranks),
+         gather_s=r0["gather_s"],
+         check_s=r0["check_s"],
+         peak_bytes_by_rank=[r["peak_total"] for r in ranks],
+         wire_total_by_rank=[r["wire_total"] for r in ranks])
+    print(f"lm_train_mesh {LM_TRAIN_ARCH} on {LM_MESH_SHAPE} ('data', "
+          f"'model'), {world} ranks: {steady_s:.3f} s/step after a first "
+          f"step of {step_s[0]:.3f} s, {tokens / steady_s:.0f} tokens/s, "
+          f"losses {losses} (one card {single_loss}), peak "
+          f"{max(r['peak'] for r in ranks) / 1e9:.1f} GB a rank, wire "
+          f"{[round(s['wire']['seconds'], 2) for s in r0['steps']]} s on "
+          f"rank 0 [{smi}]", flush=True)
+    emit(phase="lm_train_mesh_total", seconds=time.perf_counter() - t_phase)
+    failures = r0["parity"]["failures"] + r0["elastic"]["check"]["failures"]
+    if failures:
+        raise AssertionError(f"lm_train_mesh checks: {failures[:8]}")
 
 
 # ---------------------------------------------------------------------------

@@ -45,20 +45,32 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class Init:
     """Where and how parameters are drawn: ``gen`` (its device is the
-    target), and ``lead``, the shape prefixed to every leaf."""
-    gen: torch.Generator
+    target), and ``lead``, the shape prefixed to every leaf.  Each leaf
+    names its logical axes; with ``gen=None`` nothing is drawn or
+    allocated and each leaf *is* its axes tuple (``"layers"`` prefixed
+    per ``lead`` axis): the reference's spec tree, built by the same
+    code as the parameters."""
+    gen: Optional[torch.Generator]
     lead: tuple = ()
 
-    def normal(self, shape, dtype, std: float) -> torch.Tensor:
-        return torch.randn(self.lead + tuple(shape), generator=self.gen,
-                           device=self.gen.device, dtype=dtype).mul_(std)
+    def leaf(self, axes, make):
+        """``make()``'s tensor, or ``axes`` when only specs are built."""
+        if self.gen is None:
+            return ("layers",) * len(self.lead) + tuple(axes)
+        return make()
 
-    def full(self, shape, value, dtype) -> torch.Tensor:
-        return torch.full(self.lead + tuple(shape), value, dtype=dtype,
-                          device=self.gen.device)
+    def normal(self, shape, dtype, std: float, axes):
+        return self.leaf(axes, lambda: torch.randn(
+            self.lead + tuple(shape), generator=self.gen,
+            device=self.gen.device, dtype=dtype).mul_(std))
 
-    def zeros(self, shape, dtype) -> torch.Tensor:
-        return self.full(shape, 0.0, dtype)
+    def full(self, shape, value, dtype, axes):
+        return self.leaf(axes, lambda: torch.full(
+            self.lead + tuple(shape), value, dtype=dtype,
+            device=self.gen.device))
+
+    def zeros(self, shape, dtype, axes):
+        return self.full(shape, 0.0, dtype, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +78,7 @@ class Init:
 # ---------------------------------------------------------------------------
 
 def init_rms_norm(init: Init, d: int, dtype) -> dict:
-    return {"scale": init.zeros((d,), dtype)}
+    return {"scale": init.zeros((d,), dtype, (None,))}
 
 
 def rms_norm(x, params, eps: float = 1e-6):
@@ -78,8 +90,8 @@ def rms_norm(x, params, eps: float = 1e-6):
 
 
 def init_layer_norm(init: Init, d: int, dtype) -> dict:
-    return {"scale": init.full((d,), 1.0, dtype),
-            "bias": init.zeros((d,), dtype)}
+    return {"scale": init.full((d,), 1.0, dtype, (None,)),
+            "bias": init.zeros((d,), dtype, (None,))}
 
 
 def layer_norm(x, params, eps: float = 1e-5):
@@ -154,18 +166,24 @@ def init_attention(init: Init, cfg: ModelConfig, dtype) -> dict:
     g = h // kv
     std = d ** -0.5
     params = {
-        "wq": init.normal((d, kv, g, hd), dtype, std),
-        "wk": init.normal((d, kv, hd), dtype, std),
-        "wv": init.normal((d, kv, hd), dtype, std),
-        "wo": init.normal((kv, g, hd, d), dtype, (h * hd) ** -0.5),
+        "wq": init.normal((d, kv, g, hd), dtype, std,
+                          ("d_model", "kv_heads", "q_group", "head_dim")),
+        "wk": init.normal((d, kv, hd), dtype, std,
+                          ("d_model", "kv_heads", "head_dim")),
+        "wv": init.normal((d, kv, hd), dtype, std,
+                          ("d_model", "kv_heads", "head_dim")),
+        "wo": init.normal((kv, g, hd, d), dtype, (h * hd) ** -0.5,
+                          ("kv_heads", "q_group", "head_dim", "d_model")),
     }
     if cfg.attn.qkv_bias:
-        params.update(bq=init.zeros((kv, g, hd), dtype),
-                      bk=init.zeros((kv, hd), dtype),
-                      bv=init.zeros((kv, hd), dtype))
+        params.update(
+            bq=init.zeros((kv, g, hd), dtype,
+                          ("kv_heads", "q_group", "head_dim")),
+            bk=init.zeros((kv, hd), dtype, ("kv_heads", "head_dim")),
+            bv=init.zeros((kv, hd), dtype, ("kv_heads", "head_dim")))
     if cfg.attn.qk_norm:
-        params.update(q_norm=init.zeros((hd,), dtype),
-                      k_norm=init.zeros((hd,), dtype))
+        params.update(q_norm=init.zeros((hd,), dtype, (None,)),
+                      k_norm=init.zeros((hd,), dtype, (None,)))
     return params
 
 
@@ -228,6 +246,17 @@ def _attn_chunked(q, k, v, *, causal, window, softcap, scale):
     return torch.cat(outs, dim=1)
 
 
+def _project(x, w, rules: ShardingRules, heads_axis: Optional[str]):
+    """x [B, S, D] times w [D, H, ...] -> [B, S, H, ...], as one matmul
+    over the heads axes flattened (the reference's einsum).  On a mesh
+    the flattened axis is sharded as its leading heads axis
+    (``heads_axis``) before it splits, so the split never cuts a
+    sharded axis unevenly."""
+    y = rules.shard(x @ w.reshape(w.shape[0], -1), "batch", "seq",
+                    heads_axis)
+    return y.reshape(tuple(x.shape[:2]) + tuple(w.shape[1:]))
+
+
 def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
               *, kind: str = "global", cache=None, decode_pos=None,
               cross_kv=None, causal: bool = True, rope: bool = True,
@@ -246,9 +275,9 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
     window = spec.window if kind == "local" else 0
 
     kv_in = x if cross_kv is None else cross_kv
-    q = torch.einsum("bsd,dkgh->bskgh", x, params["wq"])      # [B,S,KV,G,HD]
-    k = torch.einsum("bsd,dkh->bskh", kv_in, params["wk"])
-    v = torch.einsum("bsd,dkh->bskh", kv_in, params["wv"])
+    q = _project(x, params["wq"], rules, "kv_heads")          # [B,S,KV,G,HD]
+    k = _project(kv_in, params["wk"], rules, "kv_heads")
+    v = _project(kv_in, params["wv"], rules, "kv_heads")
     if spec.qkv_bias:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -266,6 +295,31 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
         else:
             q = apply_rope(q, positions, theta)
             k = apply_rope(k, positions, theta)
+    # Flat-head mode: when neither kv_heads nor the GQA group divides the TP
+    # width but the flat head count does (mixtral 48, yi 32, gemma2 16 on
+    # tp=16), repeat K/V to full heads and shard the flat head axis — the
+    # attention compute and score buffers shard 1/tp instead of being
+    # replicated.  Params stay FSDP-sharded; K/V repeat is activation-only.
+    # Full-sequence paths only (decode caches stay un-repeated).
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    g = h // kvh
+    flat = (cache is None and rules.mesh is not None
+            and rules.table.get("heads") is not None
+            and rules.table.get("kv_heads") is None
+            and rules.table.get("q_group") is None
+            and h % rules.logical_size("heads") == 0)
+    if flat:
+        q_axes = ("batch", "seq", "heads", None, None)
+        kv_axes = ("batch", "seq", "heads", None)
+        q = q.reshape(b, s, h, 1, hd)
+        k = torch.repeat_interleave(k, g, dim=2)
+        v = torch.repeat_interleave(v, g, dim=2)
+    else:
+        q_axes = ("batch", "seq", "kv_heads", "q_group", None)
+        kv_axes = ("batch", "seq", "kv_heads", None)
+    q = rules.shard(q, *q_axes)
+    k = rules.shard(k, *kv_axes)
+    v = rules.shard(v, *kv_axes)
     scale = hd ** -0.5
 
     if cache is not None:
@@ -291,14 +345,22 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
                    x.dtype)
     else:
         threshold = flags.ATTN_CHUNK_THRESHOLD or CHUNKED_ATTN_THRESHOLD
+        # per batch row and head: on a mesh, on each rank's shards
+        in_specs, out_specs = (q_axes, kv_axes, kv_axes), (q_axes,)
         if s >= threshold and s % Q_CHUNK == 0 and cross_kv is None:
-            out = _attn_chunked(q, k, v, causal=causal, window=window,
-                                softcap=spec.softcap, scale=scale)
+            out = rules.local(_attn_chunked, in_specs, out_specs)(
+                q, k, v, causal=causal, window=window, softcap=spec.softcap,
+                scale=scale)
         else:
-            out = _attn_dense(q, k, v, causal=causal and cross_kv is None,
-                              window=window, softcap=spec.softcap,
-                              q_offset=0, kv_valid_len=None, scale=scale)
-    out = torch.einsum("bskgh,kghd->bsd", out, params["wo"])
+            out = rules.local(_attn_dense, in_specs, out_specs)(
+                q, k, v, causal=causal and cross_kv is None, window=window,
+                softcap=spec.softcap, q_offset=0, kv_valid_len=None,
+                scale=scale)
+    # [B, S, KV, G, HD] (or [B, S, H, 1, HD] flat: the same order) times
+    # wo [KV, G, HD, D], as one matmul over the heads axes flattened
+    out = rules.shard(out.reshape(b, s, -1), "batch", "seq",
+                      "heads" if flat else "kv_heads")
+    out = out @ params["wo"].reshape(-1, params["wo"].shape[-1])
     return rules.shard(out, "batch", "seq", "act_d_model"), cache
 
 
@@ -309,11 +371,14 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
 def init_mlp(init: Init, d: int, d_ff: int, dtype, *, gated: bool = True):
     std_in, std_out = d ** -0.5, d_ff ** -0.5
     if gated:
-        return {"wi_gate": init.normal((d, d_ff), dtype, std_in),
-                "wi_up": init.normal((d, d_ff), dtype, std_in),
-                "wo": init.normal((d_ff, d), dtype, std_out)}
-    return {"wi": init.normal((d, d_ff), dtype, std_in),
-            "wo": init.normal((d_ff, d), dtype, std_out)}
+        return {"wi_gate": init.normal((d, d_ff), dtype, std_in,
+                                       ("d_model", "d_ff")),
+                "wi_up": init.normal((d, d_ff), dtype, std_in,
+                                     ("d_model", "d_ff")),
+                "wo": init.normal((d_ff, d), dtype, std_out,
+                                  ("d_ff", "d_model"))}
+    return {"wi": init.normal((d, d_ff), dtype, std_in, ("d_model", "d_ff")),
+            "wo": init.normal((d_ff, d), dtype, std_out, ("d_ff", "d_model"))}
 
 
 def _act(x, kind: str):
@@ -329,6 +394,7 @@ def mlp(params, x, act: str, rules: ShardingRules):
         hidden = _act(x @ params["wi_gate"], act) * (x @ params["wi_up"])
     else:
         hidden = _act(x @ params["wi"], act)
+    hidden = rules.shard(hidden, "batch", "seq", "d_ff")
     out = hidden @ params["wo"]
     return rules.shard(out, "batch", "seq", "act_d_model")
 
@@ -345,16 +411,27 @@ def padded_vocab(cfg: ModelConfig, multiple: int = 2048) -> int:
 def init_embedding(init: Init, cfg: ModelConfig, dtype) -> dict:
     pv = padded_vocab(cfg)
     params = {"table": init.normal((pv, cfg.d_model), dtype,
-                                   cfg.d_model ** -0.5)}
+                                   cfg.d_model ** -0.5, ("vocab", "d_model"))}
     if not cfg.tie_embeddings:
         params["unembed"] = init.normal((cfg.d_model, pv), dtype,
-                                        cfg.d_model ** -0.5)
+                                        cfg.d_model ** -0.5,
+                                        ("d_model", "vocab"))
     return params
+
+
+def _lookup(table, tokens):
+    return table[tokens.long()]
 
 
 def embed(params, tokens, cfg: ModelConfig, rules: ShardingRules,
           *, scale: bool = False):
-    x = params["table"][tokens.long()]
+    # the rows are gathered from the whole table: on a mesh each rank
+    # looks its tokens up in a replica of the table (an all-gather of the
+    # vocab and d_model shards; the gradient comes back as a partial sum
+    # over the batch shards), where DTensor's indexing rule misplaces the
+    # rows of a table sharded on both axes
+    x = rules.local(_lookup, ((None, None), ("batch", "seq")),
+                    (("batch", "seq", None),))(params["table"], tokens)
     if scale:    # gemma multiplies by sqrt(d_model), rounded to the dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)

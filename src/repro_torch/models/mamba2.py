@@ -33,19 +33,24 @@ def init_mamba_block(init: Init, cfg: ModelConfig, dtype) -> dict:
     d = cfg.d_model
     inner, nheads, conv_dim = _dims(cfg)
     proj_out = 2 * inner + 2 * s.n_groups * s.state_dim + nheads
-    a_log = torch.log(torch.linspace(1.0, 16.0, nheads, dtype=F32,
-                                     device=init.gen.device))
+
+    def a_log():
+        return torch.log(torch.linspace(
+            1.0, 16.0, nheads, dtype=F32, device=init.gen.device)).expand(
+            init.lead + (nheads,)).clone()
     return {
         "norm": init_rms_norm(init, d, dtype),
-        "in_proj": init.normal((d, proj_out), dtype, d ** -0.5),
+        "in_proj": init.normal((d, proj_out), dtype, d ** -0.5,
+                               ("d_model", "inner")),
         "conv_w": init.normal((s.conv_width, conv_dim), dtype,
-                              s.conv_width ** -0.5),
-        "conv_b": init.zeros((conv_dim,), dtype),
-        "A_log": a_log.expand(init.lead + (nheads,)).clone(),
-        "D": init.full((nheads,), 1.0, F32),
-        "dt_bias": init.zeros((nheads,), F32),
+                              s.conv_width ** -0.5, (None, "inner")),
+        "conv_b": init.zeros((conv_dim,), dtype, ("inner",)),
+        "A_log": init.leaf(("state_heads",), a_log),
+        "D": init.full((nheads,), 1.0, F32, ("state_heads",)),
+        "dt_bias": init.zeros((nheads,), F32, ("state_heads",)),
         "gnorm": init_rms_norm(init, inner, dtype),
-        "out_proj": init.normal((inner, d), dtype, inner ** -0.5),
+        "out_proj": init.normal((inner, d), dtype, inner ** -0.5,
+                                ("inner", "d_model")),
     }
 
 
@@ -96,18 +101,29 @@ def mamba_block(params, x, cfg: ModelConfig, rules: ShardingRules,
     k = bh.transpose(1, 2)
     v = (xh * dt[..., None].to(xh.dtype)).transpose(1, 2)
     w = decay.transpose(1, 2)[..., None]                      # [B,H,T,1]
+    heads = ("batch", "state_heads", "seq", None)
+    q = rules.shard(q, *heads)
     if cache is not None:
         y, new_state = gla_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                                        w[:, :, 0], cache["state"],
                                        include_current=True)
         y = y[:, :, None, :]
     else:
-        y, new_state = chunked_gla(q, k, v, w, chunk=min(s.chunk, t),
-                                   include_current=True)
+        # per head: on a mesh, on each rank's shards
+        y, new_state = rules.local(
+            chunked_gla, (heads,) * 4,
+            (heads, ("batch", "state_heads", None, None)))(
+            q, k, v, w, chunk=min(s.chunk, t), include_current=True)
     y = y.transpose(1, 2).reshape(b, t, inner).to(x.dtype)
     y = y + xs * torch.repeat_interleave(params["D"], s.head_dim)[
         None, None].to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["gnorm"], cfg.norm_eps)
+    # the heads back together before the gated norm and out_proj reduce
+    # over them: on a mesh an all-gather over the heads' axis, where the
+    # norm's statistic and the projection would otherwise be partial sums
+    # over it, which round apart from one device's and which the later
+    # layers' decay chains amplify
+    y = rms_norm(rules.shard(y * F.silu(z), "batch", "seq", None),
+                 params["gnorm"], cfg.norm_eps)
     out = rules.shard(y @ params["out_proj"], "batch", "seq", "act_d_model")
     new_cache = None
     if cache is not None:

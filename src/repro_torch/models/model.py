@@ -239,9 +239,9 @@ class Model:
                 for s in _group_stages(enc_desc, 1)]
 
     # -- init ----------------------------------------------------------------
-    def _init_stage(self, gen, stage: Stage, dtype) -> list:
+    def _init_stage(self, init: L.Init, stage: Stage, dtype) -> list:
         """Stacked params: per cycle position, leaves shaped [n, ...]."""
-        init = L.Init(gen, (stage.n,))
+        init = dataclasses.replace(init, lead=(stage.n,))
         return [_init_block(init, desc, self.cfg, dtype)
                 for desc in stage.cycle]
 
@@ -249,27 +249,37 @@ class Model:
              seed: int = 0) -> dict:
         """Random parameters drawn on the model's device from ``generator``
         (one seeded from ``seed`` on that device when None)."""
-        cfg = self.cfg
-        dtype = L.dtype_of(cfg)
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         if torch.device(generator.device).type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
-        init = L.Init(generator)
+        return self._build(L.Init(generator))
+
+    def param_specs(self) -> dict:
+        """The parameter tree with each leaf replaced by its tuple of
+        logical axis names (``"layers"`` first on stacked stage leaves):
+        the reference's ``param_specs``, built without drawing or
+        allocating a parameter."""
+        return self._build(L.Init(None))
+
+    def _build(self, init: L.Init) -> dict:
+        cfg = self.cfg
+        dtype = L.dtype_of(cfg)
         params = {"embed": L.init_embedding(init, cfg, dtype),
                   "final_norm": L.init_rms_norm(init, cfg.d_model, dtype),
-                  "stages": [self._init_stage(generator, stage, dtype)
+                  "stages": [self._init_stage(init, stage, dtype)
                              for stage in self.stages]}
         if cfg.shared_attn_every:
             params["shared_attn"] = _init_block(init, SHARED, cfg, dtype)
         if cfg.is_encdec:
-            params["enc_stages"] = [self._init_stage(generator, stage, dtype)
+            params["enc_stages"] = [self._init_stage(init, stage, dtype)
                                     for stage in self.encoder_stages]
             params["enc_final_norm"] = L.init_rms_norm(init, cfg.d_model,
                                                        dtype)
             params["dec_pos"] = init.normal(
-                (cfg.max_target_positions, cfg.d_model), dtype, 0.02)
+                (cfg.max_target_positions, cfg.d_model), dtype, 0.02,
+                ("cache_seq", "d_model"))
         return params
 
     # -- stage runner ----------------------------------------------------------
@@ -338,6 +348,7 @@ class Model:
         if cfg.is_encdec:
             cross_kv = self._encode(params, batch["frames"], rules)
             x = x + params["dec_pos"][None, :s].to(x.dtype)
+        x = rules.shard(x, "batch", "seq", "act_d_model")
         aux = x.new_zeros((), dtype=torch.float32)
         for stage, sp in zip(self.stages, params["stages"]):
             x, a = self._run_stage(stage, sp, x, rules, positions=positions,
@@ -352,7 +363,8 @@ class Model:
         cfg = self.cfg
         b, f, _ = frames.shape
         pos_table = L.sinusoidal_embedding(f, cfg.d_model, frames.device)
-        x = frames + pos_table[None].to(frames.dtype)
+        x = rules.shard(frames + pos_table[None].to(frames.dtype),
+                        "batch", "seq", "act_d_model")
         positions = torch.arange(f, device=frames.device).expand(b, f)
         for stage, sp in zip(self.encoder_stages, params["enc_stages"]):
             x, _ = self._run_stage(stage, sp, x, rules, positions=positions,
@@ -380,6 +392,36 @@ class Model:
             else:
                 caches.append(blk)
         return caches
+
+    def cache_logical_specs(self):
+        """Logical-axis tuples mirroring ``init_cache``'s structure."""
+        def block_specs(desc):
+            attn_kind, _ = desc
+            if attn_kind == "rwkv":
+                return dict(tmix_x=("layers", "batch", None),
+                            cmix_x=("layers", "batch", None),
+                            state=("layers", "batch", "state_heads",
+                                   None, None))
+            if attn_kind == "mamba":
+                return dict(conv=("layers", "batch", None, None),
+                            state=("layers", "batch", "state_heads",
+                                   None, None))
+            c = {"self": dict(
+                k=("layers", "batch", "cache_seq", "kv_heads", None),
+                v=("layers", "batch", "cache_seq", "kv_heads", None))}
+            if attn_kind == "encdec":
+                c["ck"] = ("layers", "batch", "frames", "kv_heads", None)
+                c["cv"] = ("layers", "batch", "frames", "kv_heads", None)
+            return c
+
+        specs = []
+        for stage in self.stages:
+            blk = [block_specs(desc) for desc in stage.cycle]
+            if stage.shared_attn:
+                specs.append((blk, block_specs(SHARED)))
+            else:
+                specs.append(blk)
+        return specs
 
     # -- decode ---------------------------------------------------------------
     def decode_step(self, params, cache, batch, rules: ShardingRules):

@@ -27,29 +27,32 @@ def init_rwkv_block(init: Init, cfg: ModelConfig, dtype) -> dict:
         "ln1": init_layer_norm(init, d, dtype),
         "ln2": init_layer_norm(init, d, dtype),
         # token-shift mixing coefficients
-        "mu_x": init.full((d,), 0.5, dtype),
-        "mu_rkvwg": init.full((N_MIX, d), 0.5, dtype),
-        "maa_w1": init.normal((d, N_MIX * r.gate_lora), dtype, std),
+        "mu_x": init.full((d,), 0.5, dtype, (None,)),
+        "mu_rkvwg": init.full((N_MIX, d), 0.5, dtype, (None, None)),
+        "maa_w1": init.normal((d, N_MIX * r.gate_lora), dtype, std,
+                              ("d_model", None)),
         "maa_w2": init.normal((N_MIX, r.gate_lora, d), dtype,
-                              r.gate_lora ** -0.5),
+                              r.gate_lora ** -0.5, (None, None, "d_model")),
         # decay LoRA
-        "w0": init.full((d,), -2.0, F32),
-        "w1": init.normal((d, r.decay_lora), dtype, std),
-        "w2": init.normal((r.decay_lora, d), dtype, r.decay_lora ** -0.5),
-        "u": init.normal((h, r.head_dim), F32, 0.1),
-        "wr": init.normal((d, d), dtype, std),
-        "wk": init.normal((d, d), dtype, std),
-        "wv": init.normal((d, d), dtype, std),
-        "wg": init.normal((d, d), dtype, std),
-        "wo": init.normal((d, d), dtype, std),
-        "gn_scale": init.full((d,), 1.0, dtype),
-        "gn_bias": init.zeros((d,), dtype),
+        "w0": init.full((d,), -2.0, F32, (None,)),
+        "w1": init.normal((d, r.decay_lora), dtype, std, ("d_model", None)),
+        "w2": init.normal((r.decay_lora, d), dtype, r.decay_lora ** -0.5,
+                          (None, "d_model")),
+        "u": init.normal((h, r.head_dim), F32, 0.1, ("state_heads", None)),
+        "wr": init.normal((d, d), dtype, std, ("d_model", "heads_x_dim")),
+        "wk": init.normal((d, d), dtype, std, ("d_model", "heads_x_dim")),
+        "wv": init.normal((d, d), dtype, std, ("d_model", "heads_x_dim")),
+        "wg": init.normal((d, d), dtype, std, ("d_model", "heads_x_dim")),
+        "wo": init.normal((d, d), dtype, std, ("heads_x_dim", "d_model")),
+        "gn_scale": init.full((d,), 1.0, dtype, (None,)),
+        "gn_bias": init.zeros((d,), dtype, (None,)),
         # channel mix
-        "mu_ck": init.full((d,), 0.5, dtype),
-        "mu_cr": init.full((d,), 0.5, dtype),
-        "wck": init.normal((d, cfg.d_ff), dtype, std),
-        "wcv": init.normal((cfg.d_ff, d), dtype, cfg.d_ff ** -0.5),
-        "wcr": init.normal((d, d), dtype, std),
+        "mu_ck": init.full((d,), 0.5, dtype, (None,)),
+        "mu_cr": init.full((d,), 0.5, dtype, (None,)),
+        "wck": init.normal((d, cfg.d_ff), dtype, std, ("d_model", "d_ff")),
+        "wcv": init.normal((cfg.d_ff, d), dtype, cfg.d_ff ** -0.5,
+                           ("d_ff", "d_model")),
+        "wcr": init.normal((d, d), dtype, std, ("d_model", "heads_x_dim")),
     }
 
 
@@ -64,10 +67,14 @@ def _group_norm(y, scale, bias, h, eps=64e-5):
             + bias.float()).to(y.dtype)
 
 
-def _dynamic_mix(params, x, xx):
-    """ddlerp: per-stream dynamic token-shift mixing (RWKV6's novelty)."""
+def _dynamic_mix(params, x, xx, rules: ShardingRules):
+    """ddlerp: per-stream dynamic token-shift mixing (RWKV6's novelty).
+    On a mesh the LoRA activations are replicated over the feature axis
+    before they split into the ``N_MIX`` (5) streams, which no even mesh
+    axis divides: an all-gather the plan does not ask for."""
     base = x + xx * params["mu_x"]
-    lora = torch.tanh(base @ params["maa_w1"])
+    lora = rules.shard(torch.tanh(base @ params["maa_w1"]),
+                       "batch", "seq", None)
     b, t, _ = lora.shape
     lora = lora.reshape(b, t, N_MIX, -1)
     dyn = torch.einsum("btnr,nrd->btnd", lora, params["maa_w2"])
@@ -91,7 +98,7 @@ def rwkv_time_mix(params, x, cfg: ModelConfig, rules: ShardingRules,
     b, t, d = x.shape
     h = d // r.head_dim
     xx = _shifted(x, last_x) - x
-    xr, xk, xv, xw, xg = _dynamic_mix(params, x, xx)
+    xr, xk, xv, xw, xg = _dynamic_mix(params, x, xx, rules)
     rq = xr @ params["wr"]
     k = xk @ params["wk"]
     v = xv @ params["wv"]
@@ -102,15 +109,22 @@ def rwkv_time_mix(params, x, cfg: ModelConfig, rules: ShardingRules,
     def to_heads(z):
         return z.reshape(b, t, h, r.head_dim).transpose(1, 2)
     rq_h, k_h, v_h, w_h = to_heads(rq), to_heads(k), to_heads(v), to_heads(w)
+    heads = ("batch", "state_heads", "seq", None)
+    rq_h = rules.shard(rq_h, *heads)
     if single_step:
         y, new_state = gla_decode_step(
             rq_h[:, :, 0], k_h[:, :, 0], v_h[:, :, 0], w_h[:, :, 0], state,
             include_current=False, bonus=params["u"])
         y = y[:, :, None, :].to(x.dtype)
     else:
-        y, new_state = chunked_gla(rq_h, k_h, v_h, w_h, chunk=min(r.chunk, t),
-                                   state=state, include_current=False,
-                                   bonus=params["u"])
+        # per head: on a mesh, on each rank's shards
+        state_axes = ("batch", "state_heads", None, None)
+        y, new_state = rules.local(
+            lambda q_, k_, v_, w_, s_, u_: chunked_gla(
+                q_, k_, v_, w_, chunk=min(r.chunk, t), state=s_,
+                include_current=False, bonus=u_),
+            (heads,) * 4 + (state_axes, ("state_heads", None)),
+            (heads, state_axes))(rq_h, k_h, v_h, w_h, state, params["u"])
     y = y.transpose(1, 2).reshape(b, t, d)
     y = _group_norm(y, params["gn_scale"], params["gn_bias"], h) * g
     out = y @ params["wo"]
@@ -121,7 +135,8 @@ def rwkv_channel_mix(params, x, rules: ShardingRules, *, last_x=None):
     xx = _shifted(x, last_x) - x
     xk = x + xx * params["mu_ck"]
     xr = x + xx * params["mu_cr"]
-    kk = torch.square(F.relu(xk @ params["wck"]))
+    kk = rules.shard(torch.square(F.relu(xk @ params["wck"])),
+                     "batch", "seq", "d_ff")
     vv = kk @ params["wcv"]
     rr = torch.sigmoid(xr @ params["wcr"])
     return rules.shard(rr * vv, "batch", "seq", "act_d_model"), x[:, -1]

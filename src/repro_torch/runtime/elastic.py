@@ -1,10 +1,16 @@
-"""Elastic re-planning — the numpy half of ``repro.runtime.elastic``.
+"""Elastic scaling: re-plan the mesh from the live ranks and reshard the
+latest checkpoint onto it; the port's copy of ``repro.runtime.elastic``.
 
-:func:`plan_worker_recovery` re-plans process-mode dist_ooc's logical
-workers onto the live ranks after a failure; :func:`plan_elastic_mesh`
-plans the largest mesh with the model axis intact.  Placing a restored
-training state on a device mesh (the reference's ``make_mesh_from_plan``
-and ``elastic_restart``) belongs with the LM stack and is not here.
+Design for 1000+ nodes: the TP ('model') axis is sacred — losing a rank
+inside a model-parallel group invalidates the whole group — so elasticity
+shrinks the DP/FSDP ('data' x 'pod') product and idles the remainder of a
+partial group.  Checkpoints are stored logically unsharded (content-
+addressed blocks, ``repro_torch.ckpt``), so resharding is a placement
+under the new rules: no all-to-all shuffling of old shards, the block
+store is the exchange medium.  This mirrors the paper's recovery
+contract: progress lost is at most one step, capacity lost is only the
+failed group.  :func:`plan_worker_recovery` is the process-mode dist_ooc
+twin: it re-plans logical workers onto the live ranks after a failure.
 """
 from __future__ import annotations
 
@@ -12,6 +18,11 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
+
+from repro_torch.ckpt import CheckpointManager
+from repro_torch.launch.mesh import make_device_mesh
+from repro_torch.sharding.rules import place
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +90,39 @@ def plan_worker_recovery(live_ranks: Sequence[int], num_workers: int,
             assign[w] = r
             loads[r] += 1
     return assign
+
+
+def make_mesh_from_plan(plan: MeshPlan, ranks: Optional[Sequence] = None, *,
+                        device=None):
+    """A ``DeviceMesh`` over the first ``plan.used_devices`` of ``ranks``
+    (the default group's ranks in order when None).  Every rank of the
+    default group calls it; the idle ones join the group creation and
+    hold nothing."""
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    return make_device_mesh(plan.shape, plan.axis_names,
+                            ranks=ranks[:plan.used_devices], device=device)
+
+
+def elastic_restart(ckpt_dir: str, template_state, *, available: int,
+                    model_axis: int, rules_factory, ranks=None, device=None):
+    """Restore the latest checkpoint and place it on a freshly planned mesh.
+
+    rules_factory(mesh) -> (ShardingRules, state_shardings tree of
+    ``(mesh, placements)``, as ``ShardingRules.tree_shardings`` gives).
+    Every rank of the default group calls it.  Returns (step,
+    state_on_new_mesh, mesh, plan); an idle rank (outside the mesh) reads
+    no state and gets None for it."""
+    plan = plan_elastic_mesh(available, model=model_axis)
+    mesh = make_mesh_from_plan(plan, ranks, device=device)
+    mgr = CheckpointManager(ckpt_dir)
+    if mesh.get_coordinate() is None:
+        steps = mgr.store.steps()
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        return max(steps), None, mesh, plan
+    got = mgr.restore_into(template_state)
+    if got is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    step, state = got
+    rules, state_sh = rules_factory(mesh)
+    return step, place(state, state_sh), mesh, plan

@@ -1,11 +1,23 @@
-"""Logical-axis sharding rules, the port's one-card half of
-``repro.sharding.rules``.
+"""Logical-axis sharding rules (MaxText-style logical -> mesh mapping), the
+port's copy of ``repro.sharding.rules``.
 
 Model code annotates arrays with *logical* axis names; a ``ShardingRules``
-object maps those to mesh axes.  On one card there is no mesh: the rules
-are a no-op (``shard`` returns its input), and every model signature keeps
-its ``rules`` argument so the mesh half of training (slice 8b) can hand
-in a mesh-backed table without touching the models.
+object maps those to mesh axes.  The same model code therefore runs
+unsharded on one card (``mesh=None``: the rules are a no-op) and sharded
+on a ``torch.distributed`` :class:`DeviceMesh` whose dimension names are
+the reference's mesh axes (``data``, ``model``, and ``pod`` where
+present) — only the rules object changes.
+
+On a mesh, JAX's ``NamedSharding`` becomes a DTensor placement list, one
+entry per mesh dimension: ``Shard(d)`` where the logical axis of tensor
+dimension ``d`` maps to that mesh axis, ``Replicate()`` otherwise.  A
+tuple of mesh axes on one tensor dimension (``("pod", "data")``) shards
+that dimension over both, the first axis major, as ``PartitionSpec`` does.
+``with_sharding_constraint`` becomes a redistribute (:meth:`shard`).
+JAX needs every sharded dimension to divide by its mesh axes; DTensor
+does not, and the rules keep the reference's plan on an uneven axis: the
+dimension is cut as ``torch.chunk`` cuts it (the last shards smaller,
+possibly empty) and every value is the one an even cut would give.
 
 Logical axes used across the stack:
   batch, seq, d_model, heads, kv_heads, head_dim, d_ff, vocab, experts,
@@ -16,36 +28,249 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
 AxisVal = Union[None, str, Tuple[str, ...]]
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str)
+                                        for a in x)
+
+
+def _mesh_axes(val: AxisVal) -> tuple:
+    if val is None:
+        return ()
+    return val if isinstance(val, tuple) else (val,)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """``{mesh axis name: size}`` of a torch ``DeviceMesh`` (the
+    reference's ``mesh.shape``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
-    mesh: Optional[Any]
+    mesh: Optional[Any]            # a torch DeviceMesh, or None
     table: Dict[str, AxisVal]
 
     def spec(self, *logical: Optional[str]) -> tuple:
-        """Mesh axes for a tuple of logical axis names (None = unsharded)."""
+        """Mesh axes for a tuple of logical axis names (None = unsharded):
+        the reference's ``PartitionSpec`` entries."""
         return tuple(self.table.get(a) if a is not None else None
                      for a in logical)
 
+    def placements(self, *logical: Optional[str]) -> tuple:
+        """One DTensor placement per mesh dimension for an array whose
+        dimensions carry ``logical``."""
+        names = tuple(self.mesh.mesh_dim_names)
+        out = [Replicate()] * len(names)
+        for dim, val in enumerate(self.spec(*logical)):
+            for a in _mesh_axes(val):
+                i = names.index(a)
+                if out[i] != Replicate():
+                    raise ValueError(f"mesh axis {a!r} shards two dimensions "
+                                     f"of {logical}")
+                out[i] = Shard(dim)
+        return tuple(out)
+
+    def sharding(self, *logical: Optional[str]):
+        """``(mesh, placements)``, or None without a mesh."""
+        if self.mesh is None:
+            return None
+        return self.mesh, self.placements(*logical)
+
     def shard(self, x, *logical: Optional[str]):
-        """A sharding constraint: the identity without a mesh."""
-        return x
+        """A sharding constraint: the identity without a mesh.  On a mesh a
+        DTensor is redistributed to the spec's placements; a plain tensor
+        (one every rank computed alike: a global batch, or what the models
+        build locally) is taken as replicated and cut to them, which moves
+        no data.  As ``with_sharding_constraint``'s transpose, the
+        gradient is constrained to the same placements on the way back."""
+        if self.mesh is None:
+            return x
+        return _place(x, self.mesh, self.placements(*logical))
+
+    def local(self, fn, in_specs, out_specs):
+        """``fn`` run on each rank's shards: the identity without a mesh.
+        On a mesh every tensor argument (its spec not None) is placed by
+        its spec, ``fn`` sees the local shards as plain tensors, and each
+        tensor result comes back as a DTensor placed by its spec.  For a
+        computation independent along its sharded dimensions (attention
+        per batch row and head, the GLA scan per head): the values are the
+        unsharded ones, no data moves, and DTensor dispatches none of its
+        operations.  Results are taken as evenly sharded, which the plans
+        guarantee: they shard only dimensions the mesh axes divide.  An
+        argument left whole on a mesh axis that another argument is
+        sharded on gets its gradient there as a partial sum (each shard's
+        computation adds its share)."""
+        if self.mesh is None:
+            return fn
+
+        # an input left whole on a mesh axis that splits the computation
+        # (another input is sharded on it) gets a partial gradient there
+        names = tuple(self.mesh.mesh_dim_names)
+        split = {a for spec in in_specs if spec is not None
+                 for val in self.spec(*spec) for a in _mesh_axes(val)}
+
+        def grad_placements(spec):
+            return [p if p != Replicate() or names[i] not in split
+                    else Partial()
+                    for i, p in enumerate(self.placements(*spec))]
+
+        def run(*args, **kw):
+            local = [a if spec is None or a is None
+                     else self.shard(a, *spec).to_local(
+                         grad_placements=grad_placements(spec))
+                     for a, spec in zip(args, in_specs)]
+            out = fn(*local, **kw)
+            outs = out if isinstance(out, tuple) else (out,)
+            placed = tuple(
+                o if spec is None or o is None
+                else DTensor.from_local(o.contiguous(), self.mesh,
+                                        self.placements(*spec),
+                                        run_check=False)
+                for o, spec in zip(outs, out_specs))
+            return placed if isinstance(out, tuple) else placed[0]
+        return run
+
+    def tree_shardings(self, logical_tree: Any):
+        """Map a tree of logical-axis tuples to ``(mesh, placements)``
+        pairs (to specs when mesh is None)."""
+        def one(axes):
+            if self.mesh is None:
+                return self.spec(*axes)
+            return self.sharding(*axes)
+        return _map_specs(one, logical_tree)
+
+    def tree_shard(self, tree: Any, logical_tree: Any):
+        """Every leaf of ``tree`` through :meth:`shard` with its spec from
+        ``logical_tree`` (same structure)."""
+        if self.mesh is None:
+            return tree
+        return place(tree, self.tree_shardings(logical_tree))
 
     def axis_size(self, mesh_axis: AxisVal) -> int:
-        return 1
+        if self.mesh is None or mesh_axis is None:
+            return 1
+        sizes = axis_sizes(self.mesh)
+        n = 1
+        for a in _mesh_axes(mesh_axis):
+            n *= sizes[a]
+        return n
 
     def logical_size(self, logical: str) -> int:
         return self.axis_size(self.table.get(logical))
 
 
+def _dense(g):
+    """A DTensor whose local shard is contiguous (a DTensor's contiguity is
+    its global layout's: the backward of a redistribute can leave a
+    strided shard, which DTensor's ``view`` refuses)."""
+    if not isinstance(g, DTensor):
+        return g.contiguous()
+    return DTensor.from_local(g.to_local().contiguous(), g.device_mesh,
+                              g.placements, run_check=False, shape=g.shape,
+                              stride=g.stride())
+
+
+class _Constrain(torch.autograd.Function):
+    """A DTensor redistributed to ``placements``, its gradient too."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        if tuple(x.placements) == placements:
+            return x.view_as(x)
+        return x.redistribute(x.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return _dense(g), None
+
+
+def _map_specs(fn, tree):
+    if _is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return type(tree)(_map_specs(fn, v) for v in tree)
+
+
+def _place(x, mesh, placements):
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return _Constrain.apply(x, tuple(placements))
+
+
+def place(tree: Any, shardings: Any):
+    """Each leaf of ``tree`` placed by its ``(mesh, placements)`` from
+    ``shardings`` (same structure, as :meth:`ShardingRules.tree_shardings`
+    gives; None leaves it as it is), as :meth:`ShardingRules.shard`
+    places one: the reference's ``jax.device_put`` of a tree onto
+    shardings."""
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(place(v, s) for v, s in zip(tree, shardings))
+    return tree if shardings is None else _place(tree, *shardings)
+
+
+def full(x):
+    """The whole (global) value of a DTensor, on every rank; a plain tensor
+    as it is."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def local_replica(x):
+    """A DTensor as a plain, differentiable tensor replicated on every rank
+    (an all-gather of its shards, and an all-reduce of a partial sum); a
+    plain tensor as it is.  For the operations DTensor has no sharding
+    rule for: the caller computes on the replica and hands its result
+    back through :meth:`ShardingRules.shard`."""
+    if not isinstance(x, DTensor):
+        return x
+    return _Constrain.apply(
+        x, (Replicate(),) * x.device_mesh.ndim).to_local()
+
+
 def make_rules(mesh=None, **overrides: AxisVal) -> ShardingRules:
-    """The rules for one card (``mesh=None``); keyword overrides fill the
-    table as in the reference.  A device mesh is slice 8b's."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_rules(mesh): mesh-backed sharding rules come with the LM "
-            "training port's mesh half (slice 8b); the port serves and "
-            "trains on one card with make_rules(None)")
-    return ShardingRules(None, dict(overrides))
+    """Default logical->mesh table for a ('data', 'model') or
+    ('pod', 'data', 'model') mesh, read from ``mesh.mesh_dim_names``;
+    keyword overrides adjust per-arch/shape.  ``mesh=None`` gives the
+    one-card rules (a no-op) holding only the overrides."""
+    if mesh is None:
+        return ShardingRules(None, dict(overrides))
+    axis_names = tuple(mesh.mesh_dim_names)
+    dp: AxisVal = tuple(a for a in ("pod", "data") if a in axis_names)
+    if len(dp) == 1:
+        dp = dp[0]
+    tp = "model" if "model" in axis_names else None
+    table: Dict[str, AxisVal] = {
+        "batch": dp,
+        "seq": None,
+        "d_model": dp,        # FSDP: weight d_model axis sharded over data
+        "act_d_model": None,  # activation feature axis (unsharded by default)
+        "heads": tp,
+        "kv_heads": tp,
+        "q_group": None,
+        "moe_cap": None,
+        "head_dim": None,
+        "d_ff": tp,
+        "vocab": tp,
+        "experts": tp,
+        "expert_ff": None,
+        "state": None,
+        "conv": None,
+        "layers": None,
+        "cache_seq": None,
+        "frames": None,
+    }
+    table.update(overrides)
+    return ShardingRules(mesh, table)
+

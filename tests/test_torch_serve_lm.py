@@ -3,8 +3,8 @@ gives the reference's tokens in float32 for the serving example's three
 architectures (attention, SSM, hybrid) on the reference's parameters;
 ``make_prefill_and_decode``'s prefill picks the reference's tokens;
 greedy sampling never picks a padded id; ``topk_sample``'s draws stay in
-the top k (its random stream is torch's, not jax's); and the one-card
-sharding rules refuse a mesh until the training slice."""
+the top k (its random stream is torch's, not jax's); and the sharding
+rules are a no-op on one card and place by mesh axis on a device mesh."""
 import dataclasses
 
 import numpy as np
@@ -88,10 +88,24 @@ def test_topk_sample_support(k, temperature):
 
 
 def test_make_rules_with_a_mesh_is_the_training_slice():
+    """The one-card rules stay a no-op; on a ('data', 'model') device mesh
+    (the training slice's) ``make_rules`` gives the reference's default
+    table and DTensor placements by mesh axis name."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, Shard
     rules = make_rules(None, batch="data")
     x = torch.ones(2, 3)
     assert rules.shard(x, "batch", None) is x
     assert rules.spec("batch", "seq") == ("data", None)
     assert rules.logical_size("batch") == 1
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        make_rules(object())
+    mesh = DeviceMesh("cpu", torch.arange(8).reshape(2, 4),
+                      mesh_dim_names=("data", "model"), _init_backend=False,
+                      _rank=0)
+    on = make_rules(mesh)
+    assert on.mesh is mesh
+    assert on.spec("batch", "d_model", "heads", "vocab", "seq") == (
+        "data", "data", "model", "model", None)
+    assert on.placements("batch", "seq", "heads") == (Shard(0), Shard(2))
+    assert on.placements("d_model", "d_ff") == (Shard(0), Shard(1))
+    assert on.placements("seq", "head_dim") == (Replicate(), Replicate())
+    assert on.logical_size("batch") == 2 and on.logical_size("d_ff") == 4
