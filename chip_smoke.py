@@ -8,14 +8,14 @@ Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 phase, then drives the port's three graph paths on a Graph500 R-MAT graph
 (scale 21, edge factor 16, weighted, seed 0: 2,097,152 vertices,
 33,554,432 edges; P = 8 partitions, 8 x 8 tiles): LOCAL and OOC through
-PageRank (5 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
+PageRank (2 iterations), BFS, SSSP and WCC, DIST_OOC through PageRank and
 BFS, in threads and as 2 OS ranks over sockets (process mode, with one
 rank killed and recovered), multi-query serving on LOCAL, OOC and
 DIST_OOC, the SHARD_MAP executor on 8 ranks sharing the card, and the
 Chaos- and GridGraph-like baselines; then the kernel entry point and LM
 serving (Gemma2-9B and Zamba2-1.2B at full width) and LM training
 (Zamba2-1.2B at full width and depth, on one card and on a (2, 2) device
-mesh of 4 ranks sharing it).
+mesh of 4 ranks sharing it), and the LM dry run held against them.
 
 combine_balance (the two combine entry points on synthetic layouts built
 on the card from a seed, ~5 s).  The combine kernels split a call by live
@@ -40,7 +40,9 @@ PageRank's cold run).  For each algorithm it
   * holds the values against the numpy oracles (BFS and WCC exactly,
     PageRank within rtol 1e-4 / atol 1e-7, SSSP against the float64
     Bellman-Ford oracle within rtol 1e-5 / atol 1e-5 — the tolerances of
-    the repo's oracle tests), and the values (BFS/SSSP/WCC bit for bit),
+    the repo's oracle tests; a spawned process computes them on the same
+    seeded graph while the kernels build and the graph is partitioned),
+    and the values (BFS/SSSP/WCC bit for bit),
     every counter and the iteration count against the port's own
     ``segment`` backend on the card;
   * (PageRank: add / add_b modes, WCC: min / max modes) replays the
@@ -52,8 +54,8 @@ PageRank's cold run).  For each algorithm it
 
 Baselines (``baselines_path``: ``repro_torch.core.baselines`` on the same
 graph, after LOCAL).  The Chaos-like engine on 4 nodes (the setting of
-``benchmarks/table45_engines.py``) runs PageRank (5), BFS and SSSP from the
-source; the Grid-like engine (grid 8) runs PageRank (5) and SSSP with an
+``benchmarks/table45_engines.py``) runs PageRank (2), BFS and SSSP from the
+source; the Grid-like engine (grid 8) runs PageRank (2) and SSSP with an
 unbounded memory budget and with one below two vertex windows (every
 active block re-reads both).  It
   * records each step's active mask (one host copy a step, inside the
@@ -136,7 +138,7 @@ DIST_OOC (``executor="dist_ooc"``, W = 4 workers, ``block_csr``, chunks
 and wire gap streams decoded on the card, ``verify_io``).  It
   * builds a sharded store of the forward graph (contiguous blocks of 2
     destination partitions per worker) beside the OOC stores;
-  * runs PageRank (5) and BFS each cold with the workers in sequence
+  * runs PageRank (2) and BFS each cold with the workers in sequence
     (the per-worker split is the cold run's), then once more with
     ``parallel_workers``, with the launch
     counts of the combine, the fused decode, the stencil and the scans set
@@ -206,7 +208,7 @@ writes the graph and its formats once as ``.npy`` files under
 ``.smoke_tmp/`` (the mesh ranks map the same files); each rank maps them,
 opens the DIST phase's sharded store and loads the kernels the parent
 built.  It
-  * runs PageRank (5) and BFS failure-free, then BFS with
+  * runs PageRank (2) and BFS failure-free, then BFS with
     ``FaultPlan.kill(1, pe=2, phase="recv")``: rank 1 exits with
     ``FAULT_EXIT``, rank 0 adopts workers 1 and 3, rolls the op back from
     its per-op block-store checkpoints and replays it;
@@ -232,7 +234,7 @@ on 8 ``gloo`` ranks, one per partition, all on the one card, launched by
 process-mode phase wrote
 read-only and moves only its own partition's rows to the card, and loads
 the kernels the parent built.  It
-  * runs (a) PageRank (5) under ``block_csr`` with the physical exchange
+  * runs (a) PageRank (2) under ``block_csr`` with the physical exchange
     auto (on): within rtol/atol 1e-5 of LOCAL's, the counters
     ``tests/test_distributed_engine.py`` lists within rtol 1e-5 of LOCAL's,
     every iteration on the wire the largest need list implies (an
@@ -278,19 +280,22 @@ computes the same function, that call:
     heads, the 8 KV heads repeated to 16, head dim 256, bf16, 8,192
     positions, causal, q and k at variance 40 so the scores reach the
     softcap): global with softcap 50, local (window 4,096) with softcap
-    50 (library for both: ``torch.compile`` of ``flex_attention`` with a
-    tanh ``score_mod`` and a causal / window ``block_mask``, its compile
-    outside the timed window), global without softcap (library: SDPA),
-    within rtol 2e-2 / atol 1e-3 of the plain version; float32 global at
-    1,024 positions and local at 8,192 within 1e-5 (library: the same
-    flex call); and at Yi-6B widths (32 query heads, the 4 KV heads
+    50, global without softcap (library: SDPA), within rtol 2e-2 / atol
+    1e-3 of the plain version; float32 global at 1,024 positions and local
+    at 8,192 within 1e-5; and at Yi-6B widths (32 query heads, the 4 KV heads
     repeated to 32, head dim 128, bf16, 4,096 positions, global, no
     softcap; library SDPA) within rtol 2e-2 / atol 1e-3.  Each call also
     shows that the plain version without its causal mask, window or
     softcap falls outside the tolerance, so the check would catch a
     kernel that dropped one.  The bf16 calls take the tensor-core route,
     whose SASS must hold ``HGMMA`` and ``UTMALDG`` (checked after the
-    build); the library calls' differences are reported, not checked;
+    build); the library calls' differences are reported, not checked.
+    The softcapped calls' library call is ``torch.compile`` of
+    ``flex_attention`` with a tanh ``score_mod`` and a causal / window
+    ``block_mask``, its compile outside the timed window: a spawned
+    process compiles the same calls while the graph is built, into the
+    Inductor and Triton caches under the kernels' build directory, where
+    this phase's compile finds them;
   * ``ops.gla`` (``gla_chunked``, chunk 128, batch 8 x 4,096 steps, bf16
     q / k / v) at RWKV6-1.6B widths (32 heads of 64, bonus u) and
     Zamba2-1.2B's Mamba2 (64 heads, state 64, include_current, a per-head
@@ -379,6 +384,22 @@ seed-0 weights on the first batch (a forward pass).  Then it
     uninterrupted (2, 2) step 2 under the same tolerances; prints the
     largest difference per leaf class.
 
+The LM dry run (``dryrun``; ``repro_torch.launch.dryrun``: one step under
+``FakeTensorMode`` as rank 0 of a fake process group, nothing allocated).
+Three jobs start in spawned processes before ``kernel_ops`` and use only
+the host's CPU: ``lm_train``'s step (unsharded, 4 microbatches through
+``TRAIN_MICROBATCHES``), ``lm_train_mesh``'s step on its (2, 2) mesh, and
+Gemma2-9B ``train_4k`` on the 256-rank production mesh.  After
+``lm_train_mesh`` it
+  * requires each predicted peak (rank 0's arguments plus the peak of live
+    bytes the step created) within 0.75-1.25x of the step-1 peak the phase
+    measured on the card;
+  * requires rank 0's collective calls and operand bytes by kind equal to
+    those ``lm_train_mesh``'s rank 0 counted in step 1 (``sharding.wire``);
+  * prints the production cell's per-rank memory, FLOPs, bytes,
+    transcendentals and collectives (its artifact lands in
+    ``artifacts/dryrun_torch/``) and each job's trace seconds.
+
 Every phase prints one JSON line; the line before the last holds the
 kernel table (each combine once per mode and path, each row measured on
 that path's inputs beside that path's launches), the last line is ``{"ok": true, "device": {...}}``.  Any
@@ -451,7 +472,8 @@ GLA_MODELS = {   # name -> (heads, Dk, Dv, include_current, bonus)
     "rwkv6_1_6b": (32, 64, 64, False, True),
     "zamba2_1_2b_mamba2": (64, 64, 64, True, False),
 }
-PR_ITERS = 5
+PR_ITERS = 2                   # PageRank's iterations on every path (cut
+                               # from 5 to make room for the dryrun phase)
 SERVE_SOURCES = 8              # solo references (10 before PR 23)
 SESSION_SOURCES = 4            # queries each session submits (cut from 6,
                                # and before that OOC 8 and DIST_OOC 10, to
@@ -1214,6 +1236,15 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src_dir)
+    # torch.compile's caches in the kernels' build directory: the library
+    # calls of kernel_ops find there what a spawned process compiled
+    build_dir = os.path.join(src_dir, "repro_torch", "kernels", "_build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build_dir, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          os.path.join(build_dir, "triton"))
+    tmp_root = os.path.join(REPO, ".smoke_tmp")
+    os.makedirs(tmp_root, exist_ok=True)
     from repro_torch.core import (
         Engine, EngineConfig, build_dist_graph, build_formats, make_spec,
         phases,
@@ -1238,6 +1269,9 @@ def main(argv=None) -> int:
     emit(phase="device", nvidia_smi=smi, kind=kind,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda)
+
+    # the numpy oracles of the LOCAL phase, on the host meanwhile
+    oracles = start_oracles(opts.scale, tmp_root)
 
     # -- 2. kernel build: one nvcc per source, all started together -------
     t0 = time.perf_counter()
@@ -1277,6 +1311,9 @@ def main(argv=None) -> int:
 
     # -- 2b. the combine on balanced and unbalanced synthetic rows --------
     run_combine_balance(max(0, 21 - opts.scale))
+    # torch.compile of the library calls kernel_ops times, on the host
+    # while the graph is built
+    flex_warm = start_flex_warm(max(0, 21 - opts.scale))
 
     # -- 3. the graph ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1387,13 +1424,12 @@ def main(argv=None) -> int:
         return check
 
     # -- 4. LOCAL, one algorithm at a time ----------------------------------
+    ref = finish_oracles(oracles, source)
     checks = {
-        "pagerank": close(alg.ref_pagerank(n, g.src, g.dst, PR_ITERS),
-                          1e-4, 1e-7),
-        "bfs": exact(alg.ref_bfs(n, g.src, g.dst, source)),
-        "sssp": close(alg.ref_sssp(n, g.src, g.dst, g.data, source), 1e-5,
-                      1e-5),
-        "wcc": exact(alg.ref_wcc(n, g.src, g.dst).astype(np.float32)),
+        "pagerank": close(ref["pagerank"], 1e-4, 1e-7),
+        "bfs": exact(ref["bfs"]),
+        "sssp": close(ref["sssp"], 1e-5, 1e-5),
+        "wcc": exact(ref["wcc"].astype(np.float32)),
     }
     drives = {
         "pagerank": lambda e: alg.pagerank(e, PR_ITERS),
@@ -1426,8 +1462,6 @@ def main(argv=None) -> int:
     run_baselines_path(g, source=source, checks=checks,
                        local_results=local_results)
 
-    tmp_root = os.path.join(REPO, ".smoke_tmp")
-    os.makedirs(tmp_root, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="stores-", dir=tmp_root)
     try:
         ooc = run_ooc(tmp, g=g, source=source, dg=dg, fm=fm, dg_rev=dg_rev,
@@ -1452,7 +1486,10 @@ def main(argv=None) -> int:
     del g, dg, fm, dg_rev, fm_rev, local_results, checks, drives
     gc.collect()
     torch.cuda.empty_cache()
-    ops_rows = run_kernel_ops(opts.scale)
+    # the dry runs use the host's CPU, not the card: started here, joined
+    # after the training phases they are held against
+    dry = start_dryrun(tmp_root)
+    ops_rows = run_kernel_ops(opts.scale, flex_warm)
 
     # -- 10b. the LM serving path at full width, on a freed card -----------
     gc.collect()
@@ -1461,8 +1498,11 @@ def main(argv=None) -> int:
 
     # -- 10c. LM training at full width and depth, on one card and on a
     # device mesh of 4 ranks sharing it -----------------------------------
-    run_lm_train(smi, tmp_root)
-    run_lm_train_mesh(smi, tmp_root)
+    lm_train = run_lm_train(smi, tmp_root)
+    lm_mesh = run_lm_train_mesh(smi, tmp_root)
+
+    # -- 10d. the dry run's predictions against those two phases -----------
+    finish_dryrun(dry, lm_train, lm_mesh, smi)
 
     # -- 11. the kernel table: combine rows per mode and path, each measured
     # on one call of that path and beside that path's launches only ------
@@ -1561,6 +1601,56 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _oracle_job(scale, out_path):
+    """The LOCAL phase's numpy oracles (``ref_pagerank`` at ``PR_ITERS``,
+    ``ref_bfs``, ``ref_sssp`` from the largest out-degree, ``ref_wcc``) on
+    :func:`main`'s graph, made anew from its seed, saved to ``out_path``."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.core import algorithms as alg
+    from repro_torch.data.graphs import rmat_graph
+    g = rmat_graph(scale, 16, seed=0, weighted=True)
+    n = g.num_vertices
+    source = int(np.argmax(g.out_degrees()))
+    np.savez(out_path, source=source,
+             pagerank=alg.ref_pagerank(n, g.src, g.dst, PR_ITERS),
+             bfs=alg.ref_bfs(n, g.src, g.dst, source),
+             sssp=alg.ref_sssp(n, g.src, g.dst, g.data, source),
+             wcc=alg.ref_wcc(n, g.src, g.dst))
+
+
+def start_oracles(scale, tmp_root):
+    """:func:`_oracle_job` in a spawned process: the host computes the
+    oracles while the kernels build and the graph is partitioned."""
+    import multiprocessing
+    path = os.path.join(tempfile.mkdtemp(prefix="oracles-", dir=tmp_root),
+                        "oracles.npz")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_oracle_job, args=(scale, path), daemon=True)
+    proc.start()
+    return proc, path, time.perf_counter()
+
+
+def finish_oracles(started, source):
+    """The oracles of :func:`start_oracles`, for the graph whose source
+    vertex is ``source``."""
+    import numpy as np
+    proc, path, t0 = started
+    t_wait = time.perf_counter()
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"the oracle process failed (exit "
+                             f"{proc.exitcode})")
+    with np.load(path) as z:
+        ref = {k: z[k] for k in z.files}
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    if int(ref.pop("source")) != source:
+        raise AssertionError("the oracle process made another graph")
+    emit(phase="oracles", wall_s=time.perf_counter() - t0,
+         wait_s=time.perf_counter() - t_wait)
+    return ref
 
 
 def run_ooc(tmp, *, g, source, dg, fm, dg_rev, fm_rev, checks, drives,
@@ -2445,7 +2535,7 @@ def run_serving(store, *, g, source, dg, fm, bfs_oracle):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 9c. OOC serving: a session of 8 slots takes the first 6 sources ---
+    # -- 9c. OOC serving: a session of 8 slots takes the first sources ----
     shutil.rmtree(os.path.join(store.root, "vertex"))  # fresh Q = 8 spill
     eng = Engine(dg, fm, EngineConfig(executor="ooc",
                                       compute_backend="block_csr",
@@ -2646,8 +2736,8 @@ def baseline_counts(tab, masks, engine, budget=None):
 
 
 def run_baselines_path(g, *, source, checks, local_results):
-    """Phase ``baselines_path``: Chaos (4 nodes) PageRank (5), BFS and SSSP
-    and Grid (8 x 8) PageRank (5) and SSSP, unbounded and under a budget
+    """Phase ``baselines_path``: Chaos (4 nodes) PageRank (2), BFS and SSSP
+    and Grid (8 x 8) PageRank (2) and SSSP, unbounded and under a budget
     below two vertex windows, on the card; values against LOCAL's (BFS and
     SSSP bit-equal, PageRank within 1e-5) and the oracles, iterations
     against LOCAL's, every counter against an exact numpy count of the
@@ -3073,12 +3163,17 @@ def run_lm_train(smi, tmp_root):
     for i in range(steps):
         b = batch_at(i)
         torch.cuda.synchronize()
+        if i == 0:     # step 1's own peak, above its arguments (the dryrun)
+            init_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, m = step(state, b)
         losses.append(float(m["loss"]))     # syncs with the device
         step_s.append(time.perf_counter() - t0)
         gnorms.append(float(m["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated()
+        if i == 0:
+            step1_peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, torch.cuda.max_memory_allocated())
     if not all(np.isfinite(losses + gnorms)):
         raise AssertionError(f"lm_train: loss {losses}, grad norm {gnorms}")
     leaves = flatten(state["params"])
@@ -3102,7 +3197,7 @@ def run_lm_train(smi, tmp_root):
          leaves_moved=moved, leaves=len(leaves),
          model_flops_per_s_estimate=6 * n_params * tokens / steady_s,
          max_memory_allocated=peak, max_memory_gb=peak / 1e9,
-         nvidia_smi=smi)
+         step1_max_memory_allocated=step1_peak, nvidia_smi=smi)
     print(f"lm_train {arch}: {steady_s:.3f} s/step after a first step of "
           f"{step_s[0]:.3f} s, {tokens / steady_s:.0f} tokens/s, peak "
           f"{peak / 1e9:.1f} GB, losses {losses}, model FLOP/s (estimate, "
@@ -3180,6 +3275,7 @@ def run_lm_train(smi, tmp_root):
 
     run_lm_train_accum(cut, opt_cfg, rules, device)
     emit(phase="lm_train_total", seconds=time.perf_counter() - t_phase)
+    return {"step1_peak": step1_peak}
 
 
 def run_lm_train_accum(cut, opt_cfg, rules, device):
@@ -3422,18 +3518,21 @@ def _lm_mesh_rank(pm, ckpt_dir, single_loss):
         b = batch_at(pipe, i)
         sync()
         dist.barrier()
+        if i == 0 and cuda:   # step 1's own peak, above its arguments
+            out["init_peak"] = peak()
+            torch.cuda.reset_peak_memory_stats()
         wire.WIRE.reset()
         t0 = time.perf_counter()
         state, m = step(state, b)
         loss = float(m["loss"])             # syncs with the device
         steps.append(dict(s=time.perf_counter() - t0, loss=loss,
                           grad_norm=float(m["grad_norm"]),
-                          wire=wire.WIRE.snapshot()))
+                          wire=wire.WIRE.snapshot(), peak=peak()))
         if rank == 0:
             print(f"lm_train_mesh rank 0 step {i + 1}: {steps[-1]['s']:.3f} "
                   f"s, loss {loss}", flush=True)
     out["steps"] = steps
-    out["peak"] = peak()
+    out["peak"] = max(out.get("init_peak", 0), peak())
     local = [x.to_local() for x in flatten(state["params"])]
     out["local_params"] = sum(x.numel() for x in local)
     out["finite"] = all(bool(torch.isfinite(x).all()) for x in local)
@@ -3630,6 +3729,169 @@ def run_lm_train_mesh(smi, tmp_root):
     failures = r0["parity"]["failures"] + r0["elastic"]["check"]["failures"]
     if failures:
         raise AssertionError(f"lm_train_mesh checks: {failures[:8]}")
+    return {"step1_wire": r0["steps"][0]["wire"],
+            "step1_peak": r0["steps"][0]["peak"]}
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the LM dry run (launch/dryrun.py) against the training phases
+# ---------------------------------------------------------------------------
+
+DRYRUN_JOBS = ("one_card", "mesh", "production")
+DRYRUN_PRODUCTION = ("gemma2-9b", "train_4k")   # on pod16x16, 256 fake ranks
+DRYRUN_PEAK_RANGE = (0.75, 1.25)   # predicted over measured step-1 peak
+DRYRUN_TIMEOUT_S = 900
+
+
+def _dryrun_job(job, out_path):
+    """One dry run in a spawned process (``run_cell`` under
+    ``FakeTensorMode`` on a fake process group, the card's device type,
+    nothing allocated), its record written to ``out_path``: ``one_card``
+    is ``lm_train``'s step (``LM_TRAIN_ARCH`` unsharded, ``LM_TRAIN_BATCH``
+    x ``LM_TRAIN_SEQ`` as ``LM_TRAIN_MICRO`` microbatches through the
+    ``TRAIN_MICROBATCHES`` flag), ``mesh`` is ``lm_train_mesh``'s
+    (``LM_MESH_SHAPE``, ``LM_MESH_BATCH`` x ``LM_MESH_SEQ``), and
+    ``production`` the ``DRYRUN_PRODUCTION`` cell on the 256-rank
+    production mesh, whose artifact (its FLOPs by operation included)
+    lands in ``artifacts/dryrun_torch/``."""
+    sys.path.insert(0, os.path.join(REPO, "src"))
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models import flags
+    device = "cpu" if DEVICE == "cpu" else None
+    out_dir = os.path.join(REPO, dryrun.DEFAULT_OUT)
+    if job == "one_card":
+        flags.set_flag("TRAIN_MICROBATCHES", str(LM_TRAIN_MICRO))
+        rec = dryrun.run_cell(
+            LM_TRAIN_ARCH, ShapeSpec("lm_train", "train", LM_TRAIN_SEQ,
+                                     LM_TRAIN_BATCH),
+            multi_pod=False, out_dir=out_dir,
+            device=device, mesh_shape=())
+    elif job == "mesh":
+        rec = dryrun.run_cell(
+            LM_TRAIN_ARCH, ShapeSpec("lm_train_mesh", "train", LM_MESH_SEQ,
+                                     LM_MESH_BATCH),
+            multi_pod=False, out_dir=out_dir,
+            device=device, mesh_shape=LM_MESH_SHAPE)
+    else:
+        rec = dryrun.run_cell(*DRYRUN_PRODUCTION, multi_pod=False,
+                              out_dir=out_dir, device=device)
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def start_dryrun(tmp_root):
+    """Phase ``dryrun``, first half: the three dry runs of
+    :func:`_dryrun_job` started in spawned processes, one each.  They need
+    the host's CPU and no card memory, so they run while the kernel and
+    LM phases use the card; :func:`finish_dryrun` joins them."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    out = tempfile.mkdtemp(prefix="dryrun-", dir=tmp_root)
+    jobs = {}
+    for job in DRYRUN_JOBS:
+        path = os.path.join(out, job + ".json")
+        proc = ctx.Process(target=_dryrun_job, args=(job, path), daemon=True)
+        proc.start()
+        jobs[job] = (proc, path)
+    return {"jobs": jobs, "dir": out, "t0": time.perf_counter()}
+
+
+def finish_dryrun(started, lm_train, lm_mesh, smi):
+    """Phase ``dryrun``, second half: joins the dry runs, then
+      * one card: the predicted peak (rank 0's arguments plus the peak of
+        live bytes the step created) within ``DRYRUN_PEAK_RANGE`` of
+        ``lm_train``'s measured step-1 peak;
+      * the (2, 2) mesh: rank 0's collective calls and operand bytes by
+        kind equal to those ``lm_train_mesh``'s rank 0 measured in step 1
+        (``sharding.wire``), and its predicted peak within the range of
+        rank 0's measured step-1 peak;
+      * the production cell finished; prints its per-rank memory, FLOPs,
+        bytes, transcendentals and collectives.
+    Prints each job's trace seconds; raises on any miss."""
+    from repro_torch.launch.dryrun import collective_bytes_from_wire
+    t_wait = time.perf_counter()
+    recs = {}
+    try:
+        for job, (proc, path) in started["jobs"].items():
+            proc.join(max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                   - started["t0"])))
+            if proc.is_alive() or proc.exitcode != 0 or not os.path.exists(
+                    path):
+                raise AssertionError(f"dryrun {job}: the job ended with "
+                                     f"{proc.exitcode} (alive "
+                                     f"{proc.is_alive()})")
+            with open(path) as f:
+                recs[job] = json.load(f)
+            if not recs[job].get("ok"):
+                raise AssertionError(f"dryrun {job}: {recs[job].get('error')}"
+                                     f"\n{recs[job].get('traceback')}")
+    finally:
+        for proc, _ in started["jobs"].values():
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        shutil.rmtree(started["dir"], ignore_errors=True)
+    wait_s = time.perf_counter() - t_wait
+
+    def predicted(rec):
+        m = rec["memory_analysis"]
+        return m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+
+    checks = {}
+    for job, measured in (("one_card", lm_train["step1_peak"]),
+                          ("mesh", lm_mesh["step1_peak"])):
+        ratio = predicted(recs[job]) / measured if measured else None
+        checks[job] = dict(predicted_peak=predicted(recs[job]),
+                           measured_step1_peak=measured, ratio=ratio,
+                           memory=recs[job]["memory_analysis"],
+                           flops=recs[job]["cost_analysis"]["flops"],
+                           trace_s=recs[job]["trace_s"])
+    real = collective_bytes_from_wire(lm_mesh["step1_wire"])
+    dry = recs["mesh"]["collectives"]
+    wire_equal = (real["counts"] == dry["counts"]
+                  and real["by_op"] == dry["by_op"])
+    prod = recs["production"]
+    emit(phase="dryrun", **{f"{job}_check": c for job, c in checks.items()},
+         mesh_collectives_dry=dry, mesh_collectives_measured=real,
+         mesh_wire_equal=wire_equal, production=dict(
+             arch=prod["arch"], shape=prod["shape"], mesh=prod["mesh"],
+             chips=prod["chips"], rank=prod["rank"],
+             memory=prod["memory_analysis"], cost=prod["cost_analysis"],
+             collectives=prod["collectives"], plan_notes=prod["plan_notes"],
+             trace_s=prod["trace_s"], flops_by_op=prod["flops_by_op"][:8]),
+         trace_s={job: r["trace_s"] for job, r in recs.items()},
+         wall_s=time.perf_counter() - started["t0"], wait_s=wait_s,
+         nvidia_smi=smi)
+    for job, c in checks.items():
+        print(f"dryrun {job}: predicted peak {c['predicted_peak'] / 1e9:.3f} "
+              f"GB (arguments {c['memory']['argument_size_in_bytes'] / 1e9:.3f}"
+              f" + temp {c['memory']['temp_size_in_bytes'] / 1e9:.3f}) vs "
+              f"measured step-1 peak {(c['measured_step1_peak'] or 0) / 1e9:.3f}"
+              f" GB, ratio {c['ratio']}; trace {c['trace_s']} s [{smi}]",
+              flush=True)
+    print(f"dryrun mesh {LM_MESH_SHAPE}: rank 0 collectives {dry['counts']} "
+          f"{dry['by_op']} B; lm_train_mesh rank 0 step 1 {real['counts']} "
+          f"{real['by_op']} B; equal {wire_equal}", flush=True)
+    pm = prod["memory_analysis"]
+    print(f"dryrun {prod['arch']} {prod['shape']} {prod['mesh']} rank 0: "
+          f"arguments {pm['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+          f"{pm['temp_size_in_bytes'] / 1e9:.3f} GB, outputs "
+          f"{pm['output_size_in_bytes'] / 1e9:.3f} GB; matmul FLOPs "
+          f"{prod['cost_analysis']['flops']:.4e}, bytes accessed "
+          f"{prod['cost_analysis']['bytes_accessed']:.4e}, transcendentals "
+          f"{prod['cost_analysis']['transcendentals']:.4e}; collectives "
+          f"{prod['collectives']['counts']} "
+          f"{prod['collectives']['total_operand_bytes']} B; trace "
+          f"{prod['trace_s']} s", flush=True)
+    if not wire_equal:
+        raise AssertionError(f"dryrun mesh: rank 0's collectives {dry} differ "
+                             f"from the measured {real}")
+    lo, hi = DRYRUN_PEAK_RANGE
+    for job, c in checks.items():
+        if c["ratio"] is None or not lo <= c["ratio"] <= hi:
+            raise AssertionError(f"dryrun {job}: predicted peak over measured "
+                                 f"{c['ratio']}, outside {DRYRUN_PEAK_RANGE}")
 
 
 # ---------------------------------------------------------------------------
@@ -4102,7 +4364,7 @@ def run_proc_path(tmp, *, dg, fm, store, source, scale, dist):
     """The proc_path phase (9e) of :func:`main`: process-mode DIST_OOC on
     ``PROC_RANKS`` OS ranks sharing the card (:func:`_proc_rank`), the W =
     4 logical workers of :func:`run_dist_ooc`'s sharded store two to a
-    rank, with the reference's run specs: PageRank (5) and BFS
+    rank, with the reference's run specs: PageRank (2) and BFS
     failure-free, then BFS with worker 1's rank killed at ProcessEdges
     call 2 (``PROC_KILL``).  Held against the in-thread DIST_OOC runs
     ``dist``: values, iterations, per-iteration returns, every counter and
@@ -4359,6 +4621,58 @@ def flex_softcap(q, k, v, s, window, softcap):
                         block_mask=mask)
 
 
+def attention_calls(cut):
+    """The ``ops.attention`` calls of :func:`run_kernel_ops` at ``cut``:
+    (model, label, dtype, positions, window, softcap, rtol, atol)."""
+    import torch
+    bf = torch.bfloat16
+    seq = max(128, GEMMA_SEQ >> cut)
+    local = min(GEMMA_WINDOW, seq // 2)
+    yi_seq = max(128, YI_SEQ >> cut)
+    return (
+        ("gemma2-9b", "global, softcap 50", bf, seq, 0, GEMMA_SOFTCAP, 2e-2,
+         1e-3),
+        ("gemma2-9b", "local window %d, softcap 50" % local, bf, seq, local,
+         GEMMA_SOFTCAP, 2e-2, 1e-3),
+        ("gemma2-9b", "global, no softcap", bf, seq, 0, 0.0, 2e-2, 1e-3),
+        ("gemma2-9b", "global, softcap 50, float32", torch.float32,
+         min(1024, seq), 0, GEMMA_SOFTCAP, 1e-5, 1e-5),
+        ("gemma2-9b", "local window %d, softcap 50, float32" % local,
+         torch.float32, seq, local, GEMMA_SOFTCAP, 1e-5, 1e-5),
+        ("yi-6b", "global, no softcap", bf, yi_seq, 0, 0.0, 2e-2, 1e-3),
+    )
+
+
+def _flex_warm_job(cut):
+    """Compiles :func:`flex_softcap` for each softcapped call of
+    :func:`attention_calls` on inputs of its shapes, in a spawned process
+    while the parent builds the graph on the host: ``torch.compile`` keeps
+    what it built in the Inductor and Triton caches (under the kernels'
+    build directory), where ``run_kernel_ops``' own compile of the same
+    calls finds it."""
+    import torch
+    for model, _, dtype, s, window, softcap, _, _ in attention_calls(cut):
+        if not softcap:
+            continue
+        heads, kv_heads, d = ATTN_MODELS[model]
+        q = torch.randn((heads, s, d), device=DEVICE).to(dtype)
+        k, v = (torch.randn((kv_heads, s, d), device=DEVICE).to(dtype)
+                .repeat_interleave(heads // kv_heads, dim=0)
+                for _ in range(2))
+        flex_softcap(q, k, v, s, window, softcap)()
+        torch.cuda.synchronize()
+
+
+def start_flex_warm(cut):
+    """:func:`_flex_warm_job` in a spawned process; joined by
+    :func:`run_kernel_ops` before its own compiles."""
+    import multiprocessing
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_flex_warm_job, args=(cut,), daemon=True)
+    proc.start()
+    return proc
+
+
 def launched(counter_owner, fn):
     """(fn(), launches): ``counter_owner.launches`` set to 0 just before
     ``fn`` and read just after; raises unless it grew."""
@@ -4373,14 +4687,16 @@ def launched(counter_owner, fn):
     return out, n_launch
 
 
-def run_kernel_ops(scale):
+def run_kernel_ops(scale, flex_warm=None):
     """Phase 10 of :func:`main`: ``ops.spmv``, ``ops.attention`` and
     ``ops.gla`` at full width, each call with its kernel's launch count set
     to 0 just before and read just after (it must have grown), held against
     its plain version (and spmv against the float64 edge oracle), and timed
     beside its bound and a PyTorch library call where one computes the
     same function.  ``scale`` below 21 shrinks the graph, the sequences and
-    the GLA batch for a rehearsal.  Returns the kernel table's rows."""
+    the GLA batch for a rehearsal.  ``flex_warm`` (the process of
+    :func:`start_flex_warm`) is joined before the first library compile.
+    Returns the kernel table's rows."""
     import numpy as np
     import torch
     from repro_torch.data.graphs import uniform_graph
@@ -4501,9 +4817,16 @@ def run_kernel_ops(scale):
     torch.cuda.empty_cache()
 
     # -- 10b. flash_attention at Gemma2-9B and Yi-6B widths ----------------
-    seq = max(128, GEMMA_SEQ >> cut)
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
+    if flex_warm is not None:
+        t0 = time.perf_counter()
+        flex_warm.join()
+        if flex_warm.exitcode != 0:
+            raise AssertionError("the flex_attention warm-up failed (exit "
+                                 f"{flex_warm.exitcode})")
+        emit(phase="kernel_ops", call="flex_warm_join",
+             wait_s=time.perf_counter() - t0)
 
     def attention_inputs(model, s, dtype):
         heads, kv_heads, d = ATTN_MODELS[model]
@@ -4518,21 +4841,8 @@ def run_kernel_ops(scale):
         return (q,) + tuple(a.to(dtype).repeat_interleave(
             heads // kv_heads, dim=0) for a in (k, v))
 
-    local = min(GEMMA_WINDOW, seq // 2)
-    yi_seq = max(128, YI_SEQ >> cut)
-    calls = (   # model, label, dtype, positions, window, softcap, rtol, atol
-        ("gemma2-9b", "global, softcap 50", bf, seq, 0, GEMMA_SOFTCAP, 2e-2,
-         1e-3),
-        ("gemma2-9b", "local window %d, softcap 50" % local, bf, seq, local,
-         GEMMA_SOFTCAP, 2e-2, 1e-3),
-        ("gemma2-9b", "global, no softcap", bf, seq, 0, 0.0, 2e-2, 1e-3),
-        ("gemma2-9b", "global, softcap 50, float32", torch.float32,
-         min(1024, seq), 0, GEMMA_SOFTCAP, 1e-5, 1e-5),
-        ("gemma2-9b", "local window %d, softcap 50, float32" % local,
-         torch.float32, seq, local, GEMMA_SOFTCAP, 1e-5, 1e-5),
-        ("yi-6b", "global, no softcap", bf, yi_seq, 0, 0.0, 2e-2, 1e-3),
-    )
-    for model, label, dtype, s, window, softcap, rtol, atol in calls:
+    for model, label, dtype, s, window, softcap, rtol, atol in \
+            attention_calls(cut):
         heads, kv_heads, head_dim = ATTN_MODELS[model]
         q, k, v = attention_inputs(model, s, dtype)
         kw = dict(causal=True, window=window, softcap=softcap)

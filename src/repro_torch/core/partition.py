@@ -171,6 +171,23 @@ def tensors_to(obj, device):
         if isinstance(getattr(obj, f.name), torch.Tensor)})
 
 
+def _edge_order(n, p_cnt, b_cnt, dst, src, dst_batch, src_part, dst_part):
+    """``np.lexsort((dst, src, dst_batch, src_part, dst_part))``: as one
+    stable sort of a combined int64 key when the keys' ranges fit in 63
+    bits (it sorts one array instead of five), else the lexsort itself."""
+    if (p_cnt * p_cnt * max(b_cnt, 1)).bit_length() + 2 * max(
+            n - 1, 1).bit_length() > 63:
+        return np.lexsort((dst, src, dst_batch, src_part, dst_part))
+    key = dst_part.astype(np.int64) * p_cnt + src_part
+    key *= b_cnt
+    key += dst_batch
+    key *= n
+    key += src
+    key *= n
+    key += dst
+    return np.argsort(key, kind="stable")
+
+
 def build_dist_graph(graph: GraphData, spec: TwoLevelSpec) -> DistGraph:
     """Host-side preprocessing: group edges into (src partition, dst batch)
     chunks per destination partition, build filter need-lists, pad + stack."""
@@ -194,7 +211,8 @@ def build_dist_graph(graph: GraphData, spec: TwoLevelSpec) -> DistGraph:
     # column-oriented chunk order, CSR-by-source inside each chunk (so DCSR
     # (src, idx) seek ranges are contiguous; segment-reduce by dst does not
     # need dst-sorted order).
-    order = np.lexsort((dst, src, dst_batch, src_part, dst_part))
+    order = _edge_order(graph.num_vertices, p_cnt, b_cnt, dst, src,
+                        dst_batch, src_part, dst_part)
     src_part_s = src_part[order]
     dst_part_s = dst_part[order]
     src_local_s = src_local[order]
@@ -251,7 +269,7 @@ def build_dist_graph(graph: GraphData, spec: TwoLevelSpec) -> DistGraph:
 
     # need bitmaps (paper §4.3): need[p, q, v_local] — lives on source side
     need = np.zeros((p_cnt, p_cnt, v_max), bool)
-    np.logical_or.at(need, (src_part, dst_part, src_local), True)
+    need[src_part, dst_part, src_local] = True
     need_counts = need.sum(axis=2).astype(np.int64)
 
     t = torch.from_numpy

@@ -345,7 +345,10 @@ def dense_dispatch(x: torch.Tensor, dispatch, expert_idx, position,
     Without groups: x [T, D] -> [E, C, D].
     With groups (per-source-group capacity): -> [E, G, C/G, D]; group g's
     tokens land only in the g-slice.  Kept slots are distinct, so the
-    scatter adds each into zeros, as the reference's."""
+    scatter adds each into zeros, as the reference's; a dropped token is
+    added into a sink row past the last slot, which is cut off (the
+    reference's out-of-range index with ``mode="drop"``): no data-dependent
+    shape, so the dry run traces it on fake tensors."""
     d = x.shape[1]
     k = expert_idx.shape[1]
     ok = dispatch.reshape(-1)
@@ -360,9 +363,9 @@ def dense_dispatch(x: torch.Tensor, dispatch, expert_idx, position,
         flat_idx = ((expert_idx * groups + group_id) * cap_g
                     + position).reshape(-1)
         shape = (num_experts, groups, cap_g, d)
-    buf = x.new_zeros((slots, d))
-    buf.index_add_(0, flat_idx[ok].long(), src[ok])
-    return buf.reshape(shape)
+    buf = x.new_zeros((slots + 1, d))
+    buf.index_add_(0, torch.where(ok, flat_idx, slots).long(), src)
+    return buf[:slots].reshape(shape)
 
 
 def dense_combine(expert_out: torch.Tensor, dispatch, expert_idx, position,

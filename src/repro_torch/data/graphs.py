@@ -102,9 +102,14 @@ def rmat_graph(scale: int, edge_factor: int = 16, *, a: float = 0.57,
     for bit in range(scale):
         r = rng.random(m)
         right = r > ab                      # column bit set
-        bottom = ((r > a) & (r <= ab)) | (r > abc)  # row bit set
-        src = (src << 1) | bottom.astype(np.int64)
-        dst = (dst << 1) | right.astype(np.int64)
+        # row bit set: a < r <= ab or r > abc, as three thresholds' parity
+        bottom = r > a
+        bottom ^= right
+        bottom ^= r > abc
+        src <<= 1
+        src |= bottom
+        dst <<= 1
+        dst |= right
     if dedup:
         key = src * n + dst
         _, idx = np.unique(key, return_index=True)

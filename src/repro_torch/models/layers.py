@@ -73,6 +73,26 @@ class Init:
         return self.full(shape, 0.0, dtype, axes)
 
 
+@dataclasses.dataclass(frozen=True)
+class EmptyInit(Init):
+    """Leaves of the parameters' shapes and dtypes on ``device``, left
+    uninitialised (``torch.empty``): under ``FakeTensorMode`` nothing is
+    drawn or allocated (the dry run's state).  ``gen`` is a CPU generator
+    whose only use is the device of the few leaves built by a function
+    (Mamba2's ``A_log``), moved to ``device`` after."""
+    device: Optional[torch.device] = None
+
+    def leaf(self, axes, make):
+        return make().to(self.device)
+
+    def normal(self, shape, dtype, std: float, axes):
+        return self.full(shape, 0.0, dtype, axes)
+
+    def full(self, shape, value, dtype, axes):
+        return torch.empty(self.lead + tuple(shape), dtype=dtype,
+                           device=self.device)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -138,9 +158,8 @@ def apply_mrope(x, positions3, theta: float, sections):
     half = x.shape[-1] // 2
     assert sum(sections) == half, (sections, half)
     # choose which positional stream drives each frequency band
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.as_tensor(list(sections), device=x.device)) % 3   # [half]
+    sec_id = torch.as_tensor(np.repeat(np.arange(3), list(sections)) % 3,
+                             device=x.device)                   # [half]
     pos = positions3.float()[..., sec_id]                     # [B, S, half]
     ang = pos * _freq(half, theta, x.device)[None, None, :]
     return _rotate(x, _heads_expand(torch.sin(ang), x.ndim),
@@ -257,6 +276,21 @@ def _project(x, w, rules: ShardingRules, heads_axis: Optional[str]):
     return y.reshape(tuple(x.shape[:2]) + tuple(w.shape[1:]))
 
 
+def _write_token(ck, cv, k, v, widx):
+    """Store one token's k and v ([B, KV, HD]) at slot ``widx`` ([B]) of each
+    row's cache ([B, Sc, KV, HD]), in place."""
+    bidx = torch.arange(ck.shape[0], device=ck.device)
+    ck[bidx, widx] = k.to(ck.dtype)
+    cv[bidx, widx] = v.to(cv.dtype)
+
+
+def _attend_cache(q, ck, cv, valid, *, scale, softcap, dtype):
+    """One query token over a decode cache: q [B, 1, KV, G, HD], the cache
+    [B, Sc, KV, HD], ``valid`` [B, Sc] the slots it may attend to."""
+    scores = _softcap(_scores(q, ck, scale), softcap)
+    return _mix(scores, valid[:, None, None, None, :], cv, dtype)
+
+
 def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
               *, kind: str = "global", cache=None, decode_pos=None,
               cross_kv=None, causal: bool = True, rope: bool = True,
@@ -275,7 +309,15 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
     window = spec.window if kind == "local" else 0
 
     kv_in = x if cross_kv is None else cross_kv
-    q = _project(x, params["wq"], rules, "kv_heads")          # [B,S,KV,G,HD]
+    # the GQA group axis over 'model' (kv_heads indivisible, G divisible):
+    # the heads axes are flattened G first, so that the flattening starts
+    # at the sharded axis, and the results are put back in [KV, G] order
+    grouped = rules.mesh is not None and rules.table.get("q_group") is not None
+    if grouped:
+        q = _project(x, params["wq"].transpose(1, 2), rules,
+                     "q_group").transpose(2, 3)
+    else:
+        q = _project(x, params["wq"], rules, "kv_heads")      # [B,S,KV,G,HD]
     k = _project(kv_in, params["wk"], rules, "kv_heads")
     v = _project(kv_in, params["wv"], rules, "kv_heads")
     if spec.qkv_bias:
@@ -311,9 +353,12 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
     if flat:
         q_axes = ("batch", "seq", "heads", None, None)
         kv_axes = ("batch", "seq", "heads", None)
-        q = q.reshape(b, s, h, 1, hd)
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
+        # only the flat layout cuts the heads over 'model': the gradients
+        # are gathered before they flow back into the grouped [KV, G] one,
+        # which cannot hold the cut when neither KV nor G divides by it
+        q = rules.gather_grad(q.reshape(b, s, h, 1, hd), "heads")
+        k = rules.gather_grad(torch.repeat_interleave(k, g, dim=2), "heads")
+        v = rules.gather_grad(torch.repeat_interleave(v, g, dim=2), "heads")
     else:
         q_axes = ("batch", "seq", "kv_heads", "q_group", None)
         kv_axes = ("batch", "seq", "kv_heads", None)
@@ -326,9 +371,27 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
         sc = cache["k"].shape[1]
         rolling = bool(kind == "local" and window and sc == window)
         widx = (decode_pos % sc if rolling else decode_pos).long()
-        bidx = torch.arange(b, device=x.device)
-        cache["k"][bidx, widx] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, widx] = v[:, 0].to(cache["v"].dtype)
+        if rules.logical_size("cache_seq") > 1:
+            raise NotImplementedError(
+                "a decode step's cache write into a sequence-sharded cache "
+                "(context parallelism) is not ported")
+        # per batch row and KV head: on a mesh, on each rank's shards, which
+        # are the cache's own only when it is placed as the plan says
+        cache_axes = ("batch", "cache_seq", "kv_heads", None)
+        tok_axes = ("batch", "kv_heads", None)
+        if rules.mesh is not None:
+            want = rules.placements(*cache_axes)
+            for name in ("k", "v"):
+                got = getattr(cache[name], "placements", None)
+                if got is None or tuple(got) != want:
+                    raise ValueError(
+                        f"decode cache {name!r} is placed {got}, not "
+                        f"{want}: a write into its shards would be lost; "
+                        "place the caches with rules.tree_shard(cache, "
+                        "model.cache_logical_specs())")
+        rules.local(_write_token, (cache_axes, cache_axes, tok_axes,
+                                   tok_axes, ("batch",)), (None,))(
+            cache["k"], cache["v"], k[:, 0], v[:, 0], widx)
         kpos = torch.arange(sc, device=x.device)
         if rolling:
             # Slot j holds the most recent position = j (mod sc); once
@@ -340,9 +403,10 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
             valid = kpos[None, :] <= decode_pos[:, None]
             if window:
                 valid &= kpos[None, :] > decode_pos[:, None] - window
-        scores = _softcap(_scores(q, cache["k"], scale), spec.softcap)
-        out = _mix(scores, valid[:, None, None, None, :], cache["v"],
-                   x.dtype)
+        out = rules.local(_attend_cache, (q_axes, cache_axes, cache_axes,
+                                          ("batch", None)), (q_axes,))(
+            q, cache["k"], cache["v"], valid, scale=scale,
+            softcap=spec.softcap, dtype=x.dtype)
     else:
         threshold = flags.ATTN_CHUNK_THRESHOLD or CHUNKED_ATTN_THRESHOLD
         # per batch row and head: on a mesh, on each rank's shards
@@ -358,9 +422,16 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
                 scale=scale)
     # [B, S, KV, G, HD] (or [B, S, H, 1, HD] flat: the same order) times
     # wo [KV, G, HD, D], as one matmul over the heads axes flattened
+    wo = params["wo"]
+    if grouped:
+        out, wo = out.transpose(2, 3), wo.transpose(0, 1)
     out = rules.shard(out.reshape(b, s, -1), "batch", "seq",
-                      "heads" if flat else "kv_heads")
-    out = out @ params["wo"].reshape(-1, params["wo"].shape[-1])
+                      "heads" if flat else "q_group" if grouped
+                      else "kv_heads")
+    wo = wo.reshape(-1, wo.shape[-1])
+    if flat:
+        wo = rules.gather_grad(wo, "heads")
+    out = out @ wo
     return rules.shard(out, "batch", "seq", "act_d_model"), cache
 
 

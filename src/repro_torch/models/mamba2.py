@@ -104,9 +104,14 @@ def mamba_block(params, x, cfg: ModelConfig, rules: ShardingRules,
     heads = ("batch", "state_heads", "seq", None)
     q = rules.shard(q, *heads)
     if cache is not None:
-        y, new_state = gla_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
-                                       w[:, :, 0], cache["state"],
-                                       include_current=True)
+        # per head: on a mesh, on each rank's shards
+        step_axes = ("batch", "state_heads", None)
+        state_axes = ("batch", "state_heads", None, None)
+        y, new_state = rules.local(
+            lambda q_, k_, v_, w_, s_: gla_decode_step(
+                q_, k_, v_, w_, s_, include_current=True),
+            (step_axes,) * 4 + (state_axes,), (step_axes, state_axes))(
+            q[:, :, 0], k[:, :, 0], v[:, :, 0], w[:, :, 0], cache["state"])
         y = y[:, :, None, :]
     else:
         # per head: on a mesh, on each rank's shards

@@ -165,7 +165,8 @@ def _apply_block(params, desc: Desc, x, cfg: ModelConfig,
         hx = L.rms_norm(x, params["ln_x"], cfg.norm_eps)
         if cache is not None and "ck" in cache:
             # decode: cached cross K/V
-            xa = _cached_cross_attention(params["xattn"], hx, cache, cfg)
+            xa = _cached_cross_attention(params["xattn"], hx, cache, cfg,
+                                         rules)
         else:
             xa, _ = L.attention(params["xattn"], hx, positions, rules, cfg,
                                 cross_kv=cross_kv, causal=False, rope=False)
@@ -181,15 +182,37 @@ def _apply_block(params, desc: Desc, x, cfg: ModelConfig,
     return x + f, aux, cache
 
 
-def _cached_cross_attention(params, x, cache, cfg: ModelConfig):
-    """Decode-time cross attention over precomputed encoder K/V."""
-    qh = torch.einsum("bsd,dkgh->bskgh", x, params["wq"])
+def _put_patches(x, positions, embeds):
+    """A copy of x [B, S, D] with each row's patch embeddings [B, P, D]
+    written at its positions [B, P]."""
+    x = x.clone()
+    x[torch.arange(x.shape[0], device=x.device)[:, None],
+      positions.long()] = embeds.to(x.dtype)
+    return x
+
+
+def _cached_cross_attention(params, x, cache, cfg: ModelConfig,
+                            rules: ShardingRules):
+    """Decode-time cross attention over precomputed encoder K/V (the heads
+    axes flattened into one matmul each way, as ``layers.attention``'s)."""
+    b, s, _ = x.shape
+    qh = L._project(x, params["wq"], rules, "kv_heads")      # [B,S,KV,G,HD]
     if cfg.attn.qkv_bias:
         qh = qh + params["bq"]
-    scores = L._scores(qh, cache["ck"], cfg.head_dim ** -0.5)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, cache["cv"])
-    return torch.einsum("bskgh,kghd->bsd", out, params["wo"])
+    # per batch row and KV head: on a mesh, on each rank's shards
+    q_axes = ("batch", None, "kv_heads", "q_group", None)
+    kv_axes = ("batch", "frames", "kv_heads", None)
+    out = rules.local(_cross_mix, (q_axes, kv_axes, kv_axes), (q_axes,))(
+        qh, cache["ck"], cache["cv"], scale=cfg.head_dim ** -0.5,
+        dtype=x.dtype)
+    out = rules.shard(out.reshape(b, s, -1), "batch", None, "kv_heads")
+    return out @ params["wo"].reshape(-1, params["wo"].shape[-1])
+
+
+def _cross_mix(q, ck, cv, *, scale, dtype):
+    scores = L._scores(q, ck, scale)
+    probs = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, cv)
 
 
 def _init_block_cache(desc: Desc, cfg: ModelConfig, lead: tuple, batch: int,
@@ -255,6 +278,13 @@ class Model:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         return self._build(L.Init(generator))
+
+    def empty_params(self) -> dict:
+        """The parameter tree on the model's device, uninitialised
+        (``torch.empty``): under ``FakeTensorMode`` the dry run's params,
+        built with no generator and no allocation."""
+        return self._build(L.EmptyInit(torch.Generator(),
+                                       device=self.device))
 
     def param_specs(self) -> dict:
         """The parameter tree with each leaf replaced by its tuple of
@@ -340,10 +370,11 @@ class Model:
             if positions is None:
                 positions = torch.arange(s, device=x.device).expand(b, s)
         if "patch_embeds" in batch:                 # VLM stub frontend
-            x = x.clone()
-            x[torch.arange(b, device=x.device)[:, None],
-              batch["patch_positions"].long()] = \
-                batch["patch_embeds"].to(x.dtype)
+            # per batch row: on a mesh, on each rank's rows
+            row = ("batch", None, None)
+            x = rules.local(_put_patches, (row, ("batch", None), row),
+                            (row,))(x, batch["patch_positions"],
+                                    batch["patch_embeds"])
         cross_kv = None
         if cfg.is_encdec:
             cross_kv = self._encode(params, batch["frames"], rules)

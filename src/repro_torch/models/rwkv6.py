@@ -111,14 +111,20 @@ def rwkv_time_mix(params, x, cfg: ModelConfig, rules: ShardingRules,
     rq_h, k_h, v_h, w_h = to_heads(rq), to_heads(k), to_heads(v), to_heads(w)
     heads = ("batch", "state_heads", "seq", None)
     rq_h = rules.shard(rq_h, *heads)
+    state_axes = ("batch", "state_heads", None, None)
     if single_step:
-        y, new_state = gla_decode_step(
+        # per head: on a mesh, on each rank's shards
+        step_axes = ("batch", "state_heads", None)
+        y, new_state = rules.local(
+            lambda q_, k_, v_, w_, s_, u_: gla_decode_step(
+                q_, k_, v_, w_, s_, include_current=False, bonus=u_),
+            (step_axes,) * 4 + (state_axes, ("state_heads", None)),
+            (step_axes, state_axes))(
             rq_h[:, :, 0], k_h[:, :, 0], v_h[:, :, 0], w_h[:, :, 0], state,
-            include_current=False, bonus=params["u"])
+            params["u"])
         y = y[:, :, None, :].to(x.dtype)
     else:
         # per head: on a mesh, on each rank's shards
-        state_axes = ("batch", "state_heads", None, None)
         y, new_state = rules.local(
             lambda q_, k_, v_, w_, s_, u_: chunked_gla(
                 q_, k_, v_, w_, chunk=min(r.chunk, t), state=s_,

@@ -4,11 +4,14 @@ The port's copy of ``repro.serve.engine``; the steps run eagerly under
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.models.model import Model
-from repro_torch.sharding.rules import ShardingRules
+from repro_torch.sharding.rules import ShardingRules, full
 
 
 def _mask_padded(logits, vocab_size: int):
@@ -40,12 +43,20 @@ def topk_sample(logits, generator: torch.Generator, vocab_size: int,
 
 def make_serve_step(model: Model, rules: ShardingRules):
     """step(params, cache, batch) -> (next_token [B], cache); batch has
-    tokens [B,1], pos [B] (+ positions for mrope archs)."""
+    tokens [B,1], pos [B] (+ positions for mrope archs).  On a device mesh
+    the step runs under ``implicit_replication``: the tensors it builds
+    locally (positions, masks) enter DTensor operations as replicated."""
     cfg = model.cfg
+    on_mesh = rules.mesh is not None
 
     def step(params, cache, batch):
-        logits, new_cache = model.decode_step(params, cache, batch, rules)
-        return greedy_sample(logits, cfg.vocab_size), new_cache
+        with implicit_replication() if on_mesh else contextlib.nullcontext():
+            logits, new_cache = model.decode_step(params, cache, batch,
+                                                  rules)
+            # the vocabulary whole on each rank before the argmax; the
+            # tokens whole on every rank, which feeds them back
+            logits = rules.shard(logits, "batch", None)
+            return full(greedy_sample(logits, cfg.vocab_size)), new_cache
 
     return step
 
@@ -69,14 +80,23 @@ class ServeSession:
                  batch: int, cache_len: int):
         self.model, self.params, self.rules = model, params, rules
         frames = model.cfg.max_source_positions if model.cfg.is_encdec else 0
-        self.cache = model.init_cache(batch, cache_len, frames=frames)
+        # on a device mesh, placed as the plan says: the decode step writes
+        # each token into the caches' shards in place
+        self.cache = rules.tree_shard(
+            model.init_cache(batch, cache_len, frames=frames),
+            model.cache_logical_specs())
         self.step_fn = make_serve_step(model, rules)
         self.batch = batch
 
-    @torch.inference_mode()
     def generate(self, prompts: np.ndarray, steps: int) -> np.ndarray:
         """prompts: [B, P] int32.  Feeds prompt tokens one by one (cache
-        warm-up), then samples ``steps`` tokens greedily."""
+        warm-up), then samples ``steps`` tokens greedily.  Runs under
+        ``torch.inference_mode`` on one device and ``torch.no_grad`` on a
+        mesh (a DTensor's views of an inference tensor fail)."""
+        with torch.inference_mode(self.rules.mesh is None), torch.no_grad():
+            return self._generate(prompts, steps)
+
+    def _generate(self, prompts: np.ndarray, steps: int) -> np.ndarray:
         b, p = prompts.shape
         dev = self.model.device
         prompts_t = torch.as_tensor(np.asarray(prompts, np.int32), device=dev)

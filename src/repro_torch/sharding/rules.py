@@ -136,6 +136,21 @@ class ShardingRules:
             return placed if isinstance(out, tuple) else placed[0]
         return run
 
+    def gather_grad(self, x, logical: str):
+        """``x`` unchanged; on a mesh its gradient is gathered over the mesh
+        axes ``logical`` maps to (its other placements kept, a partial sum
+        still partial).  For a tensor reshaped out of a layout that cannot
+        hold the gradient's cut: flat-head attention cuts its H = KV x G
+        heads over 'model' (q, the repeated k and v, ``wo`` as
+        ``[H * HD, D]``), which the grouped ``[KV, G]`` layout cannot hold
+        when neither KV nor G divides by the axis."""
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        names = tuple(self.mesh.mesh_dim_names)
+        dims = tuple(names.index(a)
+                     for a in _mesh_axes(self.table.get(logical)))
+        return _GatherGrad.apply(x, dims)
+
     def tree_shardings(self, logical_tree: Any):
         """Map a tree of logical-axis tuples to ``(mesh, placements)``
         pairs (to specs when mesh is None)."""
@@ -190,6 +205,24 @@ class _Constrain(torch.autograd.Function):
     def backward(ctx, g):
         if tuple(g.placements) != ctx.placements:
             g = g.redistribute(g.device_mesh, ctx.placements)
+        return _dense(g), None
+
+
+class _GatherGrad(torch.autograd.Function):
+    """The identity; the gradient replicated over mesh dimensions ``dims``
+    where it is sharded."""
+
+    @staticmethod
+    def forward(ctx, x, dims):
+        ctx.dims = dims
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = tuple(Replicate() if i in ctx.dims and p.is_shard() else p
+                     for i, p in enumerate(g.placements))
+        if want != tuple(g.placements):
+            g = g.redistribute(g.device_mesh, want)
         return _dense(g), None
 
 

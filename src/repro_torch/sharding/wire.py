@@ -10,20 +10,27 @@ with a segmentation fault (torch 2.11 on an H100), where the c10d
 tensor through host memory itself.  :func:`install` routes DTensor's
 all-gathers of CUDA tensors to that call, and times every collective
 DTensor issues (all-gather, reduce-scatter, all-reduce, all-to-all):
-:data:`WIRE` holds the calls, the bytes each rank hands over and the
-wall seconds until the result is on the device (host staging included).
-A collective's seconds include waiting for the slowest peer.
+:data:`WIRE` holds the calls and the bytes each rank hands over, in all
+and by collective, and the wall seconds until the result is on the device
+(host staging included).  A collective's seconds include waiting for the
+slowest peer.  A collective that DTensor builds from another (on a CPU
+mesh ``shard_dim_alltoall`` is an all-gather and a chunk) counts once,
+under the outer name.  The dry run (``launch/dryrun.py``) counts a step
+with the same wrappers: on fake tensors the collectives move nothing and
+the card is not synchronized.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 import time
 
 import torch
 import torch.distributed as dist
 import torch.distributed._functional_collectives as funcol
 from torch._C._distributed_c10d import _resolve_process_group
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import _collective_utils, placement_types
 
 
@@ -31,17 +38,19 @@ from torch.distributed.tensor import _collective_utils, placement_types
 class WireStats:
     calls: dict = dataclasses.field(default_factory=dict)
     bytes: int = 0
+    bytes_by: dict = dataclasses.field(default_factory=dict)
     seconds: float = 0.0
 
     def reset(self) -> None:
-        self.calls, self.bytes, self.seconds = {}, 0, 0.0
+        self.calls, self.bytes, self.bytes_by, self.seconds = {}, 0, {}, 0.0
 
     def snapshot(self) -> dict:
         return {"calls": dict(self.calls), "bytes": self.bytes,
-                "seconds": self.seconds}
+                "bytes_by": dict(self.bytes_by), "seconds": self.seconds}
 
 
 WIRE = WireStats()
+_DEPTH = threading.local()      # collectives running in this thread
 _GATHERS = ("all_gather_tensor", "all_gather_single")
 _TIMED = _GATHERS + ("reduce_scatter_tensor", "reduce_scatter_single",
                      "all_reduce", "all_to_all_single")
@@ -63,17 +72,27 @@ def _c10d_all_gather(tensor, gather_dim, group, tag=""):
 def _timed(name, fn):
     @functools.wraps(fn)
     def run(tensor, *args, **kw):
+        depth = getattr(_DEPTH, "n", 0)
         t0 = time.perf_counter()
-        if name in _GATHERS and tensor.device.type == "cuda":
-            out = _c10d_all_gather(tensor, *args, **kw)
-        else:
-            out = fn(tensor, *args, **kw)
-            if isinstance(out, funcol.AsyncCollectiveTensor):
-                out = out.wait()
-        if tensor.device.type == "cuda":
+        _DEPTH.n = depth + 1
+        try:
+            if name in _GATHERS and tensor.device.type == "cuda":
+                out = _c10d_all_gather(tensor, *args, **kw)
+            else:
+                out = fn(tensor, *args, **kw)
+                if isinstance(out, funcol.AsyncCollectiveTensor):
+                    out = out.wait()
+        finally:
+            _DEPTH.n = depth
+        if depth:                      # part of an outer collective
+            return out
+        if tensor.device.type == "cuda" and not isinstance(tensor,
+                                                           FakeTensor):
             torch.cuda.synchronize(tensor.device)
+        n = tensor.numel() * tensor.element_size()
         WIRE.calls[name] = WIRE.calls.get(name, 0) + 1
-        WIRE.bytes += tensor.numel() * tensor.element_size()
+        WIRE.bytes += n
+        WIRE.bytes_by[name] = WIRE.bytes_by.get(name, 0) + n
         WIRE.seconds += time.perf_counter() - t0
         return out
     run.wire_original = fn

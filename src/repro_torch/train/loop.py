@@ -225,9 +225,14 @@ def make_eval_step(model: Model, rules: ShardingRules):
 
 
 def make_prefill_step(model: Model, rules: ShardingRules):
-    """Inference prefill: forward pass producing last-position logits."""
+    """Inference prefill: forward pass producing last-position logits.  On
+    a device mesh the body runs under ``implicit_replication``, as the
+    train step's does."""
+    on_mesh = rules.mesh is not None
+
     @torch.no_grad()
     def step(params, batch):
-        logits, _ = model.apply(params, batch, rules)
-        return logits[:, -1]
+        with implicit_replication() if on_mesh else contextlib.nullcontext():
+            logits, _ = model.apply(params, batch, rules)
+            return logits[:, -1]
     return step

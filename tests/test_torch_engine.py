@@ -179,3 +179,36 @@ def test_later_slices_raise(problem, kw, error, match):
     _, _, dg, fm = problem["fwd"]
     with pytest.raises(error, match=match):
         Engine(dg, fm, EngineConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("fallback", [False, True],
+                         ids=["combined-key", "lexsort"])
+@pytest.mark.parametrize("graph", [
+    dict(scale=9, edge_factor=8, seed=1, weighted=True),
+    dict(scale=8, edge_factor=4, seed=2, weighted=False, dedup=True)])
+def test_host_builders_match_jax(graph, fallback, monkeypatch):
+    """``rmat_graph`` draws the reference's edges, and ``build_dist_graph``
+    (its edge order one stable sort of a combined key, or the 5-key
+    lexsort when the keys' ranges pass 63 bits) builds the reference's
+    structure, field for field."""
+    from repro.data.graphs import rmat_graph as j_rmat_graph
+    from repro_torch.core import build_dist_graph, make_spec, partition
+    from repro_torch.data.graphs import rmat_graph as t_rmat_graph
+    g, jg = t_rmat_graph(**graph), j_rmat_graph(**graph)
+    np.testing.assert_array_equal(g.src, jg.src)
+    np.testing.assert_array_equal(g.dst, jg.dst)
+    if graph["weighted"]:
+        np.testing.assert_array_equal(g.data, jg.data)
+    if fallback:    # vertex ids as wide as 2**40: the keys need 80+ bits
+        order = partition._edge_order
+        monkeypatch.setattr(partition, "_edge_order", lambda n, *a: order(
+            1 << 40, *a))
+    for p in (1, 4, 8):
+        spec = make_spec(g, num_partitions=p, batch_size=16)
+        got = build_dist_graph(g, spec)
+        want = jax_fields(j_build_dist_graph(jg, j_make_spec(
+            jg, num_partitions=p, batch_size=16)))
+        for name, value in want.items():
+            if hasattr(value, "shape"):
+                np.testing.assert_array_equal(
+                    getattr(got, name).numpy(), value, err_msg=name)

@@ -23,7 +23,14 @@ and is placed by ``plan_for(cfg, "train", mesh)``; the batches are
 * the second step's loss at rtol 1e-4 from the reference's.
 
 All cases run in one 4-rank job (``trainmeshhelp.train_cases``) while the
-reference compiles its steps in this process."""
+reference compiles its steps in this process, and the dry run
+(``launch.dryrun``) traces each case's step on rank 0 of a fake (2, 2)
+mesh in a subprocess: its collective calls and operand bytes by kind must
+equal rank 0's measured ones in step 1."""
+import json
+import os
+import subprocess
+import sys
 import threading
 
 import numpy as np
@@ -41,10 +48,13 @@ OPT = dict(lr=1e-3, warmup_steps=0)
 
 
 def case_id(case):
-    arch, experts, micro, groups = case
+    """(arch, experts, microbatches, MoE groups[, mesh shape: (2, 2) by
+    default]) -> the case's name."""
+    arch, experts, micro, groups = case[:4]
     return arch + (f"-e{experts}" if experts else "") + (
         f"-micro{micro}" if micro > 1 else "") + (
-        f"-groups{groups}" if groups else "")
+        f"-groups{groups}" if groups else "") + (
+        "-mesh" + "x".join(map(str, case[4])) if len(case) > 4 else "")
 
 
 def _reference(case):
@@ -61,7 +71,7 @@ def _reference(case):
     from repro.train.loop import init_train_state as j_init
     from repro.train.loop import make_train_step as j_make_train_step
     from repro.train.optimizer import OptConfig as JOptConfig
-    arch, experts, micro, groups = case
+    arch, experts, micro, groups = case[:4]
     cfg = dataclasses.replace(j_get_reduced(arch), dtype="float32")
     if experts:
         cfg = dataclasses.replace(
@@ -95,6 +105,7 @@ def _reference(case):
                 "metrics2": {k: float(v) for k, v in m2.items()}}
 
     return dict(arch=arch, experts=experts, micro=micro, groups=groups,
+                mesh=case[4] if len(case) > 4 else None,
                 state=np_state, batches=batches, opt=OPT), steps
 
 
@@ -169,8 +180,43 @@ def assert_step_matches(port, one, ref):
                                ref["metrics2"]["loss"], rtol=1e-4)
 
 
+DRY_RUNS = r"""
+import json, sys
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+import trainmeshhelp
+out = {}
+with dryrun.fake_process_group(4):
+    for case in json.loads(sys.argv[1]):
+        arch, experts, micro, groups = case
+        cfg = trainmeshhelp.config(arch, experts)
+        rec = dryrun.run_cell(arch, ShapeSpec("t", "train", 16, 8),
+                              multi_pod=False, out_dir=sys.argv[2],
+                              device="cpu", cfg=cfg, mesh_shape=(2, 2),
+                              remat=False)
+        out["|".join(map(str, case))] = dict(
+            ok=rec["ok"], error=rec.get("error"),
+            collectives=rec.get("collectives"))
+print("RESULT", json.dumps(out))
+"""
+
+
 @pytest.fixture(scope="module")
-def results():
+def dry_runs(tmp_path_factory):
+    """The dry run of every case's step, started in a subprocess before the
+    rank job (each case's batch is 8 x 16, one microbatch, no remat, as
+    ``train_cases`` trains)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        (os.path.join(os.path.dirname(here), "src"), here)))
+    return subprocess.Popen(
+        [sys.executable, "-c", DRY_RUNS, json.dumps(FAMILIES),
+         str(tmp_path_factory.mktemp("dryrun"))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+
+
+@pytest.fixture(scope="module")
+def results(dry_runs):
     return run_against_reference(FAMILIES)
 
 
@@ -188,3 +234,20 @@ def test_plans_of_the_families(results):
         "3 experts not divisible by tp=2: TP-within-expert (expert_ff over "
         "'model')",)
     assert notes["zamba2-1.2b"] == ("SSM heads over tp=2",)
+
+
+def test_dry_run_collectives_equal_the_measured_step(results, dry_runs):
+    """(e) Rank 0's collectives in the dry run of each case's step equal
+    rank 0's ``sharding.wire`` count of step 1 of the real 4-rank gloo
+    run: calls and operand bytes by kind."""
+    from repro_torch.launch.dryrun import collective_bytes_from_wire
+    out, err = dry_runs.communicate(timeout=600)
+    assert dry_runs.returncode == 0 and "RESULT" in out, err[-3000:]
+    dry = json.loads(out.split("RESULT", 1)[1])
+    for case in FAMILIES:
+        got = dry["|".join(map(str, case))]
+        assert got["ok"], (case, got["error"])
+        measured = collective_bytes_from_wire(
+            results[case_id(case)][0]["wire1"])
+        assert measured["total_operand_bytes"] > 0
+        assert got["collectives"] == measured, case

@@ -1,5 +1,6 @@
 """Rank jobs for the mesh training tests (``tests/test_torch_train_mesh*.py``,
-``tests/test_torch_train_elastic.py``): module-level functions that
+``tests/test_torch_train_elastic.py``) and the mesh serving test
+(``tests/test_torch_serve_mesh.py``): module-level functions that
 :func:`repro_torch.core.mesh.run_mesh` runs on every rank of a 4-rank gloo
 group on the CPU.  They import only the port (a spawned rank need not load
 jax), take the reference's states as numpy trees, and return plain Python
@@ -14,16 +15,19 @@ import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.configs import get_reduced
-from repro_torch.interop import train_state_from_jax
+from repro_torch.interop import lm_params_from_jax, train_state_from_jax
 from repro_torch.launch.mesh import make_device_mesh, make_graph_mesh
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import flags
 from repro_torch.models.model import make_model
 from repro_torch.runtime.elastic import elastic_restart
+from repro_torch.serve.engine import ServeSession, greedy_sample
+from repro_torch.sharding import wire
 from repro_torch.sharding.rules import full
 from repro_torch.sharding.strategy import plan_for
 from repro_torch.train.loop import (
-    init_train_state, make_train_step, save_checkpoint, state_specs,
+    init_train_state, make_prefill_step, make_train_step, save_checkpoint,
+    state_specs,
 )
 from repro_torch.train.optimizer import OptConfig, flatten
 
@@ -57,12 +61,18 @@ def kept(state, metrics):
 
 
 def train_cases(pm, cases):
-    """Each case ({arch, experts, micro, groups, state, batches, opt}): the
-    reference's state placed by the plan on a (2, 2) mesh, two steps;
-    step 1's metrics, moments and params and step 2's metrics."""
-    mesh = make_device_mesh(MESH, AXES, device="cpu")
+    """Each case ({arch, experts, micro, groups, mesh, state, batches,
+    opt}): the reference's state placed by the plan on its mesh (``MESH``
+    when None), two steps;
+    step 1's metrics, moments, params and collectives (rank 0's
+    ``sharding.wire`` snapshot) and step 2's metrics."""
+    meshes = {}
     out = []
     for case in cases:
+        shape = tuple(case.get("mesh") or MESH)
+        if shape not in meshes:     # every rank builds each mesh, in order
+            meshes[shape] = make_device_mesh(shape, AXES, device="cpu")
+        mesh = meshes[shape]
         flags.MOE_GROUPS = case["groups"]
         try:
             cfg = config(case["arch"], case["experts"])
@@ -72,15 +82,74 @@ def train_cases(pm, cases):
             state = plan.rules.tree_shard(state, state_specs(model))
             step = make_train_step(model, OptConfig(**case["opt"]),
                                    plan.rules, microbatches=case["micro"])
+            wire.WIRE.reset()
             s1, m1 = step(state, batch(case["batches"][0]))
+            step1_wire = wire.WIRE.snapshot()
             got = kept(s1, m1)
             _, m2 = step(s1, batch(case["batches"][1]))
             if got is not None:
                 got["metrics2"] = {k: float(v) for k, v in m2.items()}
                 got["notes"] = plan.notes
+                got["wire1"] = step1_wire
             out.append(got)
         finally:
             flags.MOE_GROUPS = None
+    return out if dist.get_rank() == 0 else None
+
+
+def local_storages(tree):
+    """The storage of each leaf's local shard (a plain leaf's own)."""
+    return [(x.to_local() if hasattr(x, "to_local") else x)
+            .untyped_storage().data_ptr() for x in flatten(tree)]
+
+
+def serve_cases(pm, cases):
+    """Each case ({arch, mesh, params, prompts, frames, cross, steps}):
+    the reference's params placed by ``plan_for``'s prefill and decode
+    plans on the case's mesh; the prefill step's greedy tokens (``frames``
+    for the encoder when given), then ``ServeSession.generate``'s tokens
+    (``steps`` after the prompt) with the cross-attention caches set to
+    ``cross`` when given, its caches whole afterwards, whether every
+    cache leaf kept its local storage (a write in place), and rank 0's
+    local cache bytes."""
+    meshes = {}
+    out = []
+    for case in cases:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:     # every rank builds each mesh, in order
+            meshes[shape] = make_device_mesh(shape, AXES, device="cpu")
+        mesh = meshes[shape]
+        cfg = config(case["arch"])
+        model = make_model(cfg, device="cpu")
+        params = lm_params_from_jax(case["params"], cfg, device="cpu")
+        prompts = case["prompts"]
+        batch = {"tokens": torch.from_numpy(prompts)}
+        if case["frames"] is not None:
+            batch["frames"] = torch.from_numpy(case["frames"])
+        pre = plan_for(cfg, "prefill", mesh).rules
+        logits = make_prefill_step(model, pre)(
+            pre.tree_shard(params, model.param_specs()), batch)
+        first = greedy_sample(full(logits), cfg.vocab_size)
+        rules = plan_for(cfg, "decode", mesh).rules
+        session = ServeSession(
+            model, rules.tree_shard(params, model.param_specs()), rules,
+            batch=prompts.shape[0],
+            cache_len=prompts.shape[1] + case["steps"] + 1)
+        specs = model.cache_logical_specs()
+        for (blocks, bspecs), arrays in zip(
+                zip(session.cache, specs), case["cross"] or ()):
+            for blk, bspec, (ck, cv) in zip(blocks, bspecs, arrays):
+                blk["ck"] = rules.shard(torch.from_numpy(ck), *bspec["ck"])
+                blk["cv"] = rules.shard(torch.from_numpy(cv), *bspec["cv"])
+        before = local_storages(session.cache)
+        tokens = session.generate(prompts, case["steps"])
+        got = {"prefill": first.numpy(), "tokens": tokens,
+               "in_place": local_storages(session.cache) == before,
+               "local_cache_bytes": sum(
+                   (x.to_local() if hasattr(x, "to_local") else x).nbytes
+                   for x in flatten(session.cache)),
+               "cache": [full(x).numpy() for x in flatten(session.cache)]}
+        out.append(got if dist.get_rank() == 0 else None)
     return out if dist.get_rank() == 0 else None
 
 
