@@ -384,18 +384,46 @@ seed-0 weights on the first batch (a forward pass).  Then it
     uninterrupted (2, 2) step 2 under the same tolerances; prints the
     largest difference per leaf class.
 
+Long-context decode on the same mesh (``lm_long_decode``: the
+``long_500k`` cell's context parallelism, ``plan_for(cfg, "long_decode",
+mesh)``).  The ranks of ``lm_train_mesh`` go on, the training state freed:
+  * Zamba2-1.2B at full width and depth in bf16 decodes 4 greedy tokens
+    over 524,288 cached tokens, from position 524,284 (the last write lands
+    in the last slot): ``cache_seq`` over 'data', ``kv_heads`` over
+    'model', so each rank holds a quarter of the shared block's 25.8 GB of
+    caches, drawn block by block from seeded generators (the same values on
+    one card and on any mesh), with seeded Mamba2 states; each rank writes
+    the token into its own shard and attends to its own slots, three
+    all-reduces an attention layer making the softmax whole;
+  * the same draws decoded in float32 at full depth (a quarter of 51.6 GB
+    a rank), its first 6 layers in float32 over 65,536 slots, and
+    RWKV6-1.6B at 4 layers in bf16 (the one-token ``seq`` the plan cuts
+    over 'data'), 4 steps each.
+After the ranks exit, the parent decodes the same four on one card, fed
+rank 0's tokens, and requires, step by step: for a float32 run the tokens
+equal and the logits within 1e-4 relative in their norm; for a bf16 run
+the logits within 3x the one card's own bf16 error over the steps (its
+logits against the same draws decoded in float32), and the tokens equal
+but where the one-card top two lie within 3x the largest change bf16
+rounding makes to a logit at that step (a near tie); it prints each rank's
+cache and weight bytes, peak memory, seconds a step and collectives a step
+by kind (calls, bytes, seconds).
+
 The LM dry run (``dryrun``; ``repro_torch.launch.dryrun``: one step under
 ``FakeTensorMode`` as rank 0 of a fake process group, nothing allocated).
-Three jobs start in spawned processes before ``kernel_ops`` and use only
+Four jobs start in spawned processes before ``kernel_ops`` and use only
 the host's CPU: ``lm_train``'s step (unsharded, 4 microbatches through
-``TRAIN_MICROBATCHES``), ``lm_train_mesh``'s step on its (2, 2) mesh, and
-Gemma2-9B ``train_4k`` on the 256-rank production mesh.  After
-``lm_train_mesh`` it
+``TRAIN_MICROBATCHES``), ``lm_train_mesh``'s step on its (2, 2) mesh,
+``lm_long_decode``'s full-depth step on that mesh, and Gemma2-9B
+``train_4k`` on the 256-rank production mesh.  After ``lm_train_mesh`` it
   * requires each predicted peak (rank 0's arguments plus the peak of live
     bytes the step created) within 0.75-1.25x of the step-1 peak the phase
     measured on the card;
   * requires rank 0's collective calls and operand bytes by kind equal to
-    those ``lm_train_mesh``'s rank 0 counted in step 1 (``sharding.wire``);
+    those ``lm_train_mesh``'s rank 0 counted in step 1 (``sharding.wire``),
+    and the long-context decode step's equal to those of
+    ``lm_long_decode``'s last full-depth step on rank 0, its predicted peak
+    within 0.9-1.1x of that step's measured peak;
   * prints the production cell's per-rank memory, FLOPs, bytes,
     transcendentals and collectives (its artifact lands in
     ``artifacts/dryrun_torch/``) and each job's trace seconds.
@@ -3043,7 +3071,11 @@ def mamba_terms():
         x.register_hook(hook)
 
     def chunked_gla(q, k, v, w, **kw):             # w: [B, H, T, 1]
-        keep("A_log", w, lambda g: (g * w.detach())[..., 0].transpose(1, 2))
+        # the hook must not hold ``w`` itself: a tensor whose own hook
+        # refers to it is a cycle through autograd that gc never frees,
+        # and it would keep the step's whole graph on the card
+        decay = w.detach()
+        keep("A_log", w, lambda g: (g * decay)[..., 0].transpose(1, 2))
         return gla(q, k, v, w, **kw)
 
     class Functional:
@@ -3447,6 +3479,19 @@ def compare_states(name, a, b, cond, rtol=LM_ACCUM_RTOL):
 
 
 def _lm_mesh_rank(pm, ckpt_dir, single_loss):
+    """One rank of ``lm_train_mesh`` (:func:`_lm_mesh_train`), then, with
+    the training state freed, of ``lm_long_decode``
+    (:func:`_lm_long_decode_rank`) on the same mesh: one spawn for both."""
+    import torch
+    out, mesh = _lm_mesh_train(pm, ckpt_dir, single_loss)
+    gc.collect()
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    out["long"] = _lm_long_decode_rank(mesh)
+    return out
+
+
+def _lm_mesh_train(pm, ckpt_dir, single_loss):
     """One rank of ``lm_train_mesh``: (1) ``LM_TRAIN_ARCH`` at full width
     and depth, bf16, remat, ``LM_MESH_STEPS`` steps on the
     ``LM_MESH_SHAPE`` mesh under ``plan_for(cfg, "train", mesh)``; (2) at
@@ -3456,7 +3501,8 @@ def _lm_mesh_rank(pm, ckpt_dir, single_loss):
     (4) rank 0 alone runs step 1 on one card (with ``mamba_terms``) and
     holds the mesh's step 1 against it, and the elastic step 2 against the
     uninterrupted one.  Returns per step seconds, losses and the wire
-    (calls, bytes, seconds), peak memory, placements and the checks."""
+    (calls, bytes, seconds), peak memory, placements and the checks, and
+    the mesh."""
     entered = time.time()
     import dataclasses
     import numpy as np
@@ -3633,7 +3679,7 @@ def _lm_mesh_rank(pm, ckpt_dir, single_loss):
     dist.barrier()
     out["peak_total"] = peak()
     out["wire_total"] = wire.WIRE.snapshot()
-    return out
+    return out, mesh
 
 
 def run_lm_train_mesh(smi, tmp_root):
@@ -3641,7 +3687,9 @@ def run_lm_train_mesh(smi, tmp_root):
     ('data', 'model') mesh of gloo ranks sharing the card
     (:func:`_lm_mesh_rank`).  Before the ranks start, the one-card loss of
     the full model's seed-0 weights on the mesh run's first batch (a
-    forward pass), so two copies of the state never share the card."""
+    forward pass), so two copies of the state never share the card.  The
+    same ranks then run ``lm_long_decode``, whose one-card half runs here
+    after they exit (:func:`run_lm_long_decode`)."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -3730,14 +3778,379 @@ def run_lm_train_mesh(smi, tmp_root):
     if failures:
         raise AssertionError(f"lm_train_mesh checks: {failures[:8]}")
     return {"step1_wire": r0["steps"][0]["wire"],
-            "step1_peak": r0["steps"][0]["peak"]}
+            "step1_peak": r0["steps"][0]["peak"],
+            "long": run_lm_long_decode(ranks, smi)}
+
+
+# ---------------------------------------------------------------------------
+# lm_long_decode: context-parallel decode over the long_500k cell's cache on
+# lm_train_mesh's ranks, held against one card's decode of the same cache
+# ---------------------------------------------------------------------------
+
+LM_LONG_SLOTS = 524_288        # the long_500k cell's cache
+LM_LONG_STEPS = 4              # greedy steps: the last writes the last slot
+LM_LONG_BLOCK = 4_096          # cache slots one seeded draw fills: the same
+                               # values on one card and on any mesh
+LM_LONG_SEED = 11
+LM_LONG_NOISE = 3.0            # bf16, mesh against one card: at most this
+                               # times one card's own bf16 error against
+                               # float32 (two independent roundings of the
+                               # same size: ~1.4)
+LM_LONG_CUT_LAYERS = 6         # the float32 cut: one shared-block invocation
+LM_LONG_CUT_SLOTS = 65_536
+LM_LONG_F32_RTOL = 1e-4        # float32 logits, mesh against one card
+LM_LONG_RWKV = "rwkv6-1.6b"    # the one-token shard fix without attention
+LM_LONG_RWKV_LAYERS = 4
+LM_LONG_PEAK_RANGE = (0.9, 1.1)    # the dry run's predicted peak over the
+                                   # measured step's
+
+
+def compact(x):
+    """``x`` with its local shard in a storage of its own: a shard cut from
+    a whole tensor is a view, which keeps the whole alive."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    loc = x.to_local()
+    if loc.untyped_storage().nbytes() == loc.numel() * loc.element_size():
+        return x
+    return DTensor.from_local(loc.clone(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def _slot_leaf(meta, spec, rules, seed, dtype=None):
+    """A ``cache_seq`` leaf ``[n, B, S, KV, HD]``: this rank's shard drawn
+    block by block (``LM_LONG_BLOCK`` slots, all KV heads, from a generator
+    seeded by ``seed``, the layer and the block) in the leaf's dtype, kept
+    in ``dtype`` (the leaf's by default), and placed."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    n, b, slots, kv, hd = meta.shape
+    if rules.logical_size(spec[1]) != 1:
+        raise AssertionError(f"lm_long_decode: the batch of {spec} is cut")
+    s0, sn = rules.shard_range("cache_seq", slots)
+    h0, hn = rules.shard_range("kv_heads", kv)
+    dev = torch.device(DEVICE)
+    local = torch.empty((n, b, sn, hn, hd), dtype=dtype or meta.dtype,
+                        device=dev)
+    gen = torch.Generator(dev)
+    blk = LM_LONG_BLOCK
+    for layer in range(n):
+        for j in range(s0 // blk, -(-(s0 + sn) // blk)):
+            gen.manual_seed(seed + 1_000_003 * layer + j)
+            block = torch.randn((b, blk, kv, hd), generator=gen, device=dev,
+                                dtype=meta.dtype)
+            a, z = max(j * blk, s0), min((j + 1) * blk, s0 + sn)
+            local[layer, :, a - s0:z - s0] = block[:, a - j * blk:z - j * blk,
+                                                   h0:h0 + hn]
+    if rules.mesh is None:
+        return local
+    return DTensor.from_local(local, rules.mesh,
+                              rules.placements(*spec, shape=meta.shape),
+                              run_check=False)
+
+
+def long_cache(model, rules, slots, seed, dtype=None):
+    """``model``'s decode caches at ``slots`` slots, seeded and placed as
+    ``rules`` say, each rank drawing only what it keeps of a ``cache_seq``
+    leaf (:func:`_slot_leaf`); the other leaves (Mamba2's conv and state,
+    RWKV6's) are drawn whole from a generator seeded by ``seed`` and the
+    leaf, then placed, each shard in its own storage.  With ``dtype`` the
+    same draws are kept in that dtype."""
+    import torch
+    dev = torch.device(DEVICE)
+    count = iter(range(1 << 30))
+
+    def build(meta, spec):
+        if isinstance(meta, dict):
+            return {k: build(meta[k], spec[k]) for k in meta}
+        if isinstance(meta, (list, tuple)):
+            return type(meta)(build(m, s) for m, s in zip(meta, spec))
+        leaf_seed = seed + 7_919 * next(count)
+        if "cache_seq" in spec:
+            return _slot_leaf(meta, spec, rules, leaf_seed, dtype)
+        gen = torch.Generator(dev).manual_seed(leaf_seed)
+        whole = torch.randn(meta.shape, generator=gen, device=dev,
+                            dtype=meta.dtype).to(dtype or meta.dtype)
+        return compact(rules.shard(whole, *spec))
+
+    return build(model.init_cache(1, slots, device="meta"),
+                 model.cache_logical_specs())
+
+
+@contextlib.contextmanager
+def recorded_logits():
+    """The logits each serve step samples its token from, whole (the
+    serving engine's ``greedy_sample`` wrapped while inside)."""
+    from repro_torch.serve import engine
+    from repro_torch.sharding.rules import full
+    kept = []
+    sample = engine.greedy_sample
+
+    def recording(logits, vocab_size):
+        kept.append(full(logits).detach().float().clone())
+        return sample(logits, vocab_size)
+
+    engine.greedy_sample = recording
+    try:
+        yield kept
+    finally:
+        engine.greedy_sample = sample
+
+
+def long_decode(cfg, rules, slots, barrier=None, feed=None, upcast=False):
+    """``LM_LONG_STEPS`` greedy steps of ``make_serve_step`` for ``cfg``
+    (weights from ``LM_LONG_SEED``) over a cache of ``slots`` slots
+    (:func:`long_cache`), from a seeded token at position ``slots -
+    LM_LONG_STEPS``: the last step writes the last slot.  Each step feeds
+    the token the step before chose, or with ``feed`` the one ``feed``
+    holds for it (another run's).  With ``upcast`` the same weights and
+    caches, drawn in ``cfg``'s dtype, are cast to float32 and decoded by
+    the float32 model (the reference for ``cfg``'s rounding).  On a mesh
+    (``barrier`` its ``dist.barrier``) every rank calls it.  Returns the
+    tokens, the logits (CPU), each step's seconds, collectives
+    (``sharding.wire``) and peak memory, and the local bytes of the
+    weights and the caches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.launch.costing import local_bytes
+    from repro_torch.models.model import make_model
+    from repro_torch.serve.engine import make_serve_step
+    from repro_torch.sharding import wire
+    from repro_torch.train.optimizer import tree_map
+    cuda = DEVICE != "cpu"
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    model = make_model(cfg, device=DEVICE)
+    params = tree_map(compact, rules.tree_shard(model.init(seed=LM_LONG_SEED),
+                                                model.param_specs()))
+    cache = long_cache(model, rules, slots, LM_LONG_SEED + 1,
+                       torch.float32 if upcast else None)
+    if upcast:
+        model = make_model(dataclasses.replace(cfg, dtype="float32"),
+                           device=DEVICE)
+        params = tree_map(lambda x: x.float(), params)
+    step = make_serve_step(model, rules)
+    if cuda:
+        torch.cuda.synchronize()
+    out = dict(setup_s=time.perf_counter() - t0,
+               param_bytes=local_bytes(params),
+               cache_bytes=local_bytes(cache), steps=[])
+    first = int(np.random.default_rng(LM_LONG_SEED).integers(cfg.vocab_size))
+    tok = torch.full((1, 1), first, dtype=torch.int32, device=dev)
+    with recorded_logits() as logits, torch.no_grad():
+        for i in range(LM_LONG_STEPS):
+            pos = torch.full((1,), slots - LM_LONG_STEPS + i,
+                             dtype=torch.int32, device=dev)
+            if cuda:
+                torch.cuda.synchronize()
+            if barrier is not None:
+                barrier()
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            wire.WIRE.reset()
+            t0 = time.perf_counter()
+            nxt, cache = step(params, cache, {"tokens": tok, "pos": pos})
+            token = int(nxt[0])                   # syncs with the device
+            out["steps"].append(dict(
+                s=time.perf_counter() - t0, token=token,
+                wire=wire.WIRE.snapshot(),
+                peak=torch.cuda.max_memory_allocated() if cuda else 0))
+            tok = nxt[:, None] if feed is None else torch.full(
+                (1, 1), feed[i], dtype=torch.int32, device=dev)
+    out["tokens"] = [s["token"] for s in out["steps"]]
+    out["logits"] = torch.cat(logits).cpu().numpy()   # numpy: across ranks
+    return out
+
+
+def long_runs():
+    """``lm_long_decode``'s runs, ``(name, cfg, slots, upcast)``: ``full``,
+    ``LM_TRAIN_ARCH`` at full width and depth in bf16 over
+    ``LM_LONG_SLOTS`` cached tokens; ``full_f32``, the same draws decoded
+    in float32 (:func:`long_decode` with ``upcast``); ``cut``, its first
+    ``LM_LONG_CUT_LAYERS`` layers in float32 over ``LM_LONG_CUT_SLOTS``;
+    ``rwkv``, ``LM_LONG_RWKV`` at ``LM_LONG_RWKV_LAYERS`` layers in bf16."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_TRAIN_ARCH)
+    return (("full", cfg, LM_LONG_SLOTS, False),
+            ("full_f32", cfg, LM_LONG_SLOTS, True),
+            ("cut", dataclasses.replace(cfg, num_layers=LM_LONG_CUT_LAYERS,
+                                        dtype="float32"),
+             LM_LONG_CUT_SLOTS, False),
+            ("rwkv", dataclasses.replace(get_config(LM_LONG_RWKV),
+                                         num_layers=LM_LONG_RWKV_LAYERS),
+             LM_LONG_SLOTS, False))
+
+
+def _lm_long_decode_rank(mesh):
+    """One rank of ``lm_long_decode``: each of :func:`long_runs` under
+    ``plan_for(cfg, "long_decode", mesh)`` (:func:`long_decode`), each rank
+    holding its quarter of the shared block's caches (``cache_seq`` over
+    'data', ``kv_heads`` over 'model').  Returns each run's tokens, logits
+    (rank 0), per step seconds, wire and peak, local bytes and plan
+    notes."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.sharding.strategy import plan_for
+    rank = dist.get_rank()
+    torch.set_float32_matmul_precision("highest")      # float32: TF32 off
+    out = {}
+    t_all = time.perf_counter()
+    for name, c, slots, upcast in long_runs():
+        plan = plan_for(c, "long_decode", mesh)
+        got = long_decode(c, plan.rules, slots, barrier=dist.barrier,
+                          upcast=upcast)
+        got["notes"] = list(plan.notes)
+        if rank:
+            del got["logits"]
+        out[name] = got
+        gc.collect()
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_all
+    return out
+
+
+def run_lm_long_decode(ranks, smi):
+    """Phase ``lm_long_decode``, the parent's half, after the ranks of
+    ``lm_train_mesh`` exited (``ranks``: their results): each of
+    :func:`long_runs` decoded on one card (:func:`long_decode` with the
+    one-card rules, fed rank 0's tokens, so that each step reads the same
+    input) and rank 0's held against it, relative in the logits' norm:
+      * a float32 run (``full_f32``, ``cut``): the tokens equal and the
+        logits within ``LM_LONG_F32_RTOL`` at every step;
+      * a bf16 run (``full``, ``rwkv``): the logits over the steps within
+        ``LM_LONG_NOISE`` times the one card's own bf16 error (its logits
+        against the same draws decoded in float32 on one card, fed the
+        same tokens).  Random weights and seeded states amplify rounding
+        over the layers and the steps, so that error is the model's own,
+        and the mesh rounds on another path (bf16 partial sums over
+        'model').  The tokens equal, but at a step where the one card's
+        top two logits lie within ``LM_LONG_NOISE`` times the largest
+        change bf16 rounding itself makes to a logit there (a near tie,
+        reported: rounding alone can swap them).
+    Prints and emits per rank the caches' and weights' local bytes, peak
+    memory, seconds a step and the collectives a step by kind (calls,
+    bytes, seconds).  Returns rank 0's last bf16 full-depth step's wire and
+    peak and the local bytes, for the dry run."""
+    import numpy as np
+    import torch
+    from repro_torch.sharding.rules import make_rules
+    t0 = time.perf_counter()
+    runs = long_runs()
+    r0 = ranks[0]["long"]
+    checks, failures, done = {}, [], {}
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def one_card(c, slots, tokens, upcast):
+        """The one-card decode fed ``tokens``; a float32 one is kept, as
+        ``full`` and ``full_f32`` may need the same."""
+        key = (c.name, c.num_layers, c.dtype, slots, tuple(tokens), upcast)
+        got = done.get(key) or long_decode(c, make_rules(None), slots,
+                                           feed=tokens, upcast=upcast)
+        if upcast:
+            done[key] = got
+        gc.collect()
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+        return got
+
+    for name, c, slots, upcast in runs:
+        mesh = r0[name]
+        one = one_card(c, slots, mesh["tokens"], upcast)
+        f32 = upcast or c.dtype == "float32"
+        steps = range(LM_LONG_STEPS)
+        err = rel(mesh["logits"], one["logits"])
+        top2 = np.sort(one["logits"][:, :c.vocab_size], axis=-1)[:, -2:]
+        gap = (top2[:, 1] - top2[:, 0]).tolist()
+        if f32:
+            own = own_by_step = own_max = None
+            rtol, ties = LM_LONG_F32_RTOL, []
+        else:
+            ref = one_card(c, slots, mesh["tokens"], True)["logits"]
+            own = rel(one["logits"], ref)
+            own_by_step = [rel(o, f) for o, f in zip(one["logits"], ref)]
+            own_max = np.abs(one["logits"] - ref).max(axis=-1).tolist()
+            rtol = LM_LONG_NOISE * own
+            ties = [i for i in steps if gap[i] <= LM_LONG_NOISE * own_max[i]]
+        by_step = [rel(m, o) for m, o in zip(mesh["logits"], one["logits"])]
+        differ = [i for i in steps if mesh["tokens"][i] != one["tokens"][i]]
+        checks[name] = dict(
+            layers=c.num_layers, dtype="float32" if f32 else c.dtype,
+            slots=slots, tokens=mesh["tokens"], one_card_tokens=one["tokens"],
+            logits_rel=err, rtol=rtol, logits_rel_by_step=by_step,
+            one_card_bf16_rel=own, one_card_bf16_rel_by_step=own_by_step,
+            one_card_bf16_max_abs_by_step=own_max,
+            logits_max_abs_diff=np.abs(mesh["logits"] - one["logits"]).max(
+                axis=-1).tolist(),
+            one_card_top2_gap=gap, near_ties=ties,
+            one_card_step_s=[s["s"] for s in one["steps"]],
+            one_card_peak=max(s["peak"] for s in one["steps"]),
+            one_card_cache_bytes=one["cache_bytes"])
+        if set(differ) - set(ties):
+            failures.append(f"{name}: tokens {mesh['tokens']} against one "
+                            f"card's {one['tokens']} (near ties {ties})")
+        # a float32 run at every step, a bf16 run over its steps
+        worst = max(by_step) if f32 else err
+        if not worst <= rtol:
+            failures.append(f"{name}: logits {worst} relative > {rtol}")
+    done.clear()
+    names = [r[0] for r in runs]
+    per_rank = [{name: dict(
+        cache_bytes=r["long"][name]["cache_bytes"],
+        param_bytes=r["long"][name]["param_bytes"],
+        setup_s=r["long"][name]["setup_s"],
+        step_s=[s["s"] for s in r["long"][name]["steps"]],
+        peak=[s["peak"] for s in r["long"][name]["steps"]],
+        wire=[s["wire"] for s in r["long"][name]["steps"]])
+        for name in names} for r in ranks]
+    full, cfg = r0["full"], runs[0][1]
+    emit(phase="lm_long_decode", arch=LM_TRAIN_ARCH, dtype=cfg.dtype,
+         layers=cfg.num_layers, slots=LM_LONG_SLOTS, steps=LM_LONG_STEPS,
+         first_pos=LM_LONG_SLOTS - LM_LONG_STEPS,
+         mesh=dict(zip(("data", "model"), LM_MESH_SHAPE)),
+         ranks=len(ranks), plan_notes=full["notes"], checks=checks,
+         per_rank=per_rank, ranks_s=max(r["long"]["s"] for r in ranks),
+         one_card_s=time.perf_counter() - t0, nvidia_smi=smi)
+    steady = [max(r["long"]["full"]["steps"][i]["s"] for r in ranks)
+              for i in range(LM_LONG_STEPS)]
+    fc = checks["full"]
+    print(f"lm_long_decode {LM_TRAIN_ARCH} over {LM_LONG_SLOTS} cached "
+          f"tokens on {LM_MESH_SHAPE} ('data', 'model'): cache "
+          f"{full['cache_bytes'] / 1e9:.3f} GB a rank (one card "
+          f"{fc['one_card_cache_bytes'] / 1e9:.3f}), steps "
+          f"{[round(s, 3) for s in steady]} s (one card "
+          f"{[round(s, 3) for s in fc['one_card_step_s']]}), "
+          f"peak {full['steps'][-1]['peak'] / 1e9:.3f} GB "
+          f"on rank 0, tokens {full['tokens']} (one card "
+          f"{fc['one_card_tokens']}), logits {fc['logits_rel']:.3e} relative, "
+          f"by step {[f'{e:.3e}' for e in fc['logits_rel_by_step']]} (one "
+          f"card's own bf16 error {fc['one_card_bf16_rel']:.3e}, by step "
+          f"{[f'{e:.3e}' for e in fc['one_card_bf16_rel_by_step']]}); "
+          f"float32 full depth "
+          f"{max(checks['full_f32']['logits_rel_by_step']):.3e}, cut "
+          f"{max(checks['cut']['logits_rel_by_step']):.3e}; RWKV6 tokens "
+          f"{checks['rwkv']['tokens']} [{smi}]", flush=True)
+    emit(phase="lm_long_decode_total",
+         seconds=max(r["long"]["s"] for r in ranks)
+         + time.perf_counter() - t0)
+    if failures:
+        raise AssertionError(f"lm_long_decode checks: {failures}")
+    last = full["steps"][-1]
+    return {"step_wire": last["wire"], "step_peak": last["peak"],
+            "arguments": full["param_bytes"] + full["cache_bytes"]}
 
 
 # ---------------------------------------------------------------------------
 # dryrun: the LM dry run (launch/dryrun.py) against the training phases
 # ---------------------------------------------------------------------------
 
-DRYRUN_JOBS = ("one_card", "mesh", "production")
+DRYRUN_JOBS = ("one_card", "mesh", "long_decode", "production")
 DRYRUN_PRODUCTION = ("gemma2-9b", "train_4k")   # on pod16x16, 256 fake ranks
 DRYRUN_PEAK_RANGE = (0.75, 1.25)   # predicted over measured step-1 peak
 DRYRUN_TIMEOUT_S = 900
@@ -3750,7 +4163,9 @@ def _dryrun_job(job, out_path):
     is ``lm_train``'s step (``LM_TRAIN_ARCH`` unsharded, ``LM_TRAIN_BATCH``
     x ``LM_TRAIN_SEQ`` as ``LM_TRAIN_MICRO`` microbatches through the
     ``TRAIN_MICROBATCHES`` flag), ``mesh`` is ``lm_train_mesh``'s
-    (``LM_MESH_SHAPE``, ``LM_MESH_BATCH`` x ``LM_MESH_SEQ``), and
+    (``LM_MESH_SHAPE``, ``LM_MESH_BATCH`` x ``LM_MESH_SEQ``),
+    ``long_decode`` is ``lm_long_decode``'s step at full width and depth
+    (``LM_MESH_SHAPE``, one token over ``LM_LONG_SLOTS`` cached), and
     ``production`` the ``DRYRUN_PRODUCTION`` cell on the 256-rank
     production mesh, whose artifact (its FLOPs by operation included)
     lands in ``artifacts/dryrun_torch/``."""
@@ -3771,6 +4186,12 @@ def _dryrun_job(job, out_path):
         rec = dryrun.run_cell(
             LM_TRAIN_ARCH, ShapeSpec("lm_train_mesh", "train", LM_MESH_SEQ,
                                      LM_MESH_BATCH),
+            multi_pod=False, out_dir=out_dir,
+            device=device, mesh_shape=LM_MESH_SHAPE)
+    elif job == "long_decode":
+        rec = dryrun.run_cell(
+            LM_TRAIN_ARCH, ShapeSpec("lm_long_decode", "long_decode",
+                                     LM_LONG_SLOTS, 1),
             multi_pod=False, out_dir=out_dir,
             device=device, mesh_shape=LM_MESH_SHAPE)
     else:
@@ -3806,6 +4227,10 @@ def finish_dryrun(started, lm_train, lm_mesh, smi):
         kind equal to those ``lm_train_mesh``'s rank 0 measured in step 1
         (``sharding.wire``), and its predicted peak within the range of
         rank 0's measured step-1 peak;
+      * the long-context decode step on that mesh: rank 0's collectives by
+        kind equal to those of ``lm_long_decode``'s last full-depth step
+        on rank 0, call for call and byte for byte, and its predicted peak
+        within ``LM_LONG_PEAK_RANGE`` of that step's measured peak;
       * the production cell finished; prints its per-rank memory, FLOPs,
         bytes, transcendentals and collectives.
     Prints each job's trace seconds; raises on any miss."""
@@ -3851,6 +4276,22 @@ def finish_dryrun(started, lm_train, lm_mesh, smi):
     dry = recs["mesh"]["collectives"]
     wire_equal = (real["counts"] == dry["counts"]
                   and real["by_op"] == dry["by_op"])
+    long = lm_mesh["long"]
+    long_rec = recs["long_decode"]
+    long_real = collective_bytes_from_wire(long["step_wire"])
+    long_dry = long_rec["collectives"]
+    long_equal = (long_real["counts"] == long_dry["counts"]
+                  and long_real["by_op"] == long_dry["by_op"])
+    long_ratio = (predicted(long_rec) / long["step_peak"]
+                  if long["step_peak"] else None)
+    checks["long_decode"] = dict(
+        predicted_peak=predicted(long_rec),
+        measured_step_peak=long["step_peak"], ratio=long_ratio,
+        measured_arguments=long["arguments"],
+        memory=long_rec["memory_analysis"],
+        flops=long_rec["cost_analysis"]["flops"],
+        trace_s=long_rec["trace_s"], collectives_dry=long_dry,
+        collectives_measured=long_real, wire_equal=long_equal)
     prod = recs["production"]
     emit(phase="dryrun", **{f"{job}_check": c for job, c in checks.items()},
          mesh_collectives_dry=dry, mesh_collectives_measured=real,
@@ -3864,12 +4305,20 @@ def finish_dryrun(started, lm_train, lm_mesh, smi):
          wall_s=time.perf_counter() - started["t0"], wait_s=wait_s,
          nvidia_smi=smi)
     for job, c in checks.items():
+        measured = c.get("measured_step1_peak", c.get("measured_step_peak"))
         print(f"dryrun {job}: predicted peak {c['predicted_peak'] / 1e9:.3f} "
               f"GB (arguments {c['memory']['argument_size_in_bytes'] / 1e9:.3f}"
               f" + temp {c['memory']['temp_size_in_bytes'] / 1e9:.3f}) vs "
-              f"measured step-1 peak {(c['measured_step1_peak'] or 0) / 1e9:.3f}"
+              f"measured step peak {(measured or 0) / 1e9:.3f}"
               f" GB, ratio {c['ratio']}; trace {c['trace_s']} s [{smi}]",
               flush=True)
+    print(f"dryrun long_decode {LM_MESH_SHAPE}: rank 0 collectives "
+          f"{long_dry['counts']} {long_dry['by_op']} B; lm_long_decode rank "
+          f"0 {long_real['counts']} {long_real['by_op']} B; equal "
+          f"{long_equal}; arguments "
+          f"{long_rec['memory_analysis']['argument_size_in_bytes']} B "
+          f"predicted, {long['arguments']} B of weights and caches held",
+          flush=True)
     print(f"dryrun mesh {LM_MESH_SHAPE}: rank 0 collectives {dry['counts']} "
           f"{dry['by_op']} B; lm_train_mesh rank 0 step 1 {real['counts']} "
           f"{real['by_op']} B; equal {wire_equal}", flush=True)
@@ -3887,11 +4336,16 @@ def finish_dryrun(started, lm_train, lm_mesh, smi):
     if not wire_equal:
         raise AssertionError(f"dryrun mesh: rank 0's collectives {dry} differ "
                              f"from the measured {real}")
-    lo, hi = DRYRUN_PEAK_RANGE
+    if not long_equal:
+        raise AssertionError(f"dryrun long_decode: rank 0's collectives "
+                             f"{long_dry} differ from the measured "
+                             f"{long_real}")
     for job, c in checks.items():
+        lo, hi = (LM_LONG_PEAK_RANGE if job == "long_decode"
+                  else DRYRUN_PEAK_RANGE)
         if c["ratio"] is None or not lo <= c["ratio"] <= hi:
             raise AssertionError(f"dryrun {job}: predicted peak over measured "
-                                 f"{c['ratio']}, outside {DRYRUN_PEAK_RANGE}")
+                                 f"{c['ratio']}, outside {(lo, hi)}")
 
 
 # ---------------------------------------------------------------------------

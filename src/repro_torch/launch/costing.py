@@ -28,15 +28,18 @@ What is counted, for one rank (:data:`COUNTED`):
   sees it; the global operation DTensor replays on fake tensors to learn
   its output's shape is not counted.
 * ``bytes_accessed``: the local bytes of every input plus every output of
-  each operation that touches memory (views, collectives and bare
-  allocations excluded).  With no fusion this is an upper bound on the
-  bytes a fused program would move.
+  each operation that touches memory (views, metadata queries such as
+  ``prim.device``, collectives and bare allocations excluded).  With no
+  fusion this is an upper bound on the bytes a fused program would move.
 * ``transcendentals``: elements through exp, log, tanh, sigmoid, rsqrt or
   softplus, also where an operation applies one per element (silu, gelu,
   softmax, log-softmax, logsumexp and the backwards that recompute one).
 * memory: the bytes of each storage an operation creates, live until the
   storage is freed; :attr:`CostMode.peak` is the largest sum, above the
   storages that existed when the mode started (the step's arguments).
+  :attr:`CostMode.read` holds the arguments' storages some operation
+  other than a view or a metadata query (``prim.device``) took as an
+  input: the arguments the step reads.
 """
 from __future__ import annotations
 
@@ -65,8 +68,9 @@ COUNTED = {
     "flops": "matmul-class operations (torch.utils.flop_counter's formulas),"
              " 2 per multiply-add, on rank 0's local shapes",
     "bytes_accessed": "local bytes of every input plus every output of each "
-                      "operation (views, collectives and bare allocations "
-                      "excluded); unfused, so an upper bound",
+                      "operation (views, metadata queries, collectives and "
+                      "bare allocations excluded); unfused, so an upper "
+                      "bound",
     "transcendentals": "elements through exp, log, tanh, sigmoid, rsqrt or "
                        "softplus (also inside silu, gelu, softmax, "
                        "log-softmax, logsumexp and their backwards)",
@@ -162,6 +166,8 @@ class CostMode(TorchDispatchMode):
         self._storages = WeakIdKeyDictionary()
         for st in local_storages(inputs):
             self._storages[st] = 0
+        self._inputs = {st._cdata for st in local_storages(inputs)}
+        self.read = set()       # the ``_cdata`` of the inputs' storages read
 
     def __enter__(self):
         _guard_shadow_replay()
@@ -188,6 +194,10 @@ class CostMode(TorchDispatchMode):
                 weakref.finalize(st, self._release, n)
         self.peak = max(self.peak, self.live)
         ins = _tensors((args, kwargs))
+        metadata = func.namespace == "prim"          # ``prim.device``
+        if not (func.is_view or metadata):
+            self.read.update(k for k in (t.untyped_storage()._cdata
+                                         for t in ins) if k in self._inputs)
         if packet in flop_registry:
             n = flop_registry[packet](*args, **kwargs, out_val=out)
             self.flops += n
@@ -195,7 +205,7 @@ class CostMode(TorchDispatchMode):
                                  [list(t.shape) for t in ins], n))
         if packet in _TRANSCENDENTAL and ins:
             self.transcendentals += ins[0].numel()
-        if not (func.is_view or packet in _ALLOCATIONS
+        if not (func.is_view or metadata or packet in _ALLOCATIONS
                 or func.namespace in _COLLECTIVE_NAMESPACES):
             self.bytes_accessed += sum(map(_nbytes, ins)) + sum(
                 map(_nbytes, outs))

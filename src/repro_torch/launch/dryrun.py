@@ -190,15 +190,21 @@ def build_cell(arch: str, shape_name, mesh, *, remat: bool = True,
     return (step, (params, cache, batch), batch_logical, (1,), ctx), None
 
 
-def _shard_bytes(batch: dict, logical: dict, rules: ShardingRules) -> int:
-    """Rank 0's bytes of the batch as the reference's shardings place it
-    (``rules`` cut each leaf by its logical axes, rank 0 the largest
-    chunk)."""
-    if rules.mesh is None:
-        return local_bytes(batch)
-    with implicit_replication():
-        return local_bytes({k: rules.shard(v, *logical[k])
-                            for k, v in batch.items()})
+def _argument_bytes(args, logical: dict, rules: ShardingRules) -> list:
+    """``(storage, rank 0's bytes)`` of each leaf of the step's arguments:
+    the state and caches as placed, each batch leaf (the last argument,
+    handed over whole) as the reference's shardings place it (``rules``
+    cut it by its logical axes)."""
+    batch = args[-1]
+    leaves = [(t.untyped_storage()._cdata, local_bytes(t))
+              for t in local_tensors(args[:-1])]
+    for k, v in batch.items():
+        n = local_bytes(v)
+        if rules.mesh is not None:
+            with implicit_replication():
+                n = local_bytes(rules.shard(v, *logical[k]))
+        leaves.append((v.untyped_storage()._cdata, n))
+    return leaves
 
 
 # --------------------------------------------------------------------------
@@ -288,8 +294,7 @@ def _trace(arch, spec, mesh, *, remat, cfg, device, multi_pod, cost_twin,
         record["donate_argnums"] = list(donate)
         rules, kind = ctx["rules"], ctx["kind"]
         batch = args[-1]
-        arg_bytes = (local_bytes(args[:-1])
-                     + _shard_bytes(batch, batch_logical, rules))
+        arg_leaves = _argument_bytes(args, batch_logical, rules)
         t_build = time.time() - t0
         wire.install()
         wire.WIRE.reset()
@@ -299,6 +304,9 @@ def _trace(arch, spec, mesh, *, remat, cfg, device, multi_pod, cost_twin,
             out = fn(*args)
         record["build_s"] = round(t_build, 2)
         record["trace_s"] = round(time.time() - t0 - t_build, 2)
+        # the arguments the step reads: jax.jit leaves the others out of
+        # the program (keep_unused=False), and XLA's count with them
+        arg_bytes = sum(n for key, n in arg_leaves if key in mode.read)
         record["memory_analysis"] = memory_analysis_dict(arg_bytes, out,
                                                          mode, args)
         record["cost_analysis"] = cost_analysis_dict(mode)
@@ -312,6 +320,11 @@ def _trace(arch, spec, mesh, *, remat, cfg, device, multi_pod, cost_twin,
                    "is handed the global batch on every rank "
                    "(global_batch_bytes) and places each microbatch itself"),
             global_batch_bytes=local_bytes(batch),
+            arguments=("argument bytes count only the leaves the step "
+                       "reads, as jax.jit leaves unread arguments out of "
+                       "the program (unread_argument_bytes: the others)"),
+            unread_argument_bytes=sum(n for key, n in arg_leaves
+                                      if key not in mode.read),
             microbatches=(flags.TRAIN_MICROBATCHES or 1) if kind == "train"
             else 1,
             donation={"train": "the port's train step writes a new state: "

@@ -18,6 +18,7 @@ reference's ``preferred_element_type=float32``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -276,12 +277,25 @@ def _project(x, w, rules: ShardingRules, heads_axis: Optional[str]):
     return y.reshape(tuple(x.shape[:2]) + tuple(w.shape[1:]))
 
 
-def _write_token(ck, cv, k, v, widx):
+def _write_token(ck, cv, k, v, widx, offset=None):
     """Store one token's k and v ([B, KV, HD]) at slot ``widx`` ([B]) of each
-    row's cache ([B, Sc, KV, HD]), in place."""
+    row's cache ([B, Sc, KV, HD]), in place.  With ``offset`` the cache is
+    one rank's shard of a sequence-sharded one, holding the slots from
+    ``offset`` on: a row's token lands at ``widx - offset`` when the shard
+    holds that slot, and a row whose slot lies elsewhere leaves the shard
+    as it was, byte for byte (the slot nearest to its own is written with
+    its own value)."""
     bidx = torch.arange(ck.shape[0], device=ck.device)
-    ck[bidx, widx] = k.to(ck.dtype)
-    cv[bidx, widx] = v.to(cv.dtype)
+    if offset is None:
+        ck[bidx, widx] = k.to(ck.dtype)
+        cv[bidx, widx] = v.to(cv.dtype)
+        return
+    n = ck.shape[1]
+    slot = widx - offset
+    own = ((slot >= 0) & (slot < n))[:, None, None]
+    slot = slot.clamp(0, n - 1)
+    ck[bidx, slot] = torch.where(own, k.to(ck.dtype), ck[bidx, slot])
+    cv[bidx, slot] = torch.where(own, v.to(cv.dtype), cv[bidx, slot])
 
 
 def _attend_cache(q, ck, cv, valid, *, scale, softcap, dtype):
@@ -289,6 +303,29 @@ def _attend_cache(q, ck, cv, valid, *, scale, softcap, dtype):
     [B, Sc, KV, HD], ``valid`` [B, Sc] the slots it may attend to."""
     scores = _softcap(_scores(q, ck, scale), softcap)
     return _mix(scores, valid[:, None, None, None, :], cv, dtype)
+
+
+def _attend_cache_shards(q, ck, cv, valid, *, scale, softcap, dtype, reduce):
+    """:func:`_attend_cache` on one rank's shard of a sequence-sharded cache
+    (context parallelism), ``valid`` the shard's slots; ``reduce(x, op)``
+    all-reduces over the ranks that hold the other shards.  The softmax
+    over the whole cache is the one XLA partitions the reference's into:
+    the float32 scores, softcapped and masked; their max over the cache
+    (a local max, then MAX); the shifted exps' sum (a local sum, then
+    SUM); the probabilities cast to ``dtype`` as the reference's.  Each
+    shard's product with its values is taken in float32 and the partial
+    outputs are summed (SUM) in float32, cast to ``dtype`` once after.  A
+    shard with no valid slot has the masked score ``NEG`` as its max and
+    contributes exactly 0: exp(NEG - the global max) is 0, and no -inf is
+    ever subtracted.  What moves is per query head and independent of the
+    cache's length: [B, KV, G, 1, 1] twice and [B, 1, KV, G, HD] once."""
+    scores = _softcap(_scores(q, ck, scale), softcap)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG)
+    peak = reduce(scores.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(scores - peak)
+    probs = (e / reduce(e.sum(dim=-1, keepdim=True), "sum")).to(dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.float(), cv.float())
+    return reduce(out, "sum").to(dtype)
 
 
 def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
@@ -371,10 +408,12 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
         sc = cache["k"].shape[1]
         rolling = bool(kind == "local" and window and sc == window)
         widx = (decode_pos % sc if rolling else decode_pos).long()
-        if rules.logical_size("cache_seq") > 1:
-            raise NotImplementedError(
-                "a decode step's cache write into a sequence-sharded cache "
-                "(context parallelism) is not ported")
+        # context parallelism (the long_decode plan): the cache's slots cut
+        # over the data axes, each rank writing and attending to its own
+        ranks = rules.logical_size("cache_seq")
+        if sc % ranks:
+            raise ValueError(f"a decode cache of {sc} slots cannot be cut "
+                             f"over the {ranks} ranks of 'cache_seq'")
         # per batch row and KV head: on a mesh, on each rank's shards, which
         # are the cache's own only when it is placed as the plan says
         cache_axes = ("batch", "cache_seq", "kv_heads", None)
@@ -389,8 +428,12 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
                         f"{want}: a write into its shards would be lost; "
                         "place the caches with rules.tree_shard(cache, "
                         "model.cache_logical_specs())")
-        rules.local(_write_token, (cache_axes, cache_axes, tok_axes,
-                                   tok_axes, ("batch",)), (None,))(
+        write = _write_token
+        if ranks > 1:
+            write = functools.partial(
+                _write_token, offset=rules.shard_range("cache_seq", sc)[0])
+        rules.local(write, (cache_axes, cache_axes, tok_axes, tok_axes,
+                            ("batch",)), (None,))(
             cache["k"], cache["v"], k[:, 0], v[:, 0], widx)
         kpos = torch.arange(sc, device=x.device)
         if rolling:
@@ -403,10 +446,23 @@ def attention(params, x, positions, rules: ShardingRules, cfg: ModelConfig,
             valid = kpos[None, :] <= decode_pos[:, None]
             if window:
                 valid &= kpos[None, :] > decode_pos[:, None] - window
-        out = rules.local(_attend_cache, (q_axes, cache_axes, cache_axes,
-                                          ("batch", None)), (q_axes,))(
-            q, cache["k"], cache["v"], valid, scale=scale,
-            softcap=spec.softcap, dtype=x.dtype)
+        if ranks > 1:
+            # the query whole on every rank of the cache's shards; the
+            # cache never gathered
+            q_axes = ("batch", None) + q_axes[2:]
+            out = rules.local(
+                _attend_cache_shards,
+                (q_axes, cache_axes, cache_axes, ("batch", "cache_seq")),
+                (q_axes,))(
+                q, cache["k"], cache["v"], valid, scale=scale,
+                softcap=spec.softcap, dtype=x.dtype,
+                reduce=functools.partial(rules.all_reduce,
+                                         logical="cache_seq"))
+        else:
+            out = rules.local(_attend_cache, (q_axes, cache_axes, cache_axes,
+                                              ("batch", None)), (q_axes,))(
+                q, cache["k"], cache["v"], valid, scale=scale,
+                softcap=spec.softcap, dtype=x.dtype)
     else:
         threshold = flags.ATTN_CHUNK_THRESHOLD or CHUNKED_ATTN_THRESHOLD
         # per batch row and head: on a mesh, on each rank's shards

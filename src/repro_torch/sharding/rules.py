@@ -14,10 +14,11 @@ dimension ``d`` maps to that mesh axis, ``Replicate()`` otherwise.  A
 tuple of mesh axes on one tensor dimension (``("pod", "data")``) shards
 that dimension over both, the first axis major, as ``PartitionSpec`` does.
 ``with_sharding_constraint`` becomes a redistribute (:meth:`shard`).
-JAX needs every sharded dimension to divide by its mesh axes; DTensor
-does not, and the rules keep the reference's plan on an uneven axis: the
-dimension is cut as ``torch.chunk`` cuts it (the last shards smaller,
-possibly empty) and every value is the one an even cut would give.
+A dimension that its mesh axes do not divide is left whole on them (the
+one-token ``seq`` of a decode step under the ``long_decode`` plan, which
+puts ``seq`` over the data axes): GSPMD pads such a dimension and
+computes the same values, where DTensor would cut it as ``torch.chunk``
+does and then refuse the views that merge it (a matmul's).
 
 Logical axes used across the stack:
   batch, seq, d_model, heads, kv_heads, head_dim, d_ff, vocab, experts,
@@ -29,6 +30,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 AxisVal = Union[None, str, Tuple[str, ...]]
@@ -62,9 +64,10 @@ class ShardingRules:
         return tuple(self.table.get(a) if a is not None else None
                      for a in logical)
 
-    def placements(self, *logical: Optional[str]) -> tuple:
+    def placements(self, *logical: Optional[str], shape=None) -> tuple:
         """One DTensor placement per mesh dimension for an array whose
-        dimensions carry ``logical``."""
+        dimensions carry ``logical``; given its ``shape``, a dimension
+        that its mesh axes do not divide is left whole."""
         names = tuple(self.mesh.mesh_dim_names)
         out = [Replicate()] * len(names)
         for dim, val in enumerate(self.spec(*logical)):
@@ -74,7 +77,8 @@ class ShardingRules:
                     raise ValueError(f"mesh axis {a!r} shards two dimensions "
                                      f"of {logical}")
                 out[i] = Shard(dim)
-        return tuple(out)
+        out = tuple(out)
+        return out if shape is None else _fit(shape, self.mesh, out)
 
     def sharding(self, *logical: Optional[str]):
         """``(mesh, placements)``, or None without a mesh."""
@@ -101,40 +105,54 @@ class ShardingRules:
         computation independent along its sharded dimensions (attention
         per batch row and head, the GLA scan per head): the values are the
         unsharded ones, no data moves, and DTensor dispatches none of its
-        operations.  Results are taken as evenly sharded, which the plans
-        guarantee: they shard only dimensions the mesh axes divide.  An
-        argument left whole on a mesh axis that another argument is
-        sharded on gets its gradient there as a partial sum (each shard's
-        computation adds its share)."""
+        operations.  A result's dimension is cut as the first argument
+        that carries its logical axis is cut: evenly, or left whole where
+        the mesh axes do not divide it (a dimension whose axis no argument
+        carries is taken as evenly cut).  An argument left whole on a mesh
+        axis that another argument is sharded on gets its gradient there
+        as a partial sum (each shard's computation adds its share)."""
         if self.mesh is None:
             return fn
 
-        # an input left whole on a mesh axis that splits the computation
-        # (another input is sharded on it) gets a partial gradient there
-        names = tuple(self.mesh.mesh_dim_names)
-        split = {a for spec in in_specs if spec is not None
-                 for val in self.spec(*spec) for a in _mesh_axes(val)}
-
-        def grad_placements(spec):
-            return [p if p != Replicate() or names[i] not in split
-                    else Partial()
-                    for i, p in enumerate(self.placements(*spec))]
-
         def run(*args, **kw):
-            local = [a if spec is None or a is None
-                     else self.shard(a, *spec).to_local(
-                         grad_placements=grad_placements(spec))
-                     for a, spec in zip(args, in_specs)]
+            placed = [None if spec is None or a is None
+                      else self.shard(a, *spec)
+                      for a, spec in zip(args, in_specs)]
+            # an input left whole on a mesh axis that splits the
+            # computation (another input is sharded on it) gets a partial
+            # gradient there
+            split = {i for p in placed if p is not None
+                     for i, pl in enumerate(p.placements) if pl.is_shard()}
+            local, lengths = [], {}
+            for a, p, spec in zip(args, placed, in_specs):
+                if p is None:
+                    local.append(a)
+                    continue
+                for axis, n in zip(spec, p.shape):
+                    if axis is not None:
+                        lengths.setdefault(axis, n)
+                local.append(p.to_local(grad_placements=[
+                    Partial() if pl == Replicate() and i in split else pl
+                    for i, pl in enumerate(p.placements)]))
             out = fn(*local, **kw)
             outs = out if isinstance(out, tuple) else (out,)
             placed = tuple(
                 o if spec is None or o is None
-                else DTensor.from_local(o.contiguous(), self.mesh,
-                                        self.placements(*spec),
-                                        run_check=False)
+                else self._from_local(o.contiguous(), spec, lengths)
                 for o, spec in zip(outs, out_specs))
             return placed if isinstance(out, tuple) else placed[0]
         return run
+
+    def _from_local(self, o, spec, lengths):
+        """A DTensor of the local shard ``o`` placed by ``spec``, each
+        sharded dimension cut as its global length in ``lengths`` says
+        (evenly where the axis is not there)."""
+        shape = [lengths.get(axis, n * self.logical_size(axis))
+                 if axis is not None else n
+                 for axis, n in zip(spec, o.shape)]
+        return DTensor.from_local(o, self.mesh,
+                                  self.placements(*spec, shape=shape),
+                                  run_check=False)
 
     def gather_grad(self, x, logical: str):
         """``x`` unchanged; on a mesh its gradient is gathered over the mesh
@@ -178,6 +196,50 @@ class ShardingRules:
 
     def logical_size(self, logical: str) -> int:
         return self.axis_size(self.table.get(logical))
+
+    def shard_range(self, logical: str, length: int) -> Tuple[int, int]:
+        """``(offset, length)`` of this rank's shard of a dimension of
+        ``length`` carrying ``logical``: ``(0, length)`` where the axis is
+        not sharded or does not divide it (the dimension is left whole).
+        Over two mesh axes (``('pod', 'data')``) the first is the outer
+        index, as in ``PartitionSpec`` and DTensor's cut."""
+        n = self.logical_size(logical)
+        if n == 1 or length % n:
+            return 0, length
+        names = tuple(self.mesh.mesh_dim_names)
+        coord = self.mesh.get_coordinate()
+        index = 0
+        for a in _mesh_axes(self.table.get(logical)):
+            i = names.index(a)
+            index = index * self.mesh.shape[i] + coord[i]
+        return index * (length // n), length // n
+
+    def all_reduce(self, x, op: str, logical: str):
+        """A plain tensor reduced (``op``: ``"sum"`` or ``"max"``) over the
+        ranks that hold the shards of ``logical``, one functional
+        all-reduce per mesh axis it maps to (``sharding.wire`` counts
+        each): the identity where the axis is not sharded."""
+        if self.mesh is None:
+            return x
+        names = tuple(self.mesh.mesh_dim_names)
+        for a in _mesh_axes(self.table.get(logical)):
+            i = names.index(a)
+            if self.mesh.shape[i] > 1:
+                x = funcol.all_reduce(x, op, (self.mesh, i))
+                if isinstance(x, funcol.AsyncCollectiveTensor):
+                    x = x.wait()
+        return x
+
+
+def _fit(shape, mesh, placements) -> tuple:
+    """``placements`` with every tensor dimension that the product of its
+    mesh axes does not divide left whole (``Replicate``) on them."""
+    cut = {}
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            cut[p.dim] = cut.get(p.dim, 1) * mesh.shape[i]
+    return tuple(Replicate() if p.is_shard() and shape[p.dim] % cut[p.dim]
+                 else p for p in placements)
 
 
 def _dense(g):
@@ -238,7 +300,7 @@ def _place(x, mesh, placements):
     if not isinstance(x, DTensor):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
-    return _Constrain.apply(x, tuple(placements))
+    return _Constrain.apply(x, _fit(x.shape, mesh, placements))
 
 
 def place(tree: Any, shardings: Any):

@@ -12,12 +12,14 @@ all-gathers of CUDA tensors to that call, and times every collective
 DTensor issues (all-gather, reduce-scatter, all-reduce, all-to-all):
 :data:`WIRE` holds the calls and the bytes each rank hands over, in all
 and by collective, and the wall seconds until the result is on the device
-(host staging included).  A collective's seconds include waiting for the
-slowest peer.  A collective that DTensor builds from another (on a CPU
-mesh ``shard_dim_alltoall`` is an all-gather and a chunk) counts once,
-under the outer name.  The dry run (``launch/dryrun.py``) counts a step
-with the same wrappers: on fake tensors the collectives move nothing and
-the card is not synchronized.
+(host staging included), in all and by collective.  The context-parallel
+attention's all-reduces (``ShardingRules.all_reduce``) go through the same
+functional collectives and count here too.  A collective's seconds
+include waiting for the slowest peer.  A collective that DTensor builds
+from another (on a CPU mesh ``shard_dim_alltoall`` is an all-gather and a
+chunk) counts once, under the outer name.  The dry run
+(``launch/dryrun.py``) counts a step with the same wrappers: on fake
+tensors the collectives move nothing and the card is not synchronized.
 """
 from __future__ import annotations
 
@@ -40,13 +42,16 @@ class WireStats:
     bytes: int = 0
     bytes_by: dict = dataclasses.field(default_factory=dict)
     seconds: float = 0.0
+    seconds_by: dict = dataclasses.field(default_factory=dict)
 
     def reset(self) -> None:
-        self.calls, self.bytes, self.bytes_by, self.seconds = {}, 0, {}, 0.0
+        self.calls, self.bytes, self.bytes_by = {}, 0, {}
+        self.seconds, self.seconds_by = 0.0, {}
 
     def snapshot(self) -> dict:
         return {"calls": dict(self.calls), "bytes": self.bytes,
-                "bytes_by": dict(self.bytes_by), "seconds": self.seconds}
+                "bytes_by": dict(self.bytes_by), "seconds": self.seconds,
+                "seconds_by": dict(self.seconds_by)}
 
 
 WIRE = WireStats()
@@ -93,7 +98,9 @@ def _timed(name, fn):
         WIRE.calls[name] = WIRE.calls.get(name, 0) + 1
         WIRE.bytes += n
         WIRE.bytes_by[name] = WIRE.bytes_by.get(name, 0) + n
-        WIRE.seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        WIRE.seconds += dt
+        WIRE.seconds_by[name] = WIRE.seconds_by.get(name, 0.0) + dt
         return out
     run.wire_original = fn
     return run

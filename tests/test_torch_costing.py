@@ -252,3 +252,19 @@ def test_set_flag_behaves_as_the_references():
         for n, (ours, theirs) in saved.items():
             setattr(flags, n, ours)
             setattr(ref_flags, n, theirs)
+
+
+def test_metadata_queries_are_neither_reads_nor_bytes():
+    """``prim.device`` (DTensor asks it of fake tensors) moves no bytes and
+    does not make its input an argument the step reads; an operation on an
+    argument does both."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.costing import CostMode
+    with FakeTensorMode():
+        x, unread = torch.empty(1000), torch.empty(10)
+        with CostMode(inputs=[x, unread]) as mode:
+            torch.ops.prim.device.default(x)
+            torch.ops.prim.device.default(unread)
+            x + 1
+    assert mode.bytes_accessed == 2 * 1000 * 4
+    assert mode.read == {x.untyped_storage()._cdata}

@@ -9,6 +9,15 @@
   0.9), and the plan notes equal the reference's.  Output, alias and temp
   sizes count other things (XLA: a donated, fused program) and are
   printed, not compared.
+* (d) The ``long_decode`` plan (the ``long_500k`` cells' context
+  parallelism): reduced Mixtral-8x22B, RWKV6 and Zamba2, one decode step
+  over a cache of 64 slots on the same (2, 4) mesh, rank 0's argument
+  bytes and the plan notes equal XLA's (an argument the step never reads,
+  RWKV6's ``pos``, is left out, as ``jax.jit`` leaves it out).
+* (e) An argument a step never reads is left out on any plan: reduced
+  Whisper-medium's decode step (2 x 64 cached positions on (2, 4)) reads
+  none of the encoder's weights (its cross attention reads the cached K/V);
+  rank 0's argument bytes equal XLA's.
 * (f) Skips: the port skips exactly the cells the reference's
   ``cell_applicability`` skips, with the same text, for every arch and
   shape.
@@ -28,6 +37,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ("yi-6b", "zamba2-1.2b", "deepseek-moe-16b")
+LONG = ("mixtral-8x22b", "rwkv6-1.6b", "zamba2-1.2b")   # as "l:<arch>"
+UNREAD = ("whisper-medium",)   # as "d:<arch>": decode leaves an input unread
 
 REFERENCE = r"""
 import os, sys
@@ -41,16 +52,20 @@ import repro.launch.dryrun as jd
 mesh = jax.make_mesh((2, 4), ("data", "model"),
                      axis_types=(AxisType.Auto,) * 2)
 jd.SHAPES["t"] = ShapeSpec("t", "train", 64, 4)
+jd.SHAPES["l"] = ShapeSpec("l", "long_decode", 64, 1)
+jd.SHAPES["d"] = ShapeSpec("d", "decode", 64, 2)
 out = {}
-for arch in sys.argv[1:]:
+for key in sys.argv[1:]:
+    shape, arch = key.split(":") if ":" in key else ("t", key)
     cfg = get_reduced(arch)
     jd.get_config = lambda a, cfg=cfg: cfg
-    (fn, args, shardings, donate, ctx), skip = jd.build_cell(arch, "t", mesh)
+    (fn, args, shardings, donate, ctx), skip = jd.build_cell(arch, shape,
+                                                            mesh)
     with mesh:
         compiled = jax.jit(fn, in_shardings=shardings,
                            donate_argnums=donate).lower(*args).compile()
-    out[arch] = {"memory": jd.memory_analysis_dict(compiled),
-                 "notes": list(ctx["plan_notes"])}
+    out[key] = {"memory": jd.memory_analysis_dict(compiled),
+                "notes": list(ctx["plan_notes"])}
 print("RESULT", json.dumps(out))
 """
 
@@ -59,14 +74,18 @@ import json, sys, tempfile
 from repro_torch.configs import get_reduced
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch import dryrun
+SHAPES = {"t": ShapeSpec("t", "train", 64, 4),
+          "l": ShapeSpec("l", "long_decode", 64, 1),
+          "d": ShapeSpec("d", "decode", 64, 2)}
 out = {}
 with dryrun.fake_process_group(8):
-    for arch in sys.argv[1:]:
-        rec = dryrun.run_cell(arch, ShapeSpec("t", "train", 64, 4),
+    for key in sys.argv[1:]:
+        shape, arch = key.split(":") if ":" in key else ("t", key)
+        rec = dryrun.run_cell(arch, SHAPES[shape],
                               multi_pod=False, out_dir=tempfile.mkdtemp(),
                               device="cpu", cfg=get_reduced(arch),
                               mesh_shape=(2, 4))
-        out[arch] = {"memory": rec.get("memory_analysis"),
+        out[key] = {"memory": rec.get("memory_analysis"),
                      "notes": rec.get("plan_notes"), "ok": rec["ok"],
                      "error": rec.get("error"), "rank": rec["rank"],
                      "chips": rec["chips"], "mesh": rec["mesh"],
@@ -94,7 +113,9 @@ def _result(proc, timeout=600):
 
 @pytest.fixture(scope="module")
 def both():
-    ref, port = _start(REFERENCE, *ARCHS), _start(PORT, *ARCHS)
+    keys = (ARCHS + tuple("l:" + arch for arch in LONG)
+            + tuple("d:" + arch for arch in UNREAD))
+    ref, port = _start(REFERENCE, *keys), _start(PORT, *keys)
     return _result(ref), _result(port)
 
 
@@ -108,6 +129,27 @@ def test_argument_bytes_equal_xla(both, arch):
         ref["memory"]["argument_size_in_bytes"]
     assert port["notes"] == ref["notes"]
     assert port["collectives"]["total_operand_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", LONG)
+def test_long_decode_argument_bytes_equal_xla(both, arch):
+    ref, port = both[0]["l:" + arch], both[1]["l:" + arch]
+    assert port["ok"], port["error"]
+    print(arch, "XLA", ref["memory"], "port", port["memory"])
+    assert port["memory"]["argument_size_in_bytes"] == \
+        ref["memory"]["argument_size_in_bytes"]
+    assert port["notes"] == ref["notes"]
+    assert "long_500k: context-parallel (seq/cache over data axes)" in \
+        port["notes"]
+
+
+@pytest.mark.parametrize("arch", UNREAD)
+def test_unread_arguments_are_left_out_as_xla_does(both, arch):
+    ref, port = both[0]["d:" + arch], both[1]["d:" + arch]
+    assert port["ok"], port["error"]
+    print(arch, "XLA", ref["memory"], "port", port["memory"])
+    assert port["memory"]["argument_size_in_bytes"] == \
+        ref["memory"]["argument_size_in_bytes"]
 
 
 def test_skips_are_the_references():
